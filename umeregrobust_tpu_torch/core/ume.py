@@ -1,0 +1,78 @@
+"""Universal Manifold Embedding (UME) core (port of
+umeregrobust_tpu/core/ume.py): subspace projections, subspace distances
+and the closed-form rigid estimator from matched UME pairs."""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from umeregrobust_tpu_torch.core.so3 import gram_schmidt, kabsch_rotation
+
+__all__ = ["subspace_projection", "projection_packed", "ume_distance",
+           "estimate_rigid_from_ume", "ume_validity_mask"]
+
+
+def subspace_projection(F: torch.Tensor) -> torch.Tensor:
+    """P = Q Q^T onto the column space of (..., d, 4) F. (..., d, d)."""
+    Q = gram_schmidt(F)
+    return Q @ Q.transpose(-1, -2)
+
+
+def projection_packed(F: torch.Tensor) -> torch.Tensor:
+    """[diag(P) | sqrt(2) * offdiag(P)]: inner products of packed vectors
+    equal the Frobenius inner products of the full projections."""
+    P = subspace_projection(F)
+    d = P.shape[-1]
+    iu = torch.triu_indices(d, d, offset=1, device=F.device)
+    ar = torch.arange(d, device=F.device)
+    diag = P[..., ar, ar]
+    off = P[..., iu[0], iu[1]] * math.sqrt(2.0)
+    return torch.cat([diag, off], dim=-1)
+
+
+def ume_distance(ume1: torch.Tensor, ume2: torch.Tensor) -> torch.Tensor:
+    """Elementwise (matched-pair) subspace distance."""
+    diff = subspace_projection(ume1) - subspace_projection(ume2)
+    return torch.sqrt(torch.sum(diff * diff, dim=(-2, -1))) / math.sqrt(2.0)
+
+
+def estimate_rigid_from_ume(
+    G: torch.Tensor, H: torch.Tensor, compute_distance: bool = True,
+    sweeps: int = 6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form rigid transforms from matched (B, d, 4) UME pairs;
+    G = UME(source), H = UME(target), T maps source into target.
+    Returns (T (B, 4, 4), D (B,) matched distances or zeros)."""
+    G = G.to(torch.float32)
+    H = H.to(torch.float32)
+    mg, mh = G[..., :, 0:1], H[..., :, 0:1]
+    g, h = G[..., :, 1:], H[..., :, 1:]
+    mg_sq = torch.sum(mg * mg, dim=-2, keepdim=True) + 1e-16
+    mg_mh = torch.sum(mg * mh, dim=-2, keepdim=True)
+    gmg = torch.sum(g * mg, dim=-2, keepdim=True)
+    hmg = torch.sum(h * mg, dim=-2, keepdim=True)
+    wlc = gmg / (mg_sq + 1e-16)
+    wrc = hmg / (mg_mh + 1e-16)
+    left = g - wlc * mg
+    right = h - wrc * mh
+    Hcov = left.transpose(-1, -2) @ right
+    R = kabsch_rotation(Hcov, sweeps=sweeps)
+    b2 = wrc - wlc @ R.transpose(-1, -2)
+    if compute_distance:
+        D = ume_distance(H, G)
+    else:
+        D = torch.zeros(G.shape[:-2], dtype=torch.float32, device=G.device)
+    T = torch.zeros(G.shape[:-2] + (4, 4), dtype=torch.float32,
+                    device=G.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = b2[..., 0, :]
+    T[..., 3, 3] = 1.0
+    return T, D
+
+
+def ume_validity_mask(F: torch.Tensor, svd_thr: float = 1e-5) -> torch.Tensor:
+    """Full-rank check: all 4 singular values above threshold."""
+    s = torch.linalg.svdvals(F.to(torch.float32))
+    return torch.sum(s > svd_thr, dim=-1) == 4

@@ -1,0 +1,73 @@
+"""Capped ball-query UME moments: wrapper of the CUDA kernel
+csrc/ume_moments.cu and its plain PyTorch version (port of
+umeregrobust_tpu/ops/pallas_ume.py).
+
+out[k] = sum_n w[k, n] * Z[n], w[k, n] = 1 iff point n is valid, lies
+within `radius` of keypoint k (direct-difference distance), and is among
+the first `max_nn` such points in index order. On a CPU tensor the
+wrapper runs the plain version; on a CUDA tensor it launches the kernel
+or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from umeregrobust_tpu_torch.ops import _build
+from umeregrobust_tpu_torch.ops.neighbors import sqdist3
+
+__all__ = ["ume_moments_fused", "ume_moments_plain", "LAUNCHES"]
+
+LAUNCHES = 0  # kernel launches by ume_moments_fused
+
+
+def _r2(radius: float) -> torch.Tensor:
+    return torch.tensor(float(radius) ** 2, dtype=torch.float32)
+
+
+def ume_moments_plain(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
+                      p_mask: torch.Tensor, radius: float, max_nn: int,
+                      chunk: int = 256) -> torch.Tensor:
+    """(M, 4C) fp32 capped moments, chunked over keypoints."""
+    r2 = _r2(radius).to(pts.device)
+    pts = pts.to(torch.float32)
+    Z = Z.to(torch.float32)
+    out = []
+    for s in range(0, kpts.shape[0], chunk):
+        ok = (sqdist3(kpts[s:s + chunk].to(torch.float32), pts) <= r2) \
+            & p_mask[None, :]
+        cum = torch.cumsum(ok.to(torch.int32), dim=1)
+        w = (ok & (cum <= max_nn)).to(torch.float32)
+        out.append(w @ Z)
+    if not out:
+        return torch.zeros((0, Z.shape[1]), dtype=torch.float32,
+                           device=Z.device)
+    return torch.cat(out)
+
+
+def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
+                      p_mask: torch.Tensor, radius: float,
+                      max_nn: int) -> torch.Tensor:
+    """Capped UME moments (M, 4C) f32 with 4C = 128. kpts (M, 3) f32,
+    pts (N, 3) f32, Z (N, 4C) f32, p_mask (N,) bool."""
+    global LAUNCHES
+    if kpts.device.type == "cpu":
+        return ume_moments_plain(kpts, pts, Z, p_mask, radius, max_nn)
+    dev = kpts.device
+    lib = _build.load_library()  # raises if it cannot be built
+    if dev.type != "cuda":
+        raise ValueError(f"ume_moments_fused runs on CUDA or CPU tensors, not {dev}")
+    M, N = kpts.shape[0], pts.shape[0]
+    _build.require(kpts, "kpts", torch.float32, (None, 3), dev)
+    _build.require(pts, "pts", torch.float32, (None, 3), dev)
+    _build.require(Z, "Z", torch.float32, (N, 128), dev)
+    _build.require(p_mask, "p_mask", torch.bool, (N,), dev)
+    out = torch.empty((M, 128), dtype=torch.float32, device=dev)
+    if M == 0:
+        return out
+    code = lib.umr_ume_moments(
+        kpts.data_ptr(), pts.data_ptr(), Z.data_ptr(), p_mask.data_ptr(),
+        out.data_ptr(), M, N, 128, float(_r2(radius)), int(max_nn),
+        _build.stream_of(dev))
+    _build.check(lib, code, "ume_moments_fused")
+    LAUNCHES += 1
+    return out

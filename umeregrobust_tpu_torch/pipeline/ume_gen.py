@@ -1,0 +1,53 @@
+"""UME descriptor generation by capped ball-query moment accumulation
+(port of umeregrobust_tpu/pipeline/ume_gen.py).
+
+F[k] = sum_n w[k, n] [f_n | f_n x_n | f_n y_n | f_n z_n], w[k, n] = 1 iff
+point n lies within the radius of keypoint k and is among the first
+max_nn such points in index order (PyTorch3D ball_query capping). The
+accumulation always goes through the kernel wrapper ops/cuda_ume: the
+CUDA kernel on CUDA tensors (it raises for widths other than 4C = 128),
+its plain version on CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from umeregrobust_tpu_torch.ops.cuda_ume import ume_moments_fused
+
+__all__ = ["ume_from_ball_query"]
+
+
+def ume_from_ball_query(
+    pts: torch.Tensor,
+    feats: torch.Tensor,
+    kpts: torch.Tensor,
+    radius: float,
+    max_nn: int,
+    p_mask: Optional[torch.Tensor] = None,
+    k_mask: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """(M, C, 4) fp32 UME moment matrices [m0 | m1] for every keypoint,
+    normalised by the total zeroth moment. feats (N, C) must be zero on
+    invalid rows."""
+    N, C = feats.shape
+    M = kpts.shape[0]
+    pts = pts.to(torch.float32).contiguous()
+    f = feats.to(torch.float32)
+    if p_mask is not None:
+        f = f * p_mask[:, None]
+    Z = torch.cat([f, f * pts[:, 0:1], f * pts[:, 1:2], f * pts[:, 2:3]],
+                  dim=1).contiguous()
+    pm = (p_mask if p_mask is not None
+          else torch.ones(N, dtype=torch.bool, device=pts.device))
+    F = ume_moments_fused(kpts.to(torch.float32).contiguous(), pts, Z,
+                          pm.contiguous(), radius=float(radius),
+                          max_nn=int(max_nn))
+    F = F.reshape(M, 4, C).transpose(1, 2)
+    total = torch.sum(F[:, :, 0], dim=-1, keepdim=True)[..., None]
+    F = F / (total + eps)
+    if k_mask is not None:
+        F = F * k_mask[:, None, None]
+    return F
