@@ -10,9 +10,17 @@ Phases (any failure ends the run with a non-zero exit):
      each kernel against its plain PyTorch version (nn1_argmin: identical
      indices; ume_moments_fused: max abs error <= 1e-5 x max |out|;
      corr_scores_fused: max abs error <= 1e-4 x max |score| and the same
-     argmax at every stage's shape), with CUDA-event times (median of 20
-     after warm-up) of kernel, plain version and, where one PyTorch call
-     computes the same function, that call; and each kernel's bound;
+     argmax at every stage's shape; gather_rows: identical rows, at the
+     main path's two shapes and at N = 32768, C = 32 / 128 / 512, fp32 and
+     bf16, random and monotone indices; sparse_conv_rowtile and
+     sparse_conv_tapsplit, each forced: max abs error <= 2e-5 x max |out|
+     with fp32 operands (sums of up to 64,000 fp32 products in another
+     order) and <= 1e-4 x max |out| with bf16-rounded operands, at N =
+     32768, C = 32, K = 27 (int32 map), at a ragged small shape and at
+     three layers of the ResUNet pyramid of the nominal pair (int64
+     maps)), with CUDA-event times (median of 20 after warm-up)
+     of kernel, plain version and, where one PyTorch call computes the
+     same function, that call; and each kernel's bound;
   4. reference: the small pair through the whole path on the card and on
      the CPU (plain versions) with the same injected draws: the same
      transforms;
@@ -22,8 +30,20 @@ Phases (any failure ends the run with a non-zero exit):
      pre-check and a warm-up pair: RRE/RTE and kernel launches per pair,
      pairs/s, peak device memory; the nominal pair must pass NP
      (RRE <= 1.5 deg, RTE <= 0.6 m);
+  5b. family: ResUNet (k7 stem, stride 4, k5 layers, 'BN' blocks; seeded
+     random parameters) at full width through register_pair_e2e on the
+     nominal pair with its default level capacities: finite transforms,
+     unit-norm features, launches of gather_rows and of both conv kernels,
+     which layer took which conv kernel, valid rows per level; the same
+     model's features on a small cloud, card vs CPU plain versions at fp32
+     (max abs <= 1e-4); one ResUNet5 feature stage (grouped and per-tap
+     layers in one model);
+  5c. scan: ResUNetSmall2 with the in-repo weights and conv_impl="scan"
+     (every conv through the per-tap kernels) over phase 5's pairs and
+     seeds: the same NP/SP verdict per pair as the grouped run;
   6. profile (only with --profile): the same pairs, seeds and config
-     again under torch.profiler: per pipeline stage (register_pair_e2e's
+     again under torch.profiler, once with the grouped model and once with
+     the conv_impl="scan" model: per pipeline stage (register_pair_e2e's
      record_function ranges) host ms and the device ms of the kernels
      inside it, device busy ms, the idle share of the profiled wall and,
      as an estimate combining two runs, of phase 5's unprofiled wall;
@@ -44,6 +64,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12  # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor FLOP/s, NVIDIA data sheet
 HBM_BW = 3.35e12  # H100 SXM HBM3 bytes/s
 KERNELS = {  # name -> (source, replaced TPU kernel)
     "nn1_argmin": ("umeregrobust_tpu_torch/csrc/nn1_argmin.cu",
@@ -52,6 +73,12 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                           "umeregrobust_tpu/ops/pallas_ume.py:101"),
     "corr_scores_fused": ("umeregrobust_tpu_torch/csrc/corr_scores.cu",
                           "umeregrobust_tpu/ops/pallas_corr.py:91"),
+    "gather_rows": ("umeregrobust_tpu_torch/csrc/gather_rows.cu",
+                    "tools/exp_gather2.py:107"),
+    "sparse_conv_tapsplit": ("umeregrobust_tpu_torch/csrc/sparse_conv_taps.cu",
+                             "tools/exp_pallas_gather.py:74"),
+    "sparse_conv_rowtile": ("umeregrobust_tpu_torch/csrc/sparse_conv_taps.cu",
+                            "tools/exp_pallas_gather.py:107"),
 }
 
 
@@ -81,9 +108,30 @@ def time_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def bound_ms(n_bytes, n_ops):
-    t_b, t_o = n_bytes / HBM_BW * 1e3, n_ops / F32_PEAK * 1e3
+def bound_ms(n_bytes, n_ops, peak=F32_PEAK):
+    t_b, t_o = n_bytes / HBM_BW * 1e3, n_ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count."""
+    from umeregrobust_tpu_torch.ops import (
+        cuda_conv, cuda_corr, cuda_gather, cuda_nn, cuda_ume)
+
+    return {"nn1_argmin": cuda_nn.LAUNCHES,
+            "ume_moments_fused": cuda_ume.LAUNCHES,
+            "corr_scores_fused": cuda_corr.LAUNCHES,
+            "gather_rows": cuda_gather.LAUNCHES, **cuda_conv.LAUNCHES}
+
+
+def reset_launch_counts():
+    from umeregrobust_tpu_torch.ops import (
+        cuda_conv, cuda_corr, cuda_gather, cuda_nn, cuda_ume)
+
+    for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather):
+        m.LAUNCHES = 0
+    for k in cuda_conv.LAUNCHES:
+        cuda_conv.LAUNCHES[k] = 0
 
 
 def phase_kernels(dev, model, pair, cfg):
@@ -235,6 +283,290 @@ def phase_kernels(dev, model, pair, cfg):
     return out
 
 
+def fused_pair(pair, dev):
+    """Both clouds of a pair in one coordinate set (batch id 1 on the
+    target), as register_pair_e2e feeds the backbone."""
+    import torch
+
+    s, tg = pair["src"], pair["tgt"]
+    tgt = tg["coords"].copy()
+    tgt[:, 0] += tg["mask"]
+    return (torch.as_tensor(np.concatenate([s["coords"], tgt])).to(dev),
+            torch.as_tensor(np.concatenate([s["mask"], tg["mask"]])).to(dev))
+
+
+def phase_kernels_family(dev, pair, cfg):
+    """gather_rows and the two conv kernels vs their plain versions."""
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import (
+        ARCHS, build_unet_geometry, default_level_capacities)
+    from umeregrobust_tpu_torch.ops import cuda_conv, cuda_gather
+
+    rng = np.random.default_rng(0)
+    out = {}
+
+    # --- gather_rows
+    def gather_case(tab, idx, timed=True):
+        a = cuda_gather.gather_rows(tab, idx)
+        b = cuda_gather.gather_rows_plain(tab, idx)
+        torch.cuda.synchronize()
+        mism = int((a != b).any(dim=1).sum())
+        M, C, esz = idx.shape[0], tab.shape[1], tab.element_size()
+        bb, by = bound_ms(2 * M * C * esz + M * idx.element_size(), 0)
+        res = dict(table=f"{tab.shape[0]}x{C}", rows=M,
+                   dtype=str(tab.dtype)[6:], mismatched_rows=mism,
+                   ok=mism == 0, bound_ms=bb, bound_by=by)
+        if timed:
+            safe = idx.clamp(min=0)
+            res.update(
+                ms=time_ms(lambda: cuda_gather.gather_rows(tab, idx)),
+                plain_ms=time_ms(lambda: cuda_gather.gather_rows_plain(tab,
+                                                                       idx)),
+                library_ms=time_ms(lambda: torch.index_select(tab, 0, safe)))
+        return res
+
+    # main-path shapes: the feature transfer (4096 rows of the 16384 x 32
+    # feature table) and feature_spatial_var (49 neighbours of each of
+    # the 1024 anchor points)
+    k = cfg.corr_var_knn - 1
+    S = pair["src"]["corr_pts"].shape[0]
+    G = pair["src"]["grid"].shape[0]
+    main = {}
+    anchors = min(cfg.corr_var_anchors or S, S)
+    for name, n_tab, m in (("feat_to_raw", G, S),
+                           ("spatial_var", S, anchors * k)):
+        tab = torch.as_tensor(rng.standard_normal((n_tab, 32)),
+                              dtype=torch.float32, device=dev)
+        idx = torch.as_tensor(rng.integers(-1, n_tab, m), device=dev)
+        main[name] = gather_case(tab, idx)
+    # the probe script's grid: N = 32768 rows, C = 32 / 128 / 512
+    N = 32768
+    idx_rand = rng.integers(0, N, N)
+    grid = {}
+    for C in (32, 128, 512):
+        for dt in (torch.float32, torch.bfloat16):
+            tab = torch.as_tensor(rng.standard_normal((N, C)),
+                                  dtype=torch.float32, device=dev).to(dt)
+            for kind, ix in (("rand", idx_rand), ("mono", np.sort(idx_rand))):
+                grid[f"C{C}_{str(dt)[6:]}_{kind}"] = gather_case(
+                    tab, torch.as_tensor(ix, device=dev))
+    # odd widths and int32 indices with absent rows: scalar path
+    odd = {f"C{C}_{str(dt)[6:]}_int32": gather_case(
+        torch.as_tensor(rng.standard_normal((1000, C)), dtype=torch.float32,
+                        device=dev).to(dt),
+        torch.as_tensor(rng.integers(-1, 1000, 777), device=dev,
+                        dtype=torch.int32), timed=False)
+        for C in (1, 7) for dt in (torch.float32, torch.bfloat16)}
+    cases = {**main, **grid, **odd}
+    out["gather_rows"] = dict(
+        shape="per pair: " + ", ".join(
+            f"{v['rows']} rows of {v['table']}" for v in main.values()),
+        max_abs_err=float(sum(v["mismatched_rows"] for v in cases.values())),
+        ok=all(v["ok"] for v in cases.values()), bound_by="bytes",
+        cases=cases, **{key: sum(v[key] for v in main.values())
+                        for key in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")})
+
+    # --- the conv kernels
+    def make_maps(K, n):  # the experiment script's self-map model, int32
+        maps = np.full((K, n), -1, np.int32)
+        for t in range(K):
+            hit = rng.random(n) < 0.45
+            maps[t, np.nonzero(hit)[0]] = np.sort(
+                rng.choice(n, size=hit.sum(), replace=False))
+        maps[K // 2] = np.arange(n)
+        return torch.as_tensor(maps, device=dev)
+
+    arch = ARCHS["ResUNet"]
+    coords2, mask2 = fused_pair(pair, dev)
+    caps = tuple(2 * c for c in default_level_capacities(
+        pair["src"]["coords"].shape[0], arch))
+    geom = build_unet_geometry(coords2, mask2, arch, caps)
+    masks = [lv.mask for lv in geom["levels"]]
+
+    def layer(lv, cin, cout):  # encoder conv into level lv, random values
+        in_mask = masks[max(lv - 1, 0)]
+        f = torch.as_tensor(rng.standard_normal((in_mask.shape[0], cin)),
+                            dtype=torch.float32, device=dev) * in_mask[:, None]
+        K = geom["enc_maps"][lv].shape[0]
+        w = torch.as_tensor(rng.standard_normal((K, cin, cout)),
+                            dtype=torch.float32, device=dev) * float(
+                                np.sqrt(2.0 / (K * cin)))
+        return f, w, geom["enc_maps"][lv]
+
+    C = 32
+    layers = {
+        "script_27x32x32": (torch.as_tensor(
+            rng.standard_normal((N, C)), dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.standard_normal((27, C, C)) * 0.1,
+                            dtype=torch.float32, device=dev),
+            make_maps(27, N)),
+        # widths that fill no tile: 77 rows, 3 -> 48 channels, int32 map
+        "ragged_27x3x48": (torch.as_tensor(
+            rng.standard_normal((77, 3)), dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.standard_normal((27, 3, 48)),
+                            dtype=torch.float32, device=dev),
+            make_maps(27, 77)),
+        "resunet_stem_343x1x32": layer(0, 1, 32),
+        "resunet_conv2_125x32x64": layer(1, 32, 64),
+        "resunet_conv6_125x512x1024": layer(5, 512, 1024),
+    }
+    kernels = {"sparse_conv_rowtile": cuda_conv.sparse_conv_rowtile,
+               "sparse_conv_tapsplit": cuda_conv.sparse_conv_tapsplit}
+    per = {name: {} for name in kernels}
+    for lname, (f, w, nbr) in layers.items():
+        K, Cin, Cout = w.shape
+        valid = int((nbr >= 0).sum())
+        n_bytes = (f.numel() + w.numel() + nbr.shape[1] * Cout) * 4 \
+            + nbr.numel() * nbr.element_size()
+        routed = "sparse_conv_" + cuda_conv.choose_kernel(nbr.shape[1], Cout,
+                                                          K)[0]
+        for dt, lim, peak in ((torch.float32, 2e-5, F32_PEAK),
+                              (torch.bfloat16, 1e-4, BF16_PEAK)):
+            ref = cuda_conv.sparse_conv_plain(f, w, nbr, dt)
+            plain = time_ms(lambda: cuda_conv.sparse_conv_plain(f, w, nbr, dt),
+                            reps=5, warmup=1)
+            bb, by = bound_ms(n_bytes, 2 * valid * Cin * Cout, peak)
+            for name, fn in kernels.items():
+                got = fn(f, w, nbr, dt)
+                torch.cuda.synchronize()
+                err, scale = float((got - ref).abs().max()), float(
+                    ref.abs().max())
+                per[name][f"{lname}_{str(dt)[6:]}"] = dict(
+                    layer=lname, operands=str(dt)[6:],
+                    shape=f"K{K} {Cin}->{Cout}, {f.shape[0]}->{nbr.shape[1]} "
+                          f"rows, {valid} valid entries",
+                    max_abs_err=err, scale=scale, limit=lim * scale,
+                    ok=err <= lim * scale and scale > 0,
+                    main_path_kernel=routed == name,
+                    ms=time_ms(lambda: fn(f, w, nbr, dt)), plain_ms=plain,
+                    bound_ms=bb, bound_by=by,
+                    peak="fp32 67 TFLOP/s" if dt == torch.float32
+                    else "bf16 989 TFLOP/s")
+    for name, cases in per.items():
+        # the row: the ResUNet layers that sparse_conv routes to this
+        # kernel, with the main path's bf16-rounded operands
+        real = [v for v in cases.values() if v["operands"] == "bfloat16"
+                and v["layer"].startswith("resunet")]
+        routed_here = [v for v in real if v["main_path_kernel"]]
+        mine = routed_here or real
+        out[name] = dict(
+            shape="ResUNet layers routed here: " + "; ".join(
+                v["shape"] for v in mine),
+            max_abs_err=max(v["max_abs_err"] for v in cases.values()),
+            ok=all(v["ok"] for v in cases.values()) and bool(routed_here),
+            library_ms=None, cases=cases,
+            bound_by=max(mine, key=lambda v: v["bound_ms"])["bound_by"],
+            **{key: sum(v[key] for v in mine)
+               for key in ("ms", "plain_ms", "bound_ms")})
+    return out
+
+
+def pair_args(p):
+    s, tg = p["src"], p["tgt"]
+    return (s["coords"], s["grid"], s["mask"], tg["coords"], tg["grid"],
+            tg["mask"], s["corr_pts"], s["corr_mask"], tg["corr_pts"],
+            tg["corr_mask"])
+
+
+def phase_family(dev, pair, cfg):
+    """ResUNet at full width through register_pair_e2e on the nominal
+    pair; card vs CPU on a small cloud; one ResUNet5 feature stage."""
+    import copy
+
+    import torch
+
+    from umeregrobust_tpu_torch.data.suite import small_pair
+    from umeregrobust_tpu_torch.models.resunet import (
+        ARCHS, build_unet_geometry, default_level_capacities, init_resunet)
+    from umeregrobust_tpu_torch.ops import cuda_conv
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        pair_features_e2e, register_pair_e2e)
+
+    def fresh(name):
+        return init_resunet(ARCHS[name], 1, 32, device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(0))
+
+    def unit_norm(feat, mask):
+        nrm = torch.linalg.vector_norm(feat, dim=1)
+        m = torch.as_tensor(mask, device=dev)
+        return bool(torch.isfinite(feat).all()) and float(
+            (nrm[m] - 1).abs().max()) <= 1e-4 and float(nrm[~m].sum()) == 0.0
+
+    def conv_trace(model, caps):
+        """One feature stage with the conv wrappers' trace on: features
+        and (kernel, layer shape) per launch."""
+        cuda_conv.TRACE = []
+        try:
+            feats = pair_features_e2e(model, caps, *pair_args(pair),
+                                      device=dev)
+            torch.cuda.synchronize()
+            return feats, [dict(kernel=k, rows_in=ni, rows_out=no, cin=ci,
+                                cout=co, taps=kv, segments=sg)
+                           for k, ni, no, ci, co, kv, sg in cuda_conv.TRACE]
+        finally:
+            cuda_conv.TRACE = None
+
+    n0 = pair["src"]["coords"].shape[0]
+    arch = ARCHS["ResUNet"]
+    caps = default_level_capacities(n0, arch)
+    model = fresh("ResUNet")
+    geom = build_unet_geometry(*fused_pair(pair, dev), arch,
+                               tuple(2 * c for c in caps))
+    valid_rows = [int(lv.mask.sum()) for lv in geom["levels"]]
+    del geom
+    feats, trace = conv_trace(model, caps)  # also the warm-up
+    res = dict(arch="ResUNet", caps=caps, valid_rows_per_level=valid_rows,
+               level_full=[v >= 2 * c for v, c in zip(valid_rows, caps)],
+               parameters=sum(p.numel() for p in model.parameters()),
+               conv_layers=trace,
+               unit_norm=unit_norm(feats[0], pair["src"]["mask"])
+               and unit_norm(feats[2], pair["src"]["corr_mask"]))
+    # the counted run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    Ti, Tr = register_pair_e2e(
+        model, caps, cfg, *pair_args(pair), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    res.update(seconds=time.time() - t0, launches=launch_counts(),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               finite=bool(torch.isfinite(Ti).all()
+                           and torch.isfinite(Tr).all()))
+    # the same model on a small cloud: card vs CPU plain versions, fp32
+    small = small_pair(42)
+    caps_s = default_level_capacities(small["src"]["coords"].shape[0], arch)
+    on_card = pair_features_e2e(model, caps_s, *pair_args(small),
+                                compute_dtype=torch.float32, device=dev)
+    cpu_model = copy.deepcopy(model).cpu()
+    del model
+    on_cpu = pair_features_e2e(cpu_model, caps_s, *pair_args(small),
+                               compute_dtype=torch.float32, device="cpu")
+    del cpu_model
+    res["small_cloud_card_vs_cpu_max_abs"] = max(
+        float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    res["small_cloud_limit"] = 1e-4
+    res["small_cloud_unit_norm"] = unit_norm(on_card[0], small["src"]["mask"])
+    # ResUNet5: grouped k=3 layers and per-tap k5 layers in one model
+    arch5 = ARCHS["ResUNet5"]
+    feats5, trace5 = conv_trace(fresh("ResUNet5"),
+                                default_level_capacities(n0, arch5))
+    res["resunet5"] = dict(
+        unit_norm=unit_norm(feats5[0], pair["src"]["mask"]),
+        per_tap_launches=len(trace5), conv_layers=trace5)
+    lc = res["launches"]
+    res["ok"] = bool(
+        res["finite"] and res["unit_norm"] and res["small_cloud_unit_norm"]
+        and res["small_cloud_card_vs_cpu_max_abs"] <= res["small_cloud_limit"]
+        and res["resunet5"]["unit_norm"] and len(trace5) > 0
+        and all(lc[k] > 0 for k in KERNELS))
+    return res
+
+
 def phase_reference(dev, model_gpu, model_cpu, cfg_small):
     """The small pair on the card and on the CPU with the same draws."""
     import torch
@@ -265,8 +597,9 @@ def phase_reference(dev, model_gpu, model_cpu, cfg_small):
     return dict(max_abs_T_init=d_init, max_abs_T_refined=d_ref, ok=ok)
 
 
-def phase_profile(run, pairs, cfg, unprofiled_wall_s):
-    """The e2e pairs again under torch.profiler (same seeds and config)."""
+def phase_profile(run, pairs, cfg, unprofiled_wall_s, model):
+    """The e2e pairs again under torch.profiler (same seeds and config);
+    `model` tags the lines ("grouped" or "scan")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -298,11 +631,11 @@ def phase_profile(run, pairs, cfg, unprofiled_wall_s):
                 per[name]["device_ms"] += k.time_range.elapsed_us() / 1e3
                 break
     for name, v in per.items():
-        emit({"phase": "profile", "stage": name,
+        emit({"phase": "profile", "model": model, "stage": name,
               "host_ms_per_pair_profiled": v["host_ms"] / n,
               "device_ms_per_pair": v["device_ms"] / n})
     unprof_ms = unprofiled_wall_s * 1e3
-    emit({"phase": "profile_summary", "pairs": n,
+    emit({"phase": "profile_summary", "model": model, "pairs": n,
           "icp_budget": cfg.icp_budget,
           "wall_ms_per_pair_profiled": wall_ms / n,
           "device_busy_ms_per_pair": busy_ms / n,
@@ -314,7 +647,7 @@ def phase_profile(run, pairs, cfg, unprofiled_wall_s):
     top = sorted((a for a in prof.key_averages() if a.key not in stages),
                  key=lambda a: -a.self_device_time_total)
     for a in top[:12]:
-        emit({"phase": "profile_op", "op": a.key[:80],
+        emit({"phase": "profile_op", "model": model, "op": a.key[:80],
               "count_per_pair": a.count / n,
               "device_ms_per_pair": a.self_device_time_total / 1e3 / n})
 
@@ -336,7 +669,7 @@ def main() -> int:
         REDUCED, REDUCED_CFG, REGIMES, prep_pair, tuning_seed)
     from umeregrobust_tpu_torch.models.resunet import ARCHS
     from umeregrobust_tpu_torch.models.weights import load_model
-    from umeregrobust_tpu_torch.ops import _build, cuda_corr, cuda_nn, cuda_ume
+    from umeregrobust_tpu_torch.ops import _build
     from umeregrobust_tpu_torch.pipeline.e2e import register_pair_e2e
     from umeregrobust_tpu_torch.pipeline.exactness import (
         escalated_budget, fine_grid_geometry, window_occupancy)
@@ -372,6 +705,7 @@ def main() -> int:
 
     # --- 3. kernels
     kern = phase_kernels(dev, model, pairs[0], cfg)
+    kern.update(phase_kernels_family(dev, pairs[0], cfg))
     for name, res in kern.items():
         emit({"kernel": name, **res})
 
@@ -399,71 +733,115 @@ def main() -> int:
     if worst_box != 0 or worst_win > cfg.icp_budget:
         raise RuntimeError("ICP grid does not cover the suite clouds")
 
-    def run(p, seed):
+    def run(p, seed, model=model):
         g = torch.Generator(device=dev).manual_seed(seed)
-        s, tg = p["src"], p["tgt"]
-        return register_pair_e2e(
-            model, REDUCED["caps"], cfg, s["coords"], s["grid"], s["mask"],
-            tg["coords"], tg["grid"], tg["mask"], s["corr_pts"],
-            s["corr_mask"], tg["corr_pts"], tg["corr_mask"], generator=g,
-            device=dev)
+        return register_pair_e2e(model, REDUCED["caps"], cfg, *pair_args(p),
+                                 generator=g, device=dev)
 
-    run(pairs[0], 0)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    mods = {"nn1_argmin": cuda_nn, "ume_moments_fused": cuda_ume,
-            "corr_scores_fused": cuda_corr}
-    for m in mods.values():
-        m.LAUNCHES = 0
-    wall, results = 0.0, []
-    for i, (name, p) in enumerate(zip(names, pairs)):
-        before = {k: m.LAUNCHES for k, m in mods.items()}
+    def run_suite(model, phase):
+        """The four regime pairs through `model` after a warm-up pair:
+        per-pair results and the launch counts of the timed run."""
+        run(pairs[0], 0, model)
         torch.cuda.synchronize()
-        t0 = time.time()
-        _, T = run(p, i)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        wall += dt
-        launches = {k: m.LAUNCHES - before[k] for k, m in mods.items()}
-        T = T.double().cpu()
-        gt = torch.as_tensor(p["gt"], dtype=torch.float64)
-        rre = float(relative_rotation_error(gt[:3, :3], T[:3, :3]))
-        rte = float(torch.linalg.vector_norm(T[:3, 3] - gt[:3, 3]))
-        res = dict(pair=i, regime=name, seed=tuning_seed(name), rre_deg=rre,
-                   rte_m=rte, np_pass=rre <= 1.5 and rte <= 0.6,
-                   sp_pass=rre <= 1.0 and rte <= 0.1, seconds=dt,
-                   launches=launches, finite=bool(torch.isfinite(T).all()))
-        emit({"phase": "e2e", **res})
-        results.append(res)
-    total_launches = {k: m.LAUNCHES for k, m in mods.items()}
-    emit({"phase": "e2e_summary", "pairs": len(results),
-          "pairs_per_s": len(results) / wall, "wall_s": wall,
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "np_recall": float(np.mean([r["np_pass"] for r in results])),
-          "sp_recall": float(np.mean([r["sp_pass"] for r in results])),
-          "seconds_total": time.time() - t_start})
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        wall, results = 0.0, []
+        for i, (name, p) in enumerate(zip(names, pairs)):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, T = run(p, i, model)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            wall += dt
+            launches = {k: v - before[k] for k, v in launch_counts().items()}
+            T = T.double().cpu()
+            gt = torch.as_tensor(p["gt"], dtype=torch.float64)
+            rre = float(relative_rotation_error(gt[:3, :3], T[:3, :3]))
+            rte = float(torch.linalg.vector_norm(T[:3, 3] - gt[:3, 3]))
+            res = dict(pair=i, regime=name, seed=tuning_seed(name),
+                       rre_deg=rre, rte_m=rte,
+                       np_pass=rre <= 1.5 and rte <= 0.6,
+                       sp_pass=rre <= 1.0 and rte <= 0.1, seconds=dt,
+                       launches=launches,
+                       finite=bool(torch.isfinite(T).all()))
+            emit({"phase": phase, **res})
+            results.append(res)
+        total = launch_counts()
+        emit({"phase": f"{phase}_summary", "pairs": len(results),
+              "pairs_per_s": len(results) / wall, "wall_s": wall,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "np_recall": float(np.mean([r["np_pass"] for r in results])),
+              "sp_recall": float(np.mean([r["sp_pass"] for r in results])),
+              "launches": total, "seconds_total": time.time() - t_start})
+        return results, total, wall
+
+    results, e2e_launches, wall = run_suite(model, "e2e")
+
+    # --- 5b. the ResUNet family at full width
+    fam = phase_family(dev, pairs[0], cfg)
+    emit({"phase": "family", **fam})
+
+    # --- 5c. every conv of ResUNetSmall2 through the per-tap kernels
+    scan_model = load_model(weights, ARCHS["ResUNetSmall2"], device=dev,
+                            conv_impl="scan")
+    scan_results, scan_launches, scan_wall = run_suite(scan_model, "scan")
+    emit({"phase": "scan_vs_grouped", "pairs": [
+        dict(regime=g["regime"], d_rre_deg=abs(g["rre_deg"] - sc["rre_deg"]),
+             d_rte_m=abs(g["rte_m"] - sc["rte_m"]),
+             same_verdict=(g["np_pass"], g["sp_pass"]) == (sc["np_pass"],
+                                                           sc["sp_pass"]))
+        for g, sc in zip(results, scan_results)],
+        "pairs_per_s_grouped": len(results) / wall,
+        "pairs_per_s_scan": len(scan_results) / scan_wall})
+    paths = {"e2e": e2e_launches, "family": fam["launches"],
+             "scan": scan_launches}
     if args.profile:
-        phase_profile(run, pairs, cfg, wall)
+        phase_profile(run, pairs, cfg, wall, "grouped")
+        phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
+                      scan_wall, "scan")
 
     failures = [f"kernel {k}" for k, v in kern.items() if not v["ok"]]
     if not ref["ok"]:
         failures.append("reference: card and CPU transforms differ")
-    for r in results:
+    for r in results + scan_results:
         lc = r["launches"]
         if not (lc["nn1_argmin"] == 2 and lc["ume_moments_fused"] == 2
-                and lc["corr_scores_fused"] >= 3):
+                and lc["corr_scores_fused"] >= 3 and lc["gather_rows"] >= 4):
             failures.append(f"pair {r['pair']}: launches {lc}")
         if not r["finite"]:
             failures.append(f"pair {r['pair']}: non-finite transform")
     if not results[0]["np_pass"]:
         failures.append("nominal pair fails NP")
+    if not fam["ok"]:
+        failures.append("family phase (ResUNet through register_pair_e2e)")
+    if not scan_results[0]["np_pass"]:
+        failures.append("nominal pair fails NP with conv_impl='scan'")
+    for g, sc in zip(results, scan_results):
+        if (g["np_pass"], g["sp_pass"]) != (sc["np_pass"], sc["sp_pass"]):
+            failures.append(f"pair {g['pair']}: scan verdict differs")
+        if sc["launches"]["sparse_conv_rowtile"] == 0:
+            failures.append(f"pair {g['pair']}: scan ran no per-tap kernel")
+    # a kernel of a path must have launched in that path's counted run
+    on_path = {"e2e": ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
+                       "gather_rows"),
+               "family": tuple(KERNELS),
+               "scan": ("nn1_argmin", "ume_moments_fused",
+                        "corr_scores_fused", "gather_rows",
+                        "sparse_conv_rowtile")}
+    for path, names_ in on_path.items():
+        for k in names_:
+            if paths[path][k] <= 0:
+                failures.append(f"{k} never launched on the {path} path")
 
     rows = []
     for name, (src, rep) in KERNELS.items():
         k = kern[name]
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=total_launches[name], max_abs_err=k["max_abs_err"],
+            launches=sum(c[name] for c in paths.values()),
+            launches_by_path={p_: c[name] for p_, c in paths.items()},
+            max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             shape=k["shape"], status="ok" if k["ok"] else "failed"))

@@ -41,3 +41,17 @@ def rot_deg(Ra: np.ndarray, Rb: np.ndarray) -> float:
     s = np.linalg.norm([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0],
                         d[1, 0] - d[0, 1]]) / 2.0
     return float(np.degrees(np.arctan2(s, (np.trace(d) - 1.0) / 2.0)))
+
+
+def voxel_cloud(seed, n_vox=150, cap=192, lim=16):
+    """About n_vox voxels of two clouds in [-lim, lim)^3, padded to cap
+    (the pattern of tests/test_sparse_conv.py's geometry check)."""
+    rng = np.random.default_rng(seed)
+    coords = np.unique(np.concatenate(
+        [rng.integers(0, 2, (2 * n_vox, 1)),
+         rng.integers(-lim, lim, (2 * n_vox, 3))], axis=1).astype(np.int32),
+        axis=0)
+    coords = coords[rng.permutation(len(coords))[:n_vox]]
+    c4 = np.full((cap, 4), 2 ** 20, np.int32)
+    c4[: len(coords)] = coords
+    return c4, np.arange(cap) < len(coords)

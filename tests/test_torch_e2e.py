@@ -68,3 +68,55 @@ def test_register_pair_e2e_matches_jax():
     # and both register the pair (sanity: the slice does real work)
     assert rot_deg(Tr[:3, :3], pair["gt"][:3, :3]) < 1.0
     assert np.linalg.norm(Tr[:3, 3] - pair["gt"][:3, 3]) < 0.2
+
+
+def _pair_args(pair):
+    s, tg = pair["src"], pair["tgt"]
+    return (s["coords"], s["grid"], s["mask"], tg["coords"], tg["grid"],
+            tg["mask"], s["corr_pts"], s["corr_mask"], tg["corr_pts"],
+            tg["corr_mask"])
+
+
+def test_scan_model_registers_like_the_grouped_model():
+    """The per-tap conv on every layer (conv_impl="scan") through the
+    whole path gives the grouped model's transforms with the same draws."""
+    cfg = RegistrationConfig(**dict(SMALL_CFG, filter_mode="topk"))
+    pair = small_pair(42)
+    rng = np.random.default_rng(0)
+    draws = {k: rng.permutation(np.flatnonzero(pair[tag]["mask"]))[
+        :cfg.num_init_keypoints] for k, tag in (("src_kp", "src"),
+                                                ("tgt_kp", "tgt"))}
+    out = {}
+    for impl in ("grouped", "scan"):
+        model = load_model(WEIGHTS, ARCHS["ResUNetSmall2"], conv_impl=impl)
+        out[impl] = [n(x) for x in register_pair_e2e(
+            model, CAPS, cfg, *_pair_args(pair), compute_dtype=torch.float32,
+            draws=draws, device="cpu")]
+    np.testing.assert_allclose(out["scan"][0], out["grouped"][0], atol=1e-4)
+    np.testing.assert_allclose(out["scan"][1], out["grouped"][1], atol=1e-4)
+    assert rot_deg(out["scan"][1][:3, :3], pair["gt"][:3, :3]) < 1.0
+
+
+def test_pair_features_e2e_matches_jax():
+    from umeregrobust_tpu.pipeline.e2e import pair_features_e2e as jax_feats
+    from umeregrobust_tpu_torch.pipeline.e2e import pair_features_e2e
+
+    pair = small_pair(42)
+    blob = jax_load(WEIGHTS)
+    want = jax_feats(blob["params"], blob["bn_state"],
+                     JARCHS["ResUNetSmall2"], CAPS,
+                     *(jnp.asarray(a) for a in _pair_args(pair)),
+                     compute_dtype=jnp.float32)
+    got = pair_features_e2e(load_model(WEIGHTS, ARCHS["ResUNetSmall2"]), CAPS,
+                            *_pair_args(pair), compute_dtype=torch.float32,
+                            device="cpu")
+    assert len(got) == 4
+    for name, g, w in zip(("src", "tgt", "corr_src", "corr_tgt"), got, want):
+        g, w = n(g), np.asarray(w)
+        assert g.shape == w.shape and g.dtype == np.float32, name
+        np.testing.assert_allclose(g, w, atol=2e-4, err_msg=name)
+    # transferred rows are unit-norm copies on valid rows, zero elsewhere
+    cm = pair["src"]["corr_mask"]
+    norms = np.linalg.norm(n(got[2]), axis=1)
+    np.testing.assert_allclose(norms[cm], 1.0, atol=1e-5)
+    assert np.all(norms[~cm] == 0)

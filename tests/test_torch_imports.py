@@ -2,7 +2,9 @@
 module pulls in neither jax nor the JAX package; no source of the port or
 of chip_smoke.py imports them; the entry point refuses to run without a
 GPU unless asked for the CPU; a kernel wrapper given a non-CPU tensor
-raises when the kernel library cannot be built."""
+raises when the kernel library cannot be built; every kernel that
+chip_smoke.py lists has its CUDA source and its C entry point."""
+import importlib.util
 import pathlib
 import re
 import subprocess
@@ -12,7 +14,10 @@ import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (single-threaded torch)
-from umeregrobust_tpu_torch.ops import _build, cuda_corr, cuda_nn, cuda_ume
+from umeregrobust_tpu_torch.ops import (
+    _build, cuda_conv, cuda_corr, cuda_gather, cuda_nn, cuda_ume)
+from umeregrobust_tpu_torch.ops.neighbors import gather_padded
+from umeregrobust_tpu_torch.ops.sparse import sparse_conv
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "umeregrobust_tpu_torch"
@@ -34,7 +39,9 @@ def test_importing_every_module_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert len(MODULES) >= 25
+    assert len(MODULES) >= 27
+    for new in ("ops.cuda_gather", "ops.cuda_conv"):
+        assert f"umeregrobust_tpu_torch.{new}" in MODULES
 
 
 _FORBIDDEN = re.compile(
@@ -106,10 +113,65 @@ def test_load_library_raises_without_nvcc(no_nvcc):
     lambda d: cuda_corr.corr_scores_fused(
         torch.zeros(2, 8, 4, device=d), torch.zeros(8, 32, device=d),
         torch.zeros(16, 4, device=d), torch.zeros(16, 32, device=d)),
-], ids=["nn1_argmin", "ume_moments_fused", "corr_scores_fused"])
+    lambda d: cuda_gather.gather_rows(
+        torch.zeros(8, 4, device=d), torch.zeros(5, dtype=torch.int64,
+                                                 device=d)),
+    lambda d: gather_padded(torch.zeros(8, 4, device=d),
+                            torch.zeros((5, 2), dtype=torch.int64, device=d)),
+    lambda d: cuda_conv.sparse_conv_rowtile(
+        torch.zeros(8, 4, device=d), torch.zeros(27, 4, 6, device=d),
+        torch.zeros((27, 8), dtype=torch.int64, device=d)),
+    lambda d: cuda_conv.sparse_conv_tapsplit(
+        torch.zeros(8, 4, device=d), torch.zeros(27, 4, 6, device=d),
+        torch.zeros((27, 8), dtype=torch.int64, device=d)),
+    lambda d: sparse_conv(
+        torch.zeros(8, 4, device=d), torch.zeros(125, 4, 6, device=d),
+        torch.zeros((125, 8), dtype=torch.int64, device=d),
+        compute_dtype=torch.bfloat16),
+], ids=["nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
+        "gather_padded", "sparse_conv_rowtile", "sparse_conv_tapsplit",
+        "sparse_conv"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
     with pytest.raises(RuntimeError, match="nvcc not found"):
         call("meta")
     assert call("cpu").device.type == "cpu"  # CPU tensors: plain version
+
+
+def test_gather_padded_on_the_card_takes_no_third_path(no_nvcc):
+    # a CUDA-side table of another shape or a non-zero fill raises before
+    # any kernel is looked for; nothing falls back to the plain version
+    with pytest.raises(ValueError, match="fill 0"):
+        gather_padded(torch.zeros(8, 4, device="meta"),
+                      torch.zeros(5, dtype=torch.int64, device="meta"),
+                      fill=1.0)
+    with pytest.raises(ValueError, match="2-D table"):
+        gather_padded(torch.zeros(8, device="meta"),
+                      torch.zeros(5, dtype=torch.int64, device="meta"))
+
+
+def _chip_smoke_kernels():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # imports the standard library and numpy
+    return mod.KERNELS
+
+
+def test_every_listed_kernel_has_a_source_and_an_entry_point():
+    kernels = _chip_smoke_kernels()
+    assert sorted(kernels) == sorted([
+        "nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
+        "sparse_conv_rowtile", "sparse_conv_tapsplit"])
+    entry = {"ume_moments_fused": "umr_ume_moments",
+             "corr_scores_fused": "umr_corr_scores"}
+    for name, (source, replaces) in kernels.items():
+        src = ROOT / source
+        assert src.parent == PKG / "csrc" and src.suffix == ".cu", name
+        fn = entry.get(name, f"umr_{name}")
+        assert fn in _build._SIGNATURES, name
+        assert f"UMR_EXPORT int {fn}(" in src.read_text(), name
+        tpu_file, line = replaces.split(":")
+        text = (ROOT / tpu_file).read_text().splitlines()
+        assert "def " in text[int(line) - 1], (name, replaces)

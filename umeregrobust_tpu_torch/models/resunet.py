@@ -1,16 +1,21 @@
-"""The sparse ResUNet "coloring" backbone (port of
-umeregrobust_tpu/models/resunet.py, eval mode, all-k3 archs).
+"""The sparse ResUNet "coloring" backbone family (port of
+umeregrobust_tpu/models/resunet.py, eval mode): ResUNet, ResUNet2..5 (6
+levels) and ResUNetSmall, ResUNetSmall2 (5 levels).
 
-Architecture: encoder level i = conv (k3, stride s_i) -> BN -> residual
+Architecture: encoder level i = conv (k_i, stride s_i) -> BN -> residual
 block -> skip -> relu; decoder level = transposed conv -> BN -> block ->
 relu -> cat(skip); head = 1x1 mlp -> relu -> 1x1 final (+bias) -> row
-L2 normalisation. The geometry (coordinate pyramid + grouped kernel maps)
-is built once per forward input by `build_unet_geometry` with the rank-
-join fast path of the JAX package.
+L2 normalisation. The geometry (coordinate pyramid + kernel maps) is built
+once per forward input by `build_unet_geometry`: all-k3 archs take the
+rank-join fast path, the others the generic exact-match join. k=3 layers
+run the grouped-window conv (PyTorch ops), k5/k7 layers and
+`conv_impl="scan"` the per-tap conv (`ops.sparse.sparse_conv`, the CUDA
+kernels of ops/cuda_conv.py on the card).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,11 +23,16 @@ from torch import nn
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, pack_code, sorted_join_rank)
 from umeregrobust_tpu_torch.ops.sparse import (
-    WINDOW_PAD, GroupedMap, Level, code_window_table, downsample_coords,
-    group_kernel_map, masked_batch_norm, round_to, sort_level,
-    sparse_conv_grouped, ungroup_kernel_map, window_probe)
+    WINDOW_PAD, GroupedMap, Level, build_level_maps, code_window_table,
+    downsample_coords, group_kernel_map, interface_candidates,
+    invert_map_batch, kernel_offsets, masked_batch_norm, round_to,
+    sort_level, sparse_conv, sparse_conv_grouped, ungroup_kernel_map,
+    window_probe)
 
-__all__ = ["ArchSpec", "ARCHS", "build_unet_geometry", "ResUNet"]
+__all__ = ["ArchSpec", "ARCHS", "CONV_IMPLS", "default_level_capacities",
+           "build_unet_geometry", "ResUNet", "init_resunet"]
+
+CONV_IMPLS = ("grouped", "scan")
 
 
 class ArchSpec(NamedTuple):
@@ -30,13 +40,43 @@ class ArchSpec(NamedTuple):
     tr_channels: Tuple[int, ...]
     kernel_sizes: Tuple[int, ...]
     strides: Tuple[int, ...]
-    block: str  # residual block: 'BN2' (conv-BN-add-relu) is ported
+    block: str  # 'BN' (2-conv residual) or 'BN2' (1-conv residual)
 
 
 ARCHS: Dict[str, ArchSpec] = {
+    "ResUNet": ArchSpec((32, 64, 128, 256, 512, 1024),
+                        (128, 128, 256, 256, 512, 512),
+                        (7, 5, 5, 5, 5, 5), (1, 4, 2, 2, 2, 3), "BN"),
+    "ResUNet2": ArchSpec((32, 64, 128, 256, 512, 1024),
+                         (128, 128, 256, 256, 512, 512),
+                         (5, 5, 5, 5, 5, 5), (1, 2, 2, 2, 2, 3), "BN"),
+    "ResUNet3": ArchSpec((32, 64, 64, 128, 256, 512),
+                         (64, 64, 128, 128, 256, 256),
+                         (5, 5, 5, 5, 5, 5), (1, 2, 2, 2, 2, 3), "BN"),
+    "ResUNet4": ArchSpec((32, 64, 64, 128, 256, 512),
+                         (64, 64, 64, 128, 256, 256),
+                         (3, 3, 3, 5, 5, 5), (1, 2, 2, 2, 2, 3), "BN"),
+    "ResUNet5": ArchSpec((32, 64, 64, 128, 256, 512),
+                         (64, 64, 64, 128, 128, 256),
+                         (3, 3, 3, 5, 5, 5), (1, 2, 2, 2, 2, 3), "BN2"),
+    "ResUNetSmall": ArchSpec((32, 64, 128, 256, 512),
+                             (128, 128, 256, 256, 512),
+                             (3, 3, 3, 3, 3), (1, 2, 2, 2, 3), "BN"),
     "ResUNetSmall2": ArchSpec((32, 64, 64, 128, 256), (64, 64, 64, 128, 128),
                               (3, 3, 3, 3, 3), (1, 2, 2, 2, 3), "BN2"),
 }
+
+
+def default_level_capacities(n0: int, arch: ArchSpec) -> Tuple[int, ...]:
+    """Static per-level voxel capacities: a stride-s downsample of a lidar
+    cloud (a surface) shrinks counts by about s^2; budget s^1.5 and round
+    up to a multiple of 128."""
+    caps = [n0]
+    n = float(n0)
+    for s in arch.strides[1:]:
+        n = n / (s ** 1.5)
+        caps.append(int(-(-int(n + 1) // 128) * 128))
+    return tuple(caps)
 
 _GROUPS8 = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
             if (dx, dy) != (0, 0)]
@@ -171,17 +211,99 @@ def _geometry_fast(levels: List[Level], arch: ArchSpec, ts: List[int]):
     return enc_maps, block_maps, dec_maps, enc_g, block_g, dec_g
 
 
+def _geometry_generic(levels: List[Level], arch: ArchSpec, ts: List[int]):
+    """Exact-match-join geometry for archs with k5/k7 layers. Every lookup
+    against a level joins that level's sorted codes once. Self maps look
+    up only the first half of their centred offset set (the centre tap is
+    the identity and map[K-1-k] is the scatter-inverse of map[k]); strided
+    interfaces are resolved from the fine side, and one lookup yields both
+    the encoder map and its adjoint decoder map. k=3 maps also get the
+    grouped form; k5/k7 maps stay per-tap."""
+    L = len(levels)
+
+    def assemble_self_map(half, level):
+        N = level.coords.shape[0]
+        rows = torch.arange(N, device=half.device)
+        center = torch.where(level.mask, rows, torch.full_like(rows, -1))[None]
+        inv = invert_map_batch(half, N).flip(0)
+        return torch.cat([half, center, inv], dim=0)
+
+    enc_maps: List[Any] = [None] * L
+    block_maps: List[Any] = [None] * L
+    dec_maps: List[Any] = [None] * (L - 1)
+    for lv in range(L):
+        requests, tags = [], []
+        if lv == 0:
+            offs = kernel_offsets(arch.kernel_sizes[0], ts[0])
+            requests.append((levels[0].coords, levels[0].mask,
+                             offs[: len(offs) // 2], +1))
+            tags.append("stem_half")
+        if not (lv == 0 and arch.kernel_sizes[0] == 3):
+            offs = kernel_offsets(3, ts[lv])
+            requests.append((levels[lv].coords, levels[lv].mask,
+                             offs[: len(offs) // 2], +1))
+            tags.append("block_half")
+        cand = None
+        if lv > 0:
+            cand = interface_candidates(
+                levels[lv - 1], kernel=arch.kernel_sizes[lv], t=ts[lv - 1],
+                stride=arch.strides[lv])
+            requests.append((cand.coords, cand.valid, None, +1))
+            tags.append("iface")
+        for kind, res in zip(tags, build_level_maps(levels[lv], requests)):
+            if kind == "stem_half":
+                enc_maps[0] = assemble_self_map(res, levels[0])
+            elif kind == "block_half":
+                block_maps[lv] = assemble_self_map(res, levels[lv])
+            else:
+                K_vol = arch.kernel_sizes[lv] ** 3
+                n_coarse = levels[lv].coords.shape[0]
+                n_fine = levels[lv - 1].coords.shape[0]
+                brow = res  # (J^3, N_fine) coarse rows, -1 absent
+                dev = brow.device
+                a_rows = torch.arange(n_fine, device=dev)[None].expand(
+                    brow.shape)
+                hit = brow >= 0
+                # enc[k][coarse b] = fine a;  dec[k][fine a] = coarse b;
+                # misses write a spare last slot (no host round trip)
+                enc = torch.full((K_vol * n_coarse + 1,), -1,
+                                 dtype=torch.int64, device=dev)
+                enc[torch.where(hit, cand.kidx * n_coarse + brow,
+                                K_vol * n_coarse).reshape(-1)] = \
+                    a_rows.reshape(-1)
+                enc_maps[lv] = enc[:-1].reshape(K_vol, n_coarse)
+                dec = torch.full((K_vol * n_fine + 1,), -1,
+                                 dtype=torch.int64, device=dev)
+                dec[torch.where(hit, cand.kidx * n_fine + a_rows,
+                                K_vol * n_fine).reshape(-1)] = brow.reshape(-1)
+                dec_maps[L - 1 - lv] = dec[:-1].reshape(K_vol, n_fine)
+    if arch.kernel_sizes[0] == 3:
+        block_maps[0] = enc_maps[0]
+    enc_g = [group_kernel_map(enc_maps[i]) if arch.kernel_sizes[i] == 3
+             else enc_maps[i] for i in range(L)]
+    block_g = [group_kernel_map(block_maps[i]) for i in range(L)]
+    dec_g = [group_kernel_map(dec_maps[d], z_reversed=True)
+             if arch.kernel_sizes[L - 1 - d] == 3 else dec_maps[d]
+             for d in range(L - 1)]
+    return enc_maps, block_maps, dec_maps, enc_g, block_g, dec_g
+
+
 def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
                         arch: ArchSpec, capacities: Tuple[int, ...]
                         ) -> Dict[str, Any]:
-    """Coordinate pyramid and every kernel map of the UNet (dict with
-    levels, enc/block/dec maps in per-tap and grouped form, order0/inv0
-    between the caller's row order and level 0's sorted order)."""
-    if not (all(k == 3 for k in arch.kernel_sizes)
-            and all(s in (2, 3) for s in arch.strides[1:])):
-        raise NotImplementedError(
-            "only all-k3 archs with strides 2/3 (the rank-join geometry)")
+    """Coordinate pyramid and every kernel map of the UNet: dict with
+    levels; enc_maps (per level, the encoder conv map into it; level 0:
+    the stem's self map), block_maps (k=3 self maps) and dec_maps (per
+    decoder step, the transposed conv map) as (K, N_out) int64 per-tap
+    tables; enc_g / block_g / dec_g, the same maps in the form the default
+    forward takes (GroupedMap for k=3 layers, the per-tap table for k5/k7
+    layers); order0 / inv0 between the caller's row order and level 0's
+    sorted order. Voxels beyond |x|, |y| < 512 or |z| < 256 fine units
+    drop out of the neighbour maps (ops/sortmaps.pack_code)."""
     L = len(arch.channels)
+    if len(capacities) != L:
+        raise ValueError(f"{L} levels need {L} capacities, got "
+                         f"{len(capacities)}")
     ts = _tensor_strides(arch)
     level0, order0, inv0 = sort_level(coords, mask)
     levels = [level0]
@@ -189,11 +311,22 @@ def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
         c, m = downsample_coords(levels[i - 1].coords, levels[i - 1].mask,
                                  out_stride=ts[i], capacity=int(capacities[i]))
         levels.append(Level(c, m))
-    enc_maps, block_maps, dec_maps, enc_g, block_g, dec_g = _geometry_fast(
-        levels, arch, ts)
+    fast = (all(k == 3 for k in arch.kernel_sizes)
+            and all(s in (2, 3) for s in arch.strides[1:]))
+    enc_maps, block_maps, dec_maps, enc_g, block_g, dec_g = (
+        _geometry_fast if fast else _geometry_generic)(levels, arch, ts)
     return {"levels": levels, "enc_maps": enc_maps, "block_maps": block_maps,
             "dec_maps": dec_maps, "enc_g": enc_g, "block_g": block_g,
             "dec_g": dec_g, "order0": order0, "inv0": inv0}
+
+
+def _conv(feats: torch.Tensor, w: torch.Tensor, nbr,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    """Dispatch on the map's form: GroupedMap -> grouped-window conv, a
+    plain (K, N_out) table -> per-tap conv."""
+    if isinstance(nbr, GroupedMap):
+        return sparse_conv_grouped(feats, w, nbr, compute_dtype=compute_dtype)
+    return sparse_conv(feats, w, nbr, compute_dtype=compute_dtype)
 
 
 class _Conv(nn.Module):
@@ -228,16 +361,22 @@ class _Norm(nn.Module):
 
 
 class _Block(nn.Module):
-    """Residual block 'BN2': conv-BN-add-relu."""
+    """Residual block. 'BN2': conv-BN-add-relu; 'BN': conv-BN-relu-conv-
+    BN-add-relu."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, block: str):
         super().__init__()
         self.conv1 = _Conv(27, c, c)
         self.norm1 = _Norm(c)
+        if block == "BN":
+            self.conv2 = _Conv(27, c, c)
+            self.norm2 = _Norm(c)
 
-    def forward(self, x, mask, gmap, compute_dtype):
-        out = self.norm1(sparse_conv_grouped(x, self.conv1.w, gmap,
-                                             compute_dtype), mask)
+    def forward(self, x, mask, nbr, compute_dtype):
+        out = self.norm1(_conv(x, self.conv1.w, nbr, compute_dtype), mask)
+        if hasattr(self, "conv2"):
+            out = self.norm2(_conv(torch.relu(out), self.conv2.w, nbr,
+                                   compute_dtype), mask)
         return torch.relu(out + x) * mask.to(torch.float32)[:, None]
 
 
@@ -245,29 +384,37 @@ class ResUNet(nn.Module):
     """The sparse ResUNet in eval mode. Parameter names mirror the JAX
     package's pytree (`conv1.w`, `block1.norm1.scale`, `norm1_tr.mean`,
     ...), so `models.weights.params_from_jax` maps checkpoints one to
-    one."""
+    one. conv_impl: 'grouped' (default: grouped-window conv on k=3 layers,
+    per-tap conv on k5/k7 layers) or 'scan' (per-tap conv on every layer,
+    the same function)."""
 
     def __init__(self, arch: ArchSpec, in_channels: int = 1,
-                 out_channels: int = 32):
+                 out_channels: int = 32, conv_impl: str = "grouped"):
         super().__init__()
-        if arch.block != "BN2":
-            raise NotImplementedError(f"block {arch.block!r} is not ported")
+        if arch.block not in ("BN", "BN2"):
+            raise ValueError(f"unknown residual block {arch.block!r}")
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got "
+                             f"{conv_impl!r}")
         self.arch = arch
+        self.conv_impl = conv_impl
         L = len(arch.channels)
         C, TR = arch.channels, arch.tr_channels
         prev = in_channels
         for i in range(L):
-            setattr(self, f"conv{i+1}", _Conv(27, prev, C[i]))
+            setattr(self, f"conv{i+1}",
+                    _Conv(arch.kernel_sizes[i] ** 3, prev, C[i]))
             setattr(self, f"norm{i+1}", _Norm(C[i]))
-            setattr(self, f"block{i+1}", _Block(C[i]))
+            setattr(self, f"block{i+1}", _Block(C[i], arch.block))
             prev = C[i]
         prev = C[L - 1]
         for d in range(L - 1):
             lvl = L - 2 - d
             cout = TR[L - 1 - d]
-            setattr(self, f"conv{lvl+1}_tr", _Conv(27, prev, cout))
+            setattr(self, f"conv{lvl+1}_tr",
+                    _Conv(arch.kernel_sizes[L - 1 - d] ** 3, prev, cout))
             setattr(self, f"norm{lvl+1}_tr", _Norm(cout))
-            setattr(self, f"block{lvl+1}_tr", _Block(cout))
+            setattr(self, f"block{lvl+1}_tr", _Block(cout, arch.block))
             prev = cout + C[lvl]
         self.mlp1 = _Dense(prev, TR[0])
         self.final = _Dense(TR[0], out_channels, bias=True)
@@ -279,13 +426,18 @@ class ResUNet(nn.Module):
         norm features in the caller's row order (zero on invalid rows)."""
         L = len(self.arch.channels)
         levels = geom["levels"]
-        enc_m, block_m, dec_m = geom["enc_g"], geom["block_g"], geom["dec_g"]
+        if self.conv_impl == "grouped":
+            enc_m, block_m, dec_m = (geom["enc_g"], geom["block_g"],
+                                     geom["dec_g"])
+        else:
+            enc_m, block_m, dec_m = (geom["enc_maps"], geom["block_maps"],
+                                     geom["dec_maps"])
         skips = []
         out = in_feats[geom["order0"]]
         for i in range(L):
             mask = levels[i].mask
-            out = sparse_conv_grouped(out, getattr(self, f"conv{i+1}").w,
-                                      enc_m[i], compute_dtype)
+            out = _conv(out, getattr(self, f"conv{i+1}").w, enc_m[i],
+                        compute_dtype)
             out = getattr(self, f"norm{i+1}")(out, mask)
             out = getattr(self, f"block{i+1}")(out, mask, block_m[i],
                                                compute_dtype)
@@ -294,8 +446,8 @@ class ResUNet(nn.Module):
         for d in range(L - 1):
             lvl = L - 2 - d
             mask = levels[lvl].mask
-            out = sparse_conv_grouped(out, getattr(self, f"conv{lvl+1}_tr").w,
-                                      dec_m[d], compute_dtype)
+            out = _conv(out, getattr(self, f"conv{lvl+1}_tr").w, dec_m[d],
+                        compute_dtype)
             out = getattr(self, f"norm{lvl+1}_tr")(out, mask)
             out = getattr(self, f"block{lvl+1}_tr")(out, mask, block_m[lvl],
                                                     compute_dtype)
@@ -310,3 +462,22 @@ class ResUNet(nn.Module):
         out = out / (torch.linalg.vector_norm(out, dim=-1, keepdim=True)
                      + 1e-12)
         return (out * mask0)[geom["inv0"]]
+
+
+def init_resunet(arch: ArchSpec, in_channels: int = 1, out_channels: int = 32,
+                 generator: Optional[torch.Generator] = None,
+                 conv_impl: str = "grouped", device="cpu") -> ResUNet:
+    """A ResUNet in eval mode with fresh parameters on `device`: He-normal
+    conv and head weights (std = sqrt(2 / (k_vol * cin))) drawn from
+    `generator` (on `device`; default: seed 0), unit scales, zero biases,
+    running mean 0 and variance 1."""
+    with torch.device(device):
+        model = ResUNet(arch, in_channels, out_channels, conv_impl)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".w"):
+                fan_in = math.prod(p.shape[:-1])  # k_vol * cin
+                p.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+    return model.eval()

@@ -2,8 +2,9 @@
 
 The repository's checkpoints (weights/*.pkl) are pickles of plain numpy
 pytrees written by the JAX package's trainer: {"params": ..., "bn_state":
-...} with conv weights (27, Cin, Cout), taps in lexicographic (dx, dy,
-dz) order, dz fastest. They load with `pickle` alone. Only unpickle
+...} with conv weights (k^3, Cin, Cout) for k in 3, 5, 7, taps in
+lexicographic (dx, dy, dz) order, dz fastest; 'BN' blocks carry `conv2` /
+`norm2` entries beside `conv1` / `norm1`. They load with `pickle` alone. Only unpickle
 checkpoints this project wrote: unpickling can run arbitrary code.
 """
 from __future__ import annotations
@@ -47,10 +48,11 @@ def params_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any]
 
 
 def load_model(path: str, arch: ArchSpec, device="cpu", in_channels: int = 1,
-               out_channels: int = 32) -> ResUNet:
-    """A ResUNet in eval mode with the checkpoint's weights, on `device`."""
+               out_channels: int = 32, conv_impl: str = "grouped") -> ResUNet:
+    """A ResUNet in eval mode with the checkpoint's weights, on `device`
+    (`conv_impl`: see models.resunet.ResUNet)."""
     blob = load_checkpoint(path)
-    model = ResUNet(arch, in_channels, out_channels)
+    model = ResUNet(arch, in_channels, out_channels, conv_impl)
     model.load_state_dict(params_from_jax(blob["params"], blob["bn_state"]),
                           strict=True)
     return model.to(device).eval()

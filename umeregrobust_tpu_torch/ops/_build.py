@@ -37,6 +37,12 @@ _SIGNATURES = {
                         _INT, _VP],
     "umr_corr_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                         _INT, _FLT, _FLT, _VP],
+    "umr_gather_rows": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
+                        _VP],
+    "umr_sparse_conv_rowtile": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                _INT, _INT, _INT, _VP],
+    "umr_sparse_conv_tapsplit": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                                 _INT, _INT, _INT, _INT, _INT, _INT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,6 +6,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from umeregrobust_tpu_torch.ops.cuda_gather import (
+    gather_rows, gather_rows_plain)
+
 __all__ = ["pairwise_sqdist", "sqdist3", "knn", "gather_padded", "topk_stable"]
 
 _BIG = 1e30
@@ -65,8 +68,13 @@ def knn(
 
 
 def gather_padded(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """Rows of x (N, C) by idx (..., K); idx == -1 yields fill rows."""
-    N = x.shape[0]
-    x_pad = torch.cat([x, torch.full((1,) + x.shape[1:], fill, dtype=x.dtype,
-                                     device=x.device)], dim=0)
-    return x_pad[torch.where(idx < 0, torch.full_like(idx, N), idx)]
+    """Rows of x (N, C) by idx (..., K); idx == -1 yields fill rows. A CPU
+    tensor takes the plain version; a CUDA fp32 or bf16 table with fill 0
+    goes through the gather_rows kernel; any other CUDA input raises."""
+    if x.device.type == "cpu":
+        return gather_rows_plain(x, idx, fill)
+    if fill != 0.0 or x.dim() != 2:
+        raise ValueError("gather_padded on the card takes a 2-D table and "
+                         f"fill 0, got shape {tuple(x.shape)}, fill {fill}")
+    out = gather_rows(x.contiguous(), idx.reshape(-1).contiguous())
+    return out.reshape(*idx.shape, x.shape[1])

@@ -1,6 +1,5 @@
-"""Sparse 3D convolution pieces of the ResUNetSmall2 path (port of the
-parts of umeregrobust_tpu/ops/sparse.py that the fast geometry and the
-grouped conv use).
+"""Static-shape sparse 3D convolution: kernel maps and the two conv forms
+(port of umeregrobust_tpu/ops/sparse.py, eval mode).
 
 A level is (coords (N, 4) int32 [b, x, y, z], mask (N,)) in canonical
 code-sorted order with a valid prefix. A k=3 kernel map is kept in the
@@ -8,20 +7,30 @@ grouped-window form (`GroupedMap`): levels are sorted with z fastest, so
 the <= 3 z-candidates of a (dx, dy) offset group are consecutive rows of
 the input level, and one wide gather of a centred 3-row window per group
 replaces 3 per-tap gathers. Tap order is lexicographic over (dx, dy, dz)
-in {-1, 0, 1}^3 with dz fastest, as in the checkpoints.
+in {-1, 0, 1}^3 with dz fastest, as in the checkpoints. Larger kernels
+(k5, k7) and `conv_impl="scan"` keep the plain (K, N_out) per-tap map
+(-1 = absent) and go through `sparse_conv`, whose CUDA path is the
+hand-written kernels of ops/cuda_conv.py.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from umeregrobust_tpu_torch.ops.cuda_conv import (
+    choose_kernel, round_to, sparse_conv_rowtile, sparse_conv_tapsplit)
 from umeregrobust_tpu_torch.ops.sortmaps import (
-    KEY_SENTINEL, QUERY_SENTINEL, pack_code)
+    KEY_SENTINEL, QUERY_SENTINEL, batched_sorted_lookup, pack_code,
+    sorted_join_code)
 
-__all__ = ["Level", "GroupedMap", "WINDOW_PAD", "sort_level",
-           "downsample_coords", "code_window_table", "window_probe",
-           "group_kernel_map", "ungroup_kernel_map", "sparse_conv_grouped",
+__all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
+           "sort_level", "downsample_coords", "kernel_offsets",
+           "build_self_map", "build_conv_map", "build_transpose_map",
+           "build_level_maps", "interface_candidates", "invert_map_batch",
+           "code_window_table", "window_probe", "group_kernel_map",
+           "ungroup_kernel_map", "sparse_conv", "sparse_conv_grouped",
            "masked_batch_norm", "round_to"]
 
 # window-table pad word: above every valid code, distinct from both
@@ -67,6 +76,126 @@ def downsample_coords(coords: torch.Tensor, mask: torch.Tensor,
     out_mask = torch.arange(capacity, device=coords.device) < min(n_unique,
                                                                   capacity)
     return out, out_mask
+
+
+def kernel_offsets(kernel_size: int, t: int) -> np.ndarray:
+    """(K_vol, 4) int32 offsets (0, dx, dy, dz) * t, centred, dz fastest."""
+    if kernel_size % 2 != 1:
+        raise ValueError(f"only odd kernels, got {kernel_size}")
+    r = kernel_size // 2
+    rng = range(-r, r + 1)
+    return np.asarray([(0, dx * t, dy * t, dz * t) for dx in rng for dy in rng
+                       for dz in rng], dtype=np.int32)
+
+
+def _build_map(in_level: Level, out_coords: torch.Tensor,
+               out_mask: torch.Tensor, offsets: np.ndarray, sign: int
+               ) -> torch.Tensor:
+    """(K_vol, N_out) table of lookup(out + sign * offset_k) in in_level
+    (any row order), by the generic join."""
+    offs = torch.as_tensor(offsets, device=out_coords.device).to(torch.int64)
+    K, N_out = offs.shape[0], out_coords.shape[0]
+    q = (out_coords.to(torch.int64)[None] + sign * offs[:, None]).reshape(-1, 4)
+    qm = out_mask[None].expand(K, N_out).reshape(-1)
+    return batched_sorted_lookup(in_level.coords, in_level.mask, q, qm
+                                 ).reshape(K, N_out)
+
+
+def build_self_map(level: Level, kernel_size: int, t: int) -> torch.Tensor:
+    """Stride-1 conv map at tensor stride t."""
+    return _build_map(level, level.coords, level.mask,
+                      kernel_offsets(kernel_size, t), +1)
+
+
+def build_conv_map(in_level: Level, out_level: Level, kernel_size: int,
+                   t_in: int) -> torch.Tensor:
+    """Strided conv map: out voxel b gathers in voxels b + delta."""
+    return _build_map(in_level, out_level.coords, out_level.mask,
+                      kernel_offsets(kernel_size, t_in), +1)
+
+
+def build_transpose_map(coarse_level: Level, fine_level: Level,
+                        kernel_size: int, t_out: int) -> torch.Tensor:
+    """Transposed conv map: fine out voxel a gathers coarse voxel
+    a - delta_k (true-transpose weight indexing)."""
+    return _build_map(coarse_level, fine_level.coords, fine_level.mask,
+                      kernel_offsets(kernel_size, t_out), -1)
+
+
+def build_level_maps(key_level: Level, requests: Sequence[tuple]
+                     ) -> List[torch.Tensor]:
+    """Several kernel maps against ONE code-sorted key level in one join.
+    requests: (out_coords, out_mask, offsets, sign) per map, or (queries
+    (..., 4), query_mask (...), None, _) for a ready query set, whose
+    leading shape the result keeps. Returns one int64 lookup per request
+    ((K_vol, N_out) for offset requests), -1 where absent."""
+    codes, shapes = [], []
+    for out_coords, out_mask, offsets, sign in requests:
+        if offsets is None:
+            q, qm = out_coords, out_mask
+        else:
+            offs = torch.as_tensor(offsets, device=out_coords.device
+                                   ).to(torch.int64)
+            q = out_coords.to(torch.int64)[None] + sign * offs[:, None]
+            qm = out_mask[None].expand(offs.shape[0], out_coords.shape[0])
+        shapes.append(tuple(qm.shape))
+        codes.append(pack_code(q, qm, QUERY_SENTINEL).reshape(-1))
+    k_code = pack_code(key_level.coords, key_level.mask, KEY_SENTINEL)
+    res = sorted_join_code(k_code, torch.cat(codes))
+    out, ofs = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        out.append(res[ofs: ofs + n].reshape(shape))
+        ofs += n
+    return out
+
+
+class InterfaceCandidates(NamedTuple):
+    coords: torch.Tensor  # (J^3, N_fine, 4) candidate coarse coordinates
+    valid: torch.Tensor  # (J^3, N_fine)
+    kidx: torch.Tensor  # (J^3, N_fine) kernel-offset index of each candidate
+
+
+def interface_candidates(fine_level: Level, kernel: int, t: int, stride: int
+                         ) -> InterfaceCandidates:
+    """Candidate coarse parents of every fine voxel at a strided
+    interface: per dimension only the deltas congruent to a mod (stride *
+    t) can reach the coarse lattice, at most J = floor(2r / stride) + 1 of
+    them, so a fine voxel has at most J^3 parents. One lookup of these
+    gives both the encoder map and its adjoint decoder map."""
+    r = kernel // 2
+    st = stride * t
+    J = (2 * r) // stride + 1
+    dev = fine_level.coords.device
+    a_sp = fine_level.coords[:, 1:].to(torch.int64)
+    m = torch.remainder(a_sp, st)
+    dmin = m - st * torch.div(m + r * t, st, rounding_mode="floor")
+    jj = torch.as_tensor(np.stack(np.meshgrid(*([np.arange(J)] * 3),
+                                              indexing="ij"),
+                                  axis=-1).reshape(-1, 3), device=dev)
+    delta = dmin[None] + jj[:, None] * st
+    valid = torch.all(delta <= r * t, dim=-1) & fine_level.mask[None]
+    b_sp = a_sp[None] - delta
+    b = torch.cat([fine_level.coords[None, :, :1].to(torch.int64).expand(
+        b_sp.shape[0], -1, -1), b_sp], dim=-1)
+    k1d = torch.div(delta, t, rounding_mode="floor") + r
+    kidx = (k1d[..., 0] * kernel + k1d[..., 1]) * kernel + k1d[..., 2]
+    return InterfaceCandidates(coords=b, valid=valid, kidx=kidx)
+
+
+def invert_map_batch(fwd: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Invert K injective lookup maps at once: inv[k][fwd[k][i]] = i, else
+    -1. fwd (K, N_in) rows into [0, n_out), -1 absent."""
+    K, N_in = fwd.shape
+    dst = torch.where(
+        fwd >= 0, torch.arange(K, device=fwd.device)[:, None] * n_out + fwd,
+        K * n_out)  # misses write a spare last slot
+    src = torch.arange(N_in, device=fwd.device)[None].expand(K, N_in)
+    inv = torch.full((K * n_out + 1,), -1, dtype=torch.int64,
+                     device=fwd.device)
+    inv[dst.reshape(-1)] = src.reshape(-1)
+    inv = inv[:-1]
+    return inv.reshape(K, n_out)
 
 
 def code_window_table(key_code: torch.Tensor) -> torch.Tensor:
@@ -145,20 +274,34 @@ def ungroup_kernel_map(gmap: GroupedMap) -> torch.Tensor:
     return g.reshape(27, g.shape[-1])
 
 
-def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x rounded to `dtype` and back to fp32: a product of two such values
-    is exact in fp32, so an fp32 matmul over them gives the bf16-operand,
-    fp32-accumulate result that the JAX package computes."""
-    x = x.to(torch.float32)
-    return x if dtype == torch.float32 else x.to(dtype).to(torch.float32)
+def sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
+                nbr_map: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sparse conv over a per-tap map. feats (N_in, Cin), invalid rows
+    zero; weights (K_vol, Cin, Cout); nbr_map (K_vol, N_out) rows into
+    feats, -1 absent; optional bias (Cout,). Returns (N_out, Cout) fp32.
+    Operands are rounded to compute_dtype, products summed in fp32. A CUDA
+    tensor goes to one of the two hand-written kernels, picked by
+    `choose_kernel` from the shapes alone; a CPU tensor takes their plain
+    per-tap loop."""
+    kernel, _ = choose_kernel(nbr_map.shape[1], weights.shape[2],
+                              weights.shape[0])
+    conv = sparse_conv_rowtile if kernel == "rowtile" else sparse_conv_tapsplit
+    out = conv(feats.to(torch.float32).contiguous(), weights.contiguous(),
+               nbr_map.contiguous(), compute_dtype)
+    if bias is not None:
+        out = out + bias.to(torch.float32)[None, :]
+    return out
 
 
 def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
                         gmap: GroupedMap,
+                        bias: Optional[torch.Tensor] = None,
                         compute_dtype: torch.dtype = torch.float32
                         ) -> torch.Tensor:
     """Sparse k=3 conv with grouped window gathers. feats (N_in, Cin),
-    invalid rows zero; weights (27, Cin, Cout). Returns (N_out, Cout) fp32.
+    invalid rows zero; weights (27, Cin, Cout); optional bias (Cout,).
+    Returns (N_out, Cout) fp32.
     Operands are rounded to compute_dtype, products summed in fp32."""
     _, Cin, Cout = weights.shape
     G, _, N_out = gmap.masks.shape
@@ -179,6 +322,8 @@ def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
         mid = masked[:, 2] + wide[:, 1] * gmap.patho[g][:, None].to(f.dtype)
         x3 = torch.cat([masked[:, 0], masked[:, 1], mid], dim=1)
         out = out + x3 @ w3[g].reshape(3 * Cin, Cout)
+    if bias is not None:
+        out = out + bias.to(torch.float32)[None, :]
     return out
 
 

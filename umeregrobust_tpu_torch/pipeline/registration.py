@@ -26,7 +26,7 @@ import torch
 from umeregrobust_tpu_torch.core.ume import estimate_rigid_from_ume
 from umeregrobust_tpu_torch.ops.cuda_nn import nn1_argmin
 from umeregrobust_tpu_torch.ops.densegrid import build_dense_grid
-from umeregrobust_tpu_torch.ops.neighbors import topk_stable
+from umeregrobust_tpu_torch.ops.neighbors import gather_padded, topk_stable
 from umeregrobust_tpu_torch.pipeline.consensus import (
     compact_structure, consensus_refit, polish_candidates)
 from umeregrobust_tpu_torch.pipeline.correlator import (
@@ -166,7 +166,10 @@ def copy_features_to_raw(raw_pts, raw_mask, sem_pts, sem_feat, sem_mask):
     (reference evaluate.py:272-275) through the nn1_argmin kernel."""
     idx = nn1_argmin(raw_pts.contiguous(), sem_pts.contiguous(),
                      sem_mask.contiguous())
-    return sem_feat[idx] * raw_mask[:, None]
+    # a row copy through the gather_rows kernel; masked rows come out
+    # zero (= sem_feat[idx] * raw_mask for finite features)
+    return gather_padded(sem_feat, torch.where(raw_mask, idx,
+                                               torch.full_like(idx, -1)))
 
 
 def refine_with_icp(cfg: RegistrationConfig, T: torch.Tensor,
