@@ -10,7 +10,13 @@ Phases (any failure ends the run with a non-zero exit):
      each kernel against its plain PyTorch version (nn1_argmin: identical
      indices; ume_moments_fused: max abs error <= 1e-5 x max |out|;
      corr_scores_fused: max abs error <= 1e-4 x max |score| and the same
-     argmax at every stage's shape; gather_rows: identical rows, at the
+     argmax at every stage's shape and at forced ragged shapes (H of 1, 7,
+     9; both grids; nothing in radius: exact zeros; rows without features
+     parked far away), in the caller's order and cell-ordered, two
+     launches bit-identical; its times with and without the ordering, the
+     ordering's own time and the share of steps that need the feature
+     product (g_need_share) both ways; for ume_moments_fused also the
+     share of keypoints whose ball reaches the cap; gather_rows: identical rows, at the
      main path's two shapes and at N = 32768, C = 32 / 128 / 512, fp32 and
      bf16, random and monotone indices; sparse_conv_rowtile and
      sparse_conv_tapsplit, each forced: max abs error <= 2e-5 x max |out|
@@ -90,8 +96,10 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of fn() in ms."""
+def time_ms(fn, reps=20, warmup=3, inner=1):
+    """Median CUDA-event time of fn() in ms. With inner > 1 an event pair
+    spans that many calls back to back and the time is per call: the
+    queue stays full, so the host's time to launch is left out."""
     import torch
 
     for _ in range(warmup):
@@ -101,11 +109,37 @@ def time_ms(fn, reps=20, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+_KEY_TABLES = {}  # device -> (cell index -> its share of the key, offsets)
+
+
+def cell_order(pts4, cell):
+    """Permutation (N,) int64 that lists the rows of `pts4` (N, >= 3) cell
+    by cell (edge `cell`, 2^10 cells an axis around the origin, clamped)
+    along a Morton curve over x and y, a column's cells by z: neighbouring
+    rows end up in one warp of corr_scores_fused. The key comes from one
+    table lookup (made once per device), then one stable sort. A
+    measurement aid: the port's main path orders nothing."""
+    import torch
+
+    if pts4.device not in _KEY_TABLES:
+        v = torch.arange(1024)
+        spread = torch.zeros(1024, dtype=torch.int64)
+        for b in range(10):
+            spread |= ((v >> b) & 1) << (2 * b)
+        _KEY_TABLES[pts4.device] = (
+            torch.cat([spread << 10, spread << 11, v]).to(pts4.device),
+            (torch.arange(3) * 1024).to(pts4.device))
+    table, offs = _KEY_TABLES[pts4.device]
+    q = (pts4[:, :3].float() / float(cell) + 512.0).clamp_(0.0, 1023.0).long()
+    return torch.sort(table[q + offs].sum(dim=1), stable=True).indices
 
 
 def bound_ms(n_bytes, n_ops, peak=F32_PEAK):
@@ -189,11 +223,13 @@ def phase_kernels(dev, model, pair, cfg):
     err = float((a - b).abs().max())
     scale = float(b.abs().max())
     # data-dependent work: radius tests up to the max_nn-th hit, row sums
-    tested = selected = 0
+    tested = selected = at_cap = in_ball = 0
     for c0 in range(0, kp.shape[0], 256):
         ok = (sqdist3(kp[c0:c0 + 256], p) <= r * r) & pm[None]
         cum = torch.cumsum(ok.int(), 1)
         full = cum[:, -1] >= cap
+        at_cap += int(full.sum())
+        in_ball += int(cum[:, -1].sum())
         first = torch.argmax((cum >= cap).int(), 1) + 1
         tested += int(torch.where(full, first, torch.full_like(first, N)).sum())
         selected += int(torch.clamp(cum[:, -1], max=cap).sum())
@@ -206,7 +242,10 @@ def phase_kernels(dev, model, pair, cfg):
         ms=time_ms(lambda: cuda_ume.ume_moments_fused(kp, p, Z, pm, r, cap)),
         plain_ms=time_ms(lambda: cuda_ume.ume_moments_plain(kp, p, Z, pm, r,
                                                             cap)),
-        library_ms=None, bound_ms=bb, bound_by=by)
+        library_ms=None, bound_ms=bb, bound_by=by,
+        # facts about the inputs: how many balls the cap cuts short
+        cap=cap, keypoints_at_cap_share=at_cap / Mk,
+        mean_in_radius=in_ball / Mk, rows_selected=selected)
 
     # --- corr_scores_fused at every stage's shape
     cs_f = copy_features_to_raw(s["corr_pts"], s["corr_mask"], p, feat, pm)
@@ -247,39 +286,153 @@ def phase_kernels(dev, model, pair, cfg):
     inputs["arbiter"] = _radius_inputs(sp_c, sf_c, sm_c, tp_c, tf_c, tm_c,
                                        hyps(17))
     per_stage, ok_all, err_all = {}, True, 0.0
-    r2 = (2.0 * cfg.corr_kernel_sigma) ** 2
+    sigma = cfg.corr_kernel_sigma
+    r2 = (2.0 * sigma) ** 2
+
+    def fused(args):
+        return cuda_corr.corr_scores_fused(*args, sigma=sigma)
+
+    def reorder(args, perm):  # the source rows in another order
+        pts_t, sf, tp4, tf = args
+        return pts_t[:, perm].contiguous(), sf[perm], tp4, tf
+
+    def ordered(args):  # a caller that orders its source rows by cell:
+        # one hypothesis' cells serve all (a rigid motion keeps neighbours)
+        return fused(reorder(args, cell_order(args[0][0], 2.0 * sigma)))
+
+    def agrees(a, b):
+        """(max abs error, within 1e-4 x max |score| with the same argmax;
+        where the plain scores are all 0, exactly 0)."""
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        if scale == 0.0:
+            return err, int(torch.count_nonzero(a)) == 0
+        return err, err <= 1e-4 * scale and int(a.argmax()) == int(b.argmax())
+
+    def need_share(pts_t, tp4, perm):
+        """Share of the kernel's (hypothesis block, warp of 32 source rows,
+        target) steps with a triple in radius, i.e. that need <f_i, g_j>."""
+        src = pts_t[..., :3] if perm is None else pts_t[:, perm, :3]
+        Hn, Sn = src.shape[:2]
+        pad = (-Sn) % 32
+        need = torch.zeros((), dtype=torch.int64, device=dev)
+        for h0 in range(0, Hn, 8):
+            hit = (sqdist3(src[h0:h0 + 8], tp4[:, :3]) <= r2).any(0)
+            hit = torch.nn.functional.pad(hit, (0, 0, 0, pad))
+            need += hit.view(-1, 32, tp4.shape[0]).any(1).sum()
+        steps = -(-Hn // 8) * ((Sn + pad) // 32) * tp4.shape[0]
+        return int(need) / steps
+
     for name, args in inputs.items():
-        a = cuda_corr.corr_scores_fused(*args, sigma=cfg.corr_kernel_sigma)
-        b = cuda_corr.corr_scores_plain(*args, sigma=cfg.corr_kernel_sigma)
-        torch.cuda.synchronize()
-        err = float((a - b).abs().max())
-        ok = err <= 1e-4 * float(b.abs().max()) and int(a.argmax()) == int(
-            b.argmax())
         pts_t, sf, tp4, tf = args
         H, Sn, _ = pts_t.shape
         Tn = tp4.shape[0]
+        b = cuda_corr.corr_scores_plain(*args, sigma=sigma)
+        perm = cell_order(pts_t[0], 2.0 * sigma)
+        args_perm = reorder(args, perm)
+        runs = {"unordered": fused(args), "ordered": ordered(args)}
+        again = {"unordered": fused(args), "ordered": ordered(args)}
+        torch.cuda.synchronize()
+        checks = {k: agrees(a, b) for k, a in runs.items()}
+        err = max(e for e, _ in checks.values())
+        same_bits = all(torch.equal(runs[k], again[k]) for k in again)
+        ok = all(o for _, o in checks.values()) and same_bits
         n_in = sum(int((sqdist3(pts_t[h0:h0 + 16, :, :3], tp4[:, :3]) <= r2
                         ).sum()) for h0 in range(0, H, 16))
         bb, by = bound_ms(H * Sn * 16 + Sn * 128 + Tn * 16 + Tn * 128 + H * 4,
                           H * Sn * Tn * 9 + Sn * Tn * 64 + n_in * 5)
         per_stage[name] = dict(
             shape=f"{H}x{Sn}x{Tn}", max_abs_err=err, ok=ok,
-            argmax=int(a.argmax()),
-            ms=time_ms(lambda: cuda_corr.corr_scores_fused(
-                *args, sigma=cfg.corr_kernel_sigma)),
+            argmax=int(runs["unordered"].argmax()), bit_identical=same_bits,
+            grid=cuda_corr.launch_plan(H, Sn, Tn),
+            # one call an event pair, as every kernel here is timed: the
+            # main path's call (no ordering), and with the ordering made
+            # in the call (key, sort, two row gathers and kernel)
+            ms=time_ms(lambda: fused(args)),
+            ms_ordered=time_ms(lambda: ordered(args)),
+            order_ms=time_ms(lambda: reorder(
+                args, cell_order(pts_t[0], 2.0 * sigma))),
+            # 20 launches back to back: the kernel without the host's
+            # share, in the caller's order and on rows ordered
+            # beforehand; with radius 0 nothing is in radius and only the
+            # distance tests and votes remain
+            kernel_ms_unordered=time_ms(lambda: fused(args), reps=7,
+                                        inner=20),
+            kernel_ms_ordered=time_ms(lambda: fused(args_perm), reps=7,
+                                      inner=20),
+            kernel_ms_empty_radius=time_ms(
+                lambda: cuda_corr.corr_scores_fused(
+                    *args, sigma=sigma, radius_factor=0.0), reps=7, inner=20),
+            g_need_share_ordered=need_share(pts_t, tp4, perm),
+            g_need_share_unordered=need_share(pts_t, tp4, None),
             plain_ms=time_ms(lambda: cuda_corr.corr_scores_plain(
-                *args, sigma=cfg.corr_kernel_sigma), reps=10),
+                *args, sigma=sigma), reps=10),
             bound_ms=bb, bound_by=by, in_radius=n_in)
         ok_all &= ok
         err_all = max(err_all, err)
+
+    # forced cases: ragged shapes, both grids, empty radius, masked rows
+    def forced(Hn, Sn, Tn, shift=0.0, masked=False):
+        pts = (torch.rand(Hn, Sn, 4, generator=gen, device=dev) * 2 - 1) * 6
+        tp4 = (torch.rand(Tn, 4, generator=gen, device=dev) * 2 - 1) * 6
+        tp4[:, :3] += shift
+        pts[..., 3], tp4[:, 3] = 0, 0
+        f = torch.randn(Sn, 32, generator=gen, device=dev)
+        g = torch.randn(Tn, 32, generator=gen, device=dev)
+        if masked:  # rows without features, parked far away
+            g[::3], tp4[::3, :3] = 0, 1e6
+            f[::5], pts[:, ::5, :3] = 0, -1e6
+        return pts, f, tp4, g
+
+    forced_cases = {  # name -> (inputs, whether the target sweep is split)
+        "H1_S33_T1000": (forced(1, 33, 1000), True),
+        "H7_S50_T300": (forced(7, 50, 300), True),
+        "H9_S300_T777": (forced(9, 300, 777), True),
+        "H2100_S257_T700_whole_sweep": (forced(2100, 257, 700), False),
+        "H9_S40_T500_none_in_radius": (forced(9, 40, 500, shift=1e3), True),
+        "H7_S70_T900_masked_rows_far": (forced(7, 70, 900, masked=True), True),
+    }
+    forced_res = {}
+    for name, (args, want_split) in forced_cases.items():
+        b = cuda_corr.corr_scores_plain(*args, sigma=sigma)
+        res = {}
+        for k, fn in (("ordered", ordered), ("unordered", fused)):
+            a, a2 = fn(args), fn(args)
+            torch.cuda.synchronize()
+            e, good = agrees(a, b)
+            res[k] = dict(max_abs_err=e, ok=good and torch.equal(a, a2))
+        Hn, Sn, Tn = args[0].shape[0], args[0].shape[1], args[2].shape[0]
+        n_src, n_seg = cuda_corr.launch_plan(Hn, Sn, Tn)
+        forced_res[name] = dict(
+            grid=(n_src, n_seg), split=n_seg > 1,
+            max_abs_score=float(b.abs().max()), **res,
+            ok=res["ordered"]["ok"] and res["unordered"]["ok"]
+            and (n_seg > 1) == want_split)
+        ok_all &= forced_res[name]["ok"]
+        err_all = max(err_all, *(res[k]["max_abs_err"] for k in res))
+
+    # what compiling the hypothesis loop for each count 1..8 buys: the
+    # exact stage's 4 hypotheses against the same launch with 4 more that
+    # are in no radius (the tests a loop of fixed length 8 would make)
+    pts_t, sf, tp4, tf = inputs["exact"]
+    padded = (torch.cat([pts_t, torch.full_like(pts_t, 1e18)]), sf, tp4, tf)
+    a, b = fused(padded)[:pts_t.shape[0]], fused(inputs["exact"])
+    ok_all &= agrees(a, b)[1]
+    per_stage["exact"].update(
+        padded_to_8_same_bits=torch.equal(a, b),
+        kernel_ms_padded_to_8=time_ms(lambda: fused(padded), reps=7, inner=20))
+
     tot = {k: sum(v[k] for v in per_stage.values())
-           for k in ("ms", "plain_ms", "bound_ms")}
+           for k in ("ms", "ms_ordered", "order_ms", "kernel_ms_unordered",
+                     "kernel_ms_ordered", "kernel_ms_empty_radius",
+                     "plain_ms", "bound_ms")}
+    for v in (*per_stage.values(), tot):
+        v["ms_unordered"] = v["ms"]  # the main path orders nothing
     by = max(per_stage.values(), key=lambda v: v["bound_ms"])["bound_by"]
     out["corr_scores_fused"] = dict(
         shape="per pair: " + ", ".join(f"{k} {v['shape']}"
                                        for k, v in per_stage.items()),
         max_abs_err=err_all, ok=ok_all, library_ms=None, bound_by=by,
-        stages=per_stage, **tot)
+        stages=per_stage, forced=forced_res, **tot)
     return out
 
 

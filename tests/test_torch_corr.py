@@ -10,8 +10,12 @@ from jax.experimental import pallas as pl
 
 import umeregrobust_tpu.ops.pallas_corr as jpc
 import umeregrobust_tpu.pipeline.correlator as jcorr
+import torch
+
 from _torch_parity import n, t
-from umeregrobust_tpu_torch.ops.cuda_corr import corr_scores_fused
+from umeregrobust_tpu_torch.ops import _build, cuda_corr
+from umeregrobust_tpu_torch.ops.cuda_corr import (
+    corr_scores_fused, corr_scores_plain, launch_plan)
 from umeregrobust_tpu_torch.pipeline import correlator
 
 
@@ -55,7 +59,11 @@ def _inputs(seed, H, S, T, C=32, spread=6.0):
     return pts, f, tp, g
 
 
-@pytest.mark.parametrize("H,S,T", [(5, 16, 256), (9, 40, 128)])
+@pytest.mark.parametrize("H,S,T", [
+    (5, 16, 256), (9, 40, 128),
+    # ragged: H of 1, 7, 9; S off the warp; T off the kernel's tile of 128
+    (1, 33, 1000), (7, 50, 300), (9, 300, 77), (3, 5, 1), (17, 257, 129),
+    (2, 64, 128)])
 def test_plain_scores_match_f64_oracle(H, S, T):
     pts, f, tp, g = _inputs(H, H, S, T)
     got = n(corr_scores_fused(t(pts), t(f), t(tp), t(g), sigma=1.5,
@@ -71,6 +79,96 @@ def test_plain_scores_match_pallas_interpret(pallas_interpret):
         jnp.asarray(pts), jnp.asarray(f), jnp.asarray(tp), jnp.asarray(g),
         sigma=1.5, radius_factor=2.0, ts=8, tt=128))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("H,S,T", [(5, 16, 256), (9, 40, 300), (1, 70, 33)])
+def test_plain_scores_do_not_depend_on_the_source_rows_order(H, S, T):
+    """The kernel sweeps the source rows in the caller's order and leaves
+    their layout to the caller. Tolerance 1e-5 x max |score|: the same fp32
+    products added in another order."""
+    pts, f, tp, g = _inputs(20 + H, H, S, T)
+    perm = np.random.default_rng(H).permutation(S)
+    want = corr_scores_plain(t(pts), t(f), t(tp), t(g), sigma=1.5)
+    got = corr_scores_plain(t(pts[:, perm]), t(f[perm]), t(tp), t(g),
+                            sigma=1.5)
+    scale = float(want.abs().max())
+    assert scale > 1.0
+    np.testing.assert_allclose(n(got), n(want), rtol=0, atol=1e-5 * scale)
+
+
+def test_reordered_source_rows_match_pallas_interpret(pallas_interpret):
+    """Tolerance as test_plain_scores_match_pallas_interpret: the Pallas
+    kernel tiles the sums and takes its feature tile from the MXU path."""
+    pts, f, tp, g = _inputs(0, 10, 16, 256)
+    perm = np.random.default_rng(1).permutation(16)
+    got = n(corr_scores_fused(t(pts[:, perm]), t(f[perm]), t(tp), t(g),
+                              sigma=1.5))
+    want = np.asarray(jpc.corr_scores_fused(
+        jnp.asarray(pts), jnp.asarray(f), jnp.asarray(tp), jnp.asarray(g),
+        sigma=1.5, radius_factor=2.0, ts=8, tt=128))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_no_triple_in_radius_scores_exact_zeros(pallas_interpret):
+    """Exact: every weight is the literal 0 of the radius test, in the
+    plain version and in the Pallas kernel alike."""
+    pts, f, tp, g = _inputs(3, 9, 24, 256)
+    tp[:, :3] += 1e3
+    got = n(corr_scores_fused(t(pts), t(f), t(tp), t(g), sigma=1.5))
+    want = np.asarray(jpc.corr_scores_fused(
+        jnp.asarray(pts), jnp.asarray(f), jnp.asarray(tp), jnp.asarray(g),
+        sigma=1.5, radius_factor=2.0, ts=8, tt=128))
+    assert got.shape == (9,) and not got.any() and not want.any()
+
+
+def test_rows_without_features_add_nothing_wherever_they_lie():
+    """Masked rows carry zero features; parked far away or left inside the
+    scene they add an exact 0 (weights are finite), so the scores are the
+    ones of the rows that remain. Tolerance 1e-5 x max |score|: the
+    remaining products are added in another grouping."""
+    pts, f, tp, g = _inputs(4, 6, 32, 200)
+    keep = np.arange(200) % 3 != 0
+    g[~keep] = 0
+    inside = n(corr_scores_plain(t(pts), t(f), t(tp), t(g), sigma=1.5))
+    parked = tp.copy()
+    parked[~keep, :3] = 1e6
+    far = n(corr_scores_plain(t(pts), t(f), t(parked), t(g), sigma=1.5))
+    dropped = n(corr_scores_plain(t(pts), t(f), t(tp[keep]), t(g[keep]),
+                                  sigma=1.5))
+    scale = np.abs(dropped).max()
+    np.testing.assert_allclose(inside, dropped, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(far, dropped, rtol=0, atol=1e-5 * scale)
+
+
+def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
+    def boom():
+        raise AssertionError("the CPU branch asked for the CUDA library")
+
+    monkeypatch.setattr(_build, "load_library", boom)
+    before = cuda_corr.LAUNCHES
+    pts, f, tp, g = _inputs(5, 3, 8, 40)
+    got = corr_scores_fused(t(pts), t(f), t(tp), t(g), sigma=1.5)
+    np.testing.assert_allclose(n(got), _oracle(pts, f, tp, g, 1.5, 2.0),
+                               rtol=1e-5, atol=1e-5)
+    assert cuda_corr.LAUNCHES == before  # counts kernel launches only
+
+
+@pytest.mark.parametrize("H,S,T,want", [
+    # the four stages of the reduced operating point
+    (2048, 256, 512, (1, 4)), (512, 512, 1024, (2, 8)),
+    (4, 4096, 4096, (16, 32)), (17, 2048, 2048, (8, 16)),
+    # ragged: T not a multiple of the tile
+    (1, 33, 1000, (1, 8)), (9, 300, 777, (2, 7)),
+    # a grid that fills the card sweeps all targets in one block
+    (2100, 257, 700, (2, 1)), (3, 5, 1, (1, 1))])
+def test_launch_plan_covers_every_target_once(H, S, T, want):
+    n_src, n_seg = launch_plan(H, S, T)
+    assert (n_src, n_seg) == want
+    assert n_src * 256 >= S > (n_src - 1) * 256
+    # one block for all the targets, or one for each tile of 128
+    assert n_seg in (1, -(-T // 128))
+    # the sweep is split only where the grid would not fill the card
+    assert (n_seg > 1) <= (n_src * -(-H // 8) < 264)
 
 
 @pytest.mark.parametrize("fn", ["correlator_scores_radius",

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "umr_ume_moments": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _FLT,
                         _INT, _VP],
     "umr_corr_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                        _INT, _FLT, _FLT, _VP],
+                        _INT, _INT, _FLT, _FLT, _VP],
     "umr_gather_rows": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
                         _VP],
     "umr_sparse_conv_rowtile": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
