@@ -15,8 +15,16 @@ Phases (any failure ends the run with a non-zero exit):
      parked far away), in the caller's order and cell-ordered, two
      launches bit-identical; its times with and without the ordering, the
      ordering's own time and the share of steps that need the feature
-     product (g_need_share) both ways; for ume_moments_fused also the
-     share of keypoints whose ball reaches the cap; gather_rows: identical rows, at the
+     product (g_need_share) both ways; for ume_moments_fused also forced
+     cases (M of 1 and 13, N of 1 and 4500, caps of 1 / 31 / 32 / 33 / the
+     hit queue's size / one more / above N, the cap over masked runs
+     counted exactly, all masked and nothing in radius: exact zeros, M = 0
+     without a launch; two launches bit-identical), the share of
+     keypoints whose ball reaches the cap, the device's time alone
+     (kernel_ms, from a CUDA graph of 20 calls), the sweep alone (kernel_ms_no_hits), the capped row
+     reads alone (kernel_ms_all_capped), the rate of row reads (l2_tbps)
+     and what a barrier per point tile would cost a block of 8 warps
+     (tile_wait_factor); gather_rows: identical rows, at the
      main path's two shapes and at N = 32768, C = 32 / 128 / 512, fp32 and
      bf16, random and monotone indices; sparse_conv_rowtile and
      sparse_conv_tapsplit, each forced: max abs error <= 2e-5 x max |out|
@@ -117,6 +125,25 @@ def time_ms(fn, reps=20, warmup=3, inner=1):
     return float(np.median(times))
 
 
+def graph_ms(fn, reps=7, inner=20):
+    """Median CUDA-event time in ms of one fn() among `inner` captured in
+    one CUDA graph and replayed: the device's time alone, however long the
+    host takes to launch (time_ms with inner > 1 reads the host's time
+    where that is the longer)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return time_ms(graph.replay, reps=reps) / inner
+
+
 _KEY_TABLES = {}  # device -> (cell index -> its share of the key, offsets)
 
 
@@ -166,6 +193,82 @@ def reset_launch_counts():
         m.LAUNCHES = 0
     for k in cuda_conv.LAUNCHES:
         cuda_conv.LAUNCHES[k] = 0
+
+
+UME_QUEUE = 128  # ume_moments.cu's per-warp hit queue (kQueue)
+
+
+def ume_forced_cases(dev):
+    """ume_moments_fused against ume_moments_plain at forced shapes and
+    caps: max abs error <= 1e-5 x max |out| (the plain version sums the
+    rows in another order), two launches bit-identical, exact equality
+    where the data are integers or nothing is selected. Returns the
+    per-case results and whether all passed."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_ume
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def random_case(M, N, max_nn, radius=3.0, shift=0.0, mask_p=0.85):
+        pts = (torch.rand(N, 3, generator=gen, device=dev) * 2 - 1) * 6
+        kp = pts[torch.randint(N, (M,), generator=gen, device=dev)] + 0.1
+        Z = torch.randn(N, 128, generator=gen, device=dev)
+        pm = torch.rand(N, generator=gen, device=dev) < mask_p
+        return kp + shift, pts, Z, pm, radius, max_nn
+
+    def counting_case(M, N, max_nn, masked_runs):
+        # every point in radius; Z[:, 0] = n and Z[:, 1] = 1 say which rows
+        # were summed: exactly the first max_nn valid indices
+        pm = torch.ones(N, dtype=torch.bool, device=dev)
+        for a, b in masked_runs:
+            pm[a:b] = False
+        Z = torch.zeros(N, 128, device=dev)
+        Z[:, 0] = torch.arange(N, device=dev)
+        Z[:, 1] = 1.0
+        first = torch.nonzero(pm)[:max_nn, 0]
+        want = torch.zeros(M, 128, device=dev)
+        want[:, 0], want[:, 1] = float(first.sum()), float(first.numel())
+        return (torch.zeros(M, 3, device=dev), torch.zeros(N, 3, device=dev),
+                Z, pm, 1.0, max_nn), want
+
+    Q = UME_QUEUE
+    cases = {  # name -> (inputs, exact expected output or None)
+        "M1_N3000": (random_case(1, 3000, 50), None),
+        "M13_N3000": (random_case(13, 3000, 50), None),
+        "M40_N1": (random_case(40, 1, 5, mask_p=2.0), None),
+        "M40_N4500_ragged": (random_case(40, 4500, 200, radius=5.0), None),
+        **{f"cap{c}": (random_case(64, 2500, c, radius=5.0), None)
+           for c in (1, 31, 32, 33, Q, Q + 1)},
+        "cap_above_N": (random_case(64, 2500, 4000, radius=5.0), None),
+        "none_in_radius": (random_case(64, 2500, 50, shift=1e3),
+                           torch.zeros(64, 128, device=dev)),
+        "all_masked": (random_case(64, 2500, 50, mask_p=-1.0),
+                       torch.zeros(64, 128, device=dev)),
+        **{f"count_first_{c}_masked_runs": counting_case(
+            8, 4500, c, [(10, 20), (25, 40), (60, 70), (2040, 2060)])
+           for c in (1, 33, Q + 1, 2100, 5000)},
+    }
+    res, ok_all = {}, True
+    for name, (args, exact) in cases.items():
+        a = cuda_ume.ume_moments_fused(*args)
+        a2 = cuda_ume.ume_moments_fused(*args)
+        b = cuda_ume.ume_moments_plain(*args)
+        torch.cuda.synchronize()
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        ok = err <= 1e-5 * scale and torch.equal(a, a2)
+        if exact is not None:
+            ok = ok and torch.equal(a, exact) and torch.equal(b, exact)
+        res[name] = dict(max_abs_err=err, scale=scale, exact=exact is not None,
+                         ok=bool(ok))
+        ok_all &= bool(ok)
+    before = cuda_ume.LAUNCHES
+    kp, pts, Z, pm, r, c = random_case(4, 100, 5)
+    empty = cuda_ume.ume_moments_fused(kp[:0], pts, Z, pm, r, c)
+    ok = tuple(empty.shape) == (0, 128) and cuda_ume.LAUNCHES == before
+    res["M0_no_launch"] = dict(ok=ok)
+    return res, ok_all and ok
 
 
 def phase_kernels(dev, model, pair, cfg):
@@ -224,6 +327,7 @@ def phase_kernels(dev, model, pair, cfg):
     scale = float(b.abs().max())
     # data-dependent work: radius tests up to the max_nn-th hit, row sums
     tested = selected = at_cap = in_ball = 0
+    waited = 0  # rows a block of 8 warps bound by a barrier per tile pays for
     for c0 in range(0, kp.shape[0], 256):
         ok = (sqdist3(kp[c0:c0 + 256], p) <= r * r) & pm[None]
         cum = torch.cumsum(ok.int(), 1)
@@ -233,7 +337,16 @@ def phase_kernels(dev, model, pair, cfg):
         first = torch.argmax((cum >= cap).int(), 1) + 1
         tested += int(torch.where(full, first, torch.full_like(first, N)).sum())
         selected += int(torch.clamp(cum[:, -1], max=cap).sum())
+        # selected rows per (keypoint, tile of 2048 points); per block of 8
+        # consecutive keypoints the largest count of each tile
+        w = torch.nn.functional.pad((ok & (cum <= cap)).float(),
+                                    (0, -N % 2048, 0, -ok.shape[0] % 8))
+        per_tile = w.view(w.shape[0] // 8, 8, -1, 2048).sum(-1)
+        waited += int(per_tile.max(dim=1).values.sum())
     Mk = kp.shape[0]
+    kernel_ms = graph_ms(lambda: cuda_ume.ume_moments_fused(kp, p, Z, pm, r,
+                                                            cap))
+    kp_far = kp + 1e6
     bb, by = bound_ms(N * 512 + N * 13 + Mk * 12 + Mk * 512,
                       tested * 9 + selected * 128)
     out["ume_moments_fused"] = dict(
@@ -245,7 +358,28 @@ def phase_kernels(dev, model, pair, cfg):
         library_ms=None, bound_ms=bb, bound_by=by,
         # facts about the inputs: how many balls the cap cuts short
         cap=cap, keypoints_at_cap_share=at_cap / Mk,
-        mean_in_radius=in_ball / Mk, rows_selected=selected)
+        mean_in_radius=in_ball / Mk, rows_selected=selected,
+        # the device's time alone (20 calls in one CUDA graph); the same with
+        # 20 eager calls back to back, which reads the host where its time to
+        # launch is the longer; the sweep alone (keypoints moved 1e6 m away:
+        # no row read); the row reads almost alone (every point in radius:
+        # each warp stops at its cap-th valid point); the rate of 512-byte
+        # row reads that kernel_ms amounts to
+        kernel_ms=kernel_ms,
+        kernel_ms_eager=time_ms(lambda: cuda_ume.ume_moments_fused(
+            kp, p, Z, pm, r, cap), reps=7, inner=20),
+        kernel_ms_no_hits=graph_ms(lambda: cuda_ume.ume_moments_fused(
+            kp_far, p, Z, pm, r, cap)),
+        kernel_ms_all_capped=graph_ms(lambda: cuda_ume.ume_moments_fused(
+            kp, p, Z, pm, 1e6, cap)),
+        l2_tbps=selected * 512 / (kernel_ms * 1e-3) / 1e12,
+        # what a kernel pays whose 8 warps a block wait for each other round
+        # every 2048-point tile: sum over tiles of the block's largest row
+        # count, over the block's mean rows per warp (1 = no waiting)
+        tile_wait_factor=waited / (selected / 8))
+    forced, forced_ok = ume_forced_cases(dev)
+    out["ume_moments_fused"].update(forced=forced)
+    out["ume_moments_fused"]["ok"] &= forced_ok
 
     # --- corr_scores_fused at every stage's shape
     cs_f = copy_features_to_raw(s["corr_pts"], s["corr_mask"], p, feat, pm)

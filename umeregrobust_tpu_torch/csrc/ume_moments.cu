@@ -5,106 +5,212 @@
 // Computes out[k] = sum_n w[k,n] * Z[n] with w[k,n] = 1 iff point n is
 // valid, lies within `radius` of keypoint k, and is among the first
 // `max_nn` such points in index order (PyTorch3D ball_query capping).
+// fp32 throughout, rows added in index order, no atomics: two launches
+// give the same bits.
 //
-// Bound on the H100: bytes. Z is 16384 x 128 x 4 B = 8 MB read once;
-// the selected-row sums are <= 2048 * 750 * 128 * 2 FLOP ~ 0.4 GFLOP and
-// the radius tests ~0.3 GFLOP, both far below the fp32 rate.
+// Bound on the H100. Against device memory the work is small: Z is
+// 16384 x 128 x 4 B = 8 MB read once, the radius tests and row sums are
+// under 1 GFLOP. What the kernel really moves is L2 traffic: every
+// selected row is a 512-byte read by its warp (Z stays resident in the
+// 50 MB L2), ~0.9 M rows = 467 MB a launch at the main path's shape. And
+// with 2048 warps on 132 SMs (about 16 a SM, one wave) there are too few
+// warps to hide an L2 round trip by switching between them: the time is
+// that of a warp's own chain, its sweep plus its row reads. So the design
+// keeps many row reads in flight per warp, keeps the sweep's loads cheap
+// and ahead of their use, and lets no warp wait for another.
 //
-// Design: one warp per keypoint. The warp sweeps the points in index
-// order, 32 at a time: each lane tests one point with the direct-
-// difference distance, `__ballot_sync` gathers the in-radius lanes and
-// the set bits are consumed in ascending order while a register count
-// (uniform across the warp) stays below max_nn -- the in-order prefix
-// count that the TPU kernel built with a triangular matmul. Each lane owns
-// 4 of the 128 columns of Z and accumulates the selected rows in fp32, in
-// index order, with one coalesced 512-byte row read per selected point
-// (Z stays resident in the 50 MB L2). The block's 8 warps share point
-// tiles staged in shared memory (masked points parked far away so they
-// never pass the test and never use up a slot); a warp stops once its
-// count reaches max_nn, which the capped semantics make exact, and the
-// block stops when all its warps have. No bf16 hi/lo split: fp32 all the
-// way.
+// Design: one warp per keypoint, and the warps of a block share nothing:
+// no shared point tiles and no block-wide barrier (the only
+// synchronisation is __syncwarp round the warp's own queue).
+//  - Packed copy. A small kernel first writes the coordinates into scratch
+//    as three padded arrays x[], y[], z[], NaN where the mask is off or
+//    past the end. A step of the sweep is then three coalesced 128-byte
+//    reads with no mask read and no bounds test (from the (N, 3) layout a
+//    step is three strided reads over 384 bytes plus the mask, and the
+//    SM's load pipe set the sweep's time).
+//  - Sweep. The warp walks the packed points in index order, 32 a step,
+//    kUnroll steps a turn, through the read-only path: the 196 KB stay in
+//    L1/L2 and every warp of the SM walks the same stream. The next turn's
+//    points are loaded into registers while this turn's are tested, and a
+//    turn's ballots are all taken before the first is looked at, so a turn
+//    without a hit is one short chain.
+//  - Hit queue. A step's in-radius lanes are gathered with __ballot_sync;
+//    a lane's slot is pos = count + popc(bits below it); lanes with
+//    pos < max_nn write their point index into a per-warp ring of kQueue
+//    int32 in shared memory (size independent of max_nn); count advances by
+//    popc(bits), clamped at max_nn. This is the in-order prefix count that
+//    the TPU kernel built with a triangular matmul.
+//  - Drain. Whenever the ring holds kBatch indices each lane starts kBatch
+//    independent 16-byte loads (its 4 of the 128 columns of kBatch queued
+//    rows: kBatch x 512 B = 8 KB in flight per warp, past L1 so that the
+//    rows do not push the points out of it) and then adds them in queue
+//    order. The sweep's end or the cap ends the last, partial batch, which
+//    reads only the rows that were selected.
+//  - A warp stops sweeping once its count reaches max_nn, which the capped
+//    semantics make exact.
+// Candidates that were measured on the card and not kept: point tiles
+// shared by the block with no row read between its barriers (the block
+// first fills an in-radius bitmap for its 8 keypoints, then each warp
+// drains its own: a cheaper sweep that cannot overlap the block's row
+// reads, level with independent warps on the (N, 3) layout and slower
+// than these); two batches in flight across the sweep (register double
+// buffer: within 2% of this); prefetch instructions for the points
+// (slower).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kTile = 2048;
-constexpr int kCols = 128;  // 4C at C = 32: 4 columns per lane
+constexpr int kWarps = 4;    // warps a block; they share nothing
+constexpr int kCols = 128;   // 4C at C = 32: 4 columns per lane
+constexpr int kQueue = 128;  // ring slots per warp (power of two)
+constexpr int kBatch = 16;   // row reads in flight per warp in a drain
+constexpr int kUnroll = 4;   // steps whose points are loaded ahead
+constexpr int kChunk = kUnroll * 32;
 
-__global__ void ume_moments_kernel(const float* __restrict__ kpts,
-                                   const float* __restrict__ pts,
-                                   const float* __restrict__ Z,
-                                   const uint8_t* __restrict__ mask,
-                                   float* __restrict__ out, int M, int N,
-                                   float r2, int max_nn) {
-  __shared__ float sp[kTile * 3];
+static_assert((kQueue & (kQueue - 1)) == 0, "ring index is masked");
+static_assert(kQueue >= kBatch + 32, "a step adds up to 32 to < kBatch");
+
+// points the packed copy holds for a cloud of N: whole chunks, and one
+// more that the sweep loads ahead of the last
+__host__ __device__ constexpr int packed_points(int N) {
+  return ((N + kChunk - 1) / kChunk + 1) * kChunk;
+}
+
+// packed[c * P + n] = pts[n][c] for a valid point, NaN (in no radius)
+// where the mask is off or n >= N: one coalesced 128-byte read a
+// coordinate and step in the sweep, no mask read, no bounds test
+__global__ void ume_pack_points_kernel(const float* __restrict__ pts,
+                                       const uint8_t* __restrict__ mask,
+                                       float* __restrict__ packed, int N,
+                                       int P) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= P) return;
+  const bool ok = n < N && mask[n] != 0;
+  const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    packed[(int64_t)c * P + n] = ok ? pts[3 * (int64_t)n + c] : nan;
+}
+
+// adds the rows queued at ring positions head .. head + n - 1 (n <= kBatch,
+// uniform over the warp) to acc, in that order; all n reads are started
+// before the first add
+template <bool kFull>
+__device__ __forceinline__ void drain(const int* __restrict__ q,
+                                      const float4* __restrict__ Z4, int lane,
+                                      int head, int n, float4& acc) {
+  float4 z[kBatch];
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    if (kFull || j < n) {
+      const int row = q[(head + j) & (kQueue - 1)];
+      z[j] = __ldcg(Z4 + (int64_t)row * (kCols / 4) + lane);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    if (kFull || j < n) {
+      acc.x += z[j].x;
+      acc.y += z[j].y;
+      acc.z += z[j].z;
+      acc.w += z[j].w;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+ume_moments_kernel(const float* __restrict__ kpts,
+                   const float* __restrict__ packed,
+                   const float* __restrict__ Z, float* __restrict__ out,
+                   int M, int N, int P, float r2, int max_nn) {
+  __shared__ int queue[kWarps][kQueue];
   const int lane = threadIdx.x & 31;
-  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  float kx = 0.f, ky = 0.f, kz = 0.f;
-  if (k < M) {
-    kx = kpts[3 * k];
-    ky = kpts[3 * k + 1];
-    kz = kpts[3 * k + 2];
-  }
-  int count = 0;
-  bool active = (k < M) && (max_nn > 0);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * kWarps + warp;
+  if (k >= M) return;  // whole warps leave; no block-wide barrier follows
+  int* q = queue[warp];
+  const float kx = kpts[3 * (int64_t)k];
+  const float ky = kpts[3 * (int64_t)k + 1];
+  const float kz = kpts[3 * (int64_t)k + 2];
+  const float* px = packed + lane;
+  const float* py = px + P;
+  const float* pz = py + P;
   const float4* Z4 = reinterpret_cast<const float4*>(Z);
-  for (int base = 0; base < N; base += kTile) {
-    // every thread reaches both barriers; the block leaves together once
-    // no warp has slots left to fill
-    if (__syncthreads_or(active) == 0) break;
-    const int len = min(kTile, N - base);
-    for (int t = threadIdx.x; t < len; t += kWarps * 32) {
-      const int n = base + t;
-      const bool ok = mask[n] != 0;
-      sp[3 * t] = ok ? pts[3 * n] : -1e9f;
-      sp[3 * t + 1] = ok ? pts[3 * n + 1] : -1e9f;
-      sp[3 * t + 2] = ok ? pts[3 * n + 2] : -1e9f;
+  const unsigned below = (1u << lane) - 1u;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int count = 0;  // indices queued so far, <= max_nn (uniform over the warp)
+  int head = 0;   // indices drained so far
+
+  float cx[kUnroll], cy[kUnroll], cz[kUnroll];
+  float nx[kUnroll], ny[kUnroll], nz[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    cx[u] = __ldg(px + u * 32);
+    cy[u] = __ldg(py + u * 32);
+    cz[u] = __ldg(pz + u * 32);
+  }
+  for (int base = 0; base < N && count < max_nn; base += kChunk) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      nx[u] = __ldg(px + base + kChunk + u * 32);
+      ny[u] = __ldg(py + base + kChunk + u * 32);
+      nz[u] = __ldg(pz + base + kChunk + u * 32);
     }
-    __syncthreads();
-    if (active) {
-      for (int g = 0; g < len && count < max_nn; g += 32) {
-        const int t = g + lane;
-        bool in = false;
-        if (t < len) {
-          const float d2 = umr_sqdist3(kx, ky, kz, sp[3 * t], sp[3 * t + 1],
-                                       sp[3 * t + 2]);
-          in = d2 <= r2;
+    unsigned bits[kUnroll];
+    unsigned any = 0u;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      bits[u] = __ballot_sync(
+          0xffffffffu, umr_sqdist3(kx, ky, kz, cx[u], cy[u], cz[u]) <= r2);
+      any |= bits[u];
+    }
+    if (any != 0u) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (bits[u] == 0u || count >= max_nn) continue;
+        const int pos = count + __popc(bits[u] & below);
+        if (((bits[u] >> lane) & 1u) && pos < max_nn)
+          q[pos & (kQueue - 1)] = base + u * 32 + lane;
+        count = min(count + __popc(bits[u]), max_nn);
+        __syncwarp();
+        while (count - head >= kBatch) {
+          drain<true>(q, Z4, lane, head, kBatch, acc);
+          head += kBatch;
         }
-        unsigned bits = __ballot_sync(0xffffffffu, in);
-        while (bits != 0u && count < max_nn) {
-          const int b = __ffs(bits) - 1;
-          bits &= bits - 1u;
-          const float4 z = Z4[(int64_t)(base + g + b) * (kCols / 4) + lane];
-          acc.x += z.x;
-          acc.y += z.y;
-          acc.z += z.z;
-          acc.w += z.w;
-          ++count;
-        }
+        // the ring's next writes land ahead of every slot still unread
+        __syncwarp();
       }
-      active = count < max_nn;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      cx[u] = nx[u];
+      cy[u] = ny[u];
+      cz[u] = nz[u];
     }
   }
-  if (k < M) {
-    reinterpret_cast<float4*>(out)[(int64_t)k * (kCols / 4) + lane] = acc;
-  }
+  if (count > head) drain<false>(q, Z4, lane, head, count - head, acc);
+  reinterpret_cast<float4*>(out)[(int64_t)k * (kCols / 4) + lane] = acc;
 }
 
 }  // namespace
 
-// kpts (M,3), pts (N,3), Z (N,128) f32, mask (N,) bool -> out (M,128) f32.
-// C4 must be 128 (checked by the wrapper; passed for the record).
+// floats of scratch that umr_ume_moments needs for a cloud of N points
+UMR_EXPORT int umr_ume_moments_scratch(int N) { return 3 * packed_points(N); }
+
+// kpts (M,3), pts (N,3), Z (N,128) f32, mask (N,) bool -> out (M,128) f32;
+// scratch: umr_ume_moments_scratch(N) floats, overwritten. C4 must be 128
+// (checked by the wrapper; passed for the record).
 UMR_EXPORT int umr_ume_moments(const float* kpts, const float* pts,
                                const float* Z, const uint8_t* mask,
-                               float* out, int M, int N, int C4, float r2,
-                               int max_nn, void* stream) {
+                               float* out, float* scratch, int M, int N,
+                               int C4, float r2, int max_nn, void* stream) {
   if (C4 != kCols) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int P = packed_points(N);
+  ume_pack_points_kernel<<<(P + 255) / 256, 256, 0, st>>>(pts, mask, scratch,
+                                                          N, P);
   const int blocks = (M + kWarps - 1) / kWarps;
-  ume_moments_kernel<<<blocks, kWarps * 32, 0, st>>>(kpts, pts, Z, mask, out,
-                                                     M, N, r2, max_nn);
+  ume_moments_kernel<<<blocks, kWarps * 32, 0, st>>>(kpts, scratch, Z, out, M,
+                                                     N, P, r2, max_nn);
   return static_cast<int>(cudaGetLastError());
 }

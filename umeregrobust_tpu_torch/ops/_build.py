@@ -33,8 +33,9 @@ _VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream are void*, sizes are int
 _SIGNATURES = {
     "umr_nn1_argmin": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
-    "umr_ume_moments": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _FLT,
-                        _INT, _VP],
+    "umr_ume_moments": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                        _FLT, _INT, _VP],
+    "umr_ume_moments_scratch": [_INT],
     "umr_corr_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                         _INT, _INT, _FLT, _FLT, _VP],
     "umr_gather_rows": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,

@@ -6,7 +6,8 @@ out[k] = sum_n w[k, n] * Z[n], w[k, n] = 1 iff point n is valid, lies
 within `radius` of keypoint k (direct-difference distance), and is among
 the first `max_nn` such points in index order. On a CPU tensor the
 wrapper runs the plain version; on a CUDA tensor it launches the kernel
-or raises.
+(which first packs the coordinates into a scratch buffer that the wrapper
+allocates) or raises.
 """
 from __future__ import annotations
 
@@ -64,10 +65,13 @@ def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
     out = torch.empty((M, 128), dtype=torch.float32, device=dev)
     if M == 0:
         return out
+    scratch = torch.empty((lib.umr_ume_moments_scratch(N),),
+                          dtype=torch.float32, device=dev)
     code = lib.umr_ume_moments(
         kpts.data_ptr(), pts.data_ptr(), Z.data_ptr(), p_mask.data_ptr(),
-        out.data_ptr(), M, N, 128, float(_r2(radius)), int(max_nn),
-        _build.stream_of(dev))
+        out.data_ptr(), scratch.data_ptr(), M, N, 128,
+        float(radius) ** 2,  # rounded to fp32 in the call, as _r2 rounds it
+        int(max_nn), _build.stream_of(dev))
     _build.check(lib, code, "ume_moments_fused")
     LAUNCHES += 1
     return out
