@@ -34,7 +34,16 @@ Phases (any failure ends the run with a non-zero exit):
      three layers of the ResUNet pyramid of the nominal pair (int64
      maps)), with CUDA-event times (median of 20 after warm-up)
      of kernel, plain version and, where one PyTorch call computes the
-     same function, that call; and each kernel's bound;
+     same function, that call; and each kernel's bound; then every conv
+     launch of the ResUNet forward (11) and of the ResUNetSmall2
+     conv_impl="scan" forward (18) on the nominal pair with its own map
+     and features (conv_layer_row: both kernels, the old FMA tile, bound,
+     library route), and nine forced conv maps (conv_forced_cases: an
+     empty tap, a tile with one valid row, an all-valid map, input rows
+     hit many times a tap (entries past the tap kernel's scratch),
+     indices >= N_in with N_out > N_in, Cin 1 / 3 / 320 / 384 / 768, Cout
+     32 / 48 / 128 / 1024, int32 and int64), fp32 and bf16, both kernels, two
+     launches bit-identical, the entry lists equal to their plain twin;
   4. reference: the small pair through the whole path on the card and on
      the CPU (plain versions) with the same injected draws: the same
      transforms;
@@ -56,8 +65,10 @@ Phases (any failure ends the run with a non-zero exit):
      (every conv through the per-tap kernels) over phase 5's pairs and
      seeds: the same NP/SP verdict per pair as the grouped run;
   6. profile (only with --profile): the same pairs, seeds and config
-     again under torch.profiler, once with the grouped model and once with
-     the conv_impl="scan" model: per pipeline stage (register_pair_e2e's
+     again under torch.profiler, with the grouped model, the
+     conv_impl="scan" model and ResUNet (seeded random parameters), the
+     last two also with the old conv kernels (OldConvKernels): per
+     pipeline stage (register_pair_e2e's
      record_function ranges) host ms and the device ms of the kernels
      inside it, device busy ms, the idle share of the profiled wall and,
      as an estimate combining two runs, of phase 5's unprofiled wall;
@@ -172,6 +183,53 @@ def cell_order(pts4, cell):
 def bound_ms(n_bytes, n_ops, peak=F32_PEAK):
     t_b, t_o = n_bytes / HBM_BW * 1e3, n_ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def ptxas_report(source="sparse_conv_taps.cu"):
+    """ptxas's registers, spills and shared memory per kernel of one
+    source, from the build's build.log (kernel name from the mangled
+    symbol, template arguments dropped)."""
+    import re
+
+    from umeregrobust_tpu_torch.ops import _build
+
+    def demangle(sym):  # "..14entries_kernelILb1EiEEv.." -> entries_kernel<true,int32>
+        pos = 0
+        while pos < len(sym):  # length-prefixed names, read in order
+            m = re.match(r"\d+", sym[pos:])
+            if m is None:
+                pos += 1
+                continue
+            start = pos + m.end()
+            ident = sym[start:start + int(m.group())]
+            pos = start + len(ident)
+            if ident.endswith("_kernel"):
+                rest = sym[pos:]
+                if not rest.startswith("I"):
+                    return ident
+                args = re.findall(r"Lb([01])E|Li(\d+)E|([il])(?=[EL])",
+                                  rest[1:rest.index("EE") + 1])
+                return ident + "<" + ",".join(
+                    ("true" if b == "1" else "false") if b else n or
+                    ("int32" if t == "i" else "int64") for b, n, t in args) + ">"
+        return sym
+
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    part = log.split(f"== {source}")[1].split("\n== ")[0]
+    out, name = {}, None
+    for line in part.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.setdefault(name, {}).update(
+                registers=int(m.group(1)),
+                static_smem_bytes=int(m.group(2) or 0))
+    return out
 
 
 def launch_counts():
@@ -750,6 +808,274 @@ def phase_kernels_family(dev, pair, cfg):
     return out
 
 
+def entries_match(nbr, n_in):
+    """The entry-list kernel equals its plain twin exactly (64- and
+    32-row tiles)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv
+
+    for tile_rows in (64, 32):
+        got = cuda_conv.conv_entries(nbr, n_in, tile_rows)
+        want = cuda_conv.conv_entries_plain(nbr, n_in, tile_rows)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            return False
+    return True
+
+
+def conv_forced_cases(dev):
+    """Both conv wrappers at forced maps and widths, fp32 and bf16
+    operands, against sparse_conv_plain (max abs error <= 2e-5 / 1e-4 x
+    max |out|), two launches bit-identical. Returns (cases, all passed)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv
+
+    rng = np.random.default_rng(11)
+
+    def case(n_in, n_out, K, cin, cout, idx, p=0.3, hi=None, edit=None):
+        """Per tap a monotone subsequence of [0, hi) (hi > n_in: some
+        indices absent) at about a share p of the rows."""
+        hi = n_in if hi is None else hi
+        maps = np.full((K, n_out), -1, np.int64)
+        for t in range(K):
+            rows = np.nonzero(rng.random(n_out) < p)[0][:hi]
+            maps[t, rows] = np.sort(rng.choice(hi, rows.size, replace=False))
+        if edit is not None:
+            edit(maps)
+        f = rng.standard_normal((n_in, cin))
+        w = rng.standard_normal((K, cin, cout)) * np.sqrt(2.0 / (K * cin))
+        return (torch.as_tensor(f, dtype=torch.float32, device=dev),
+                torch.as_tensor(w, dtype=torch.float32, device=dev),
+                torch.as_tensor(maps, device=dev).to(idx))
+
+    def lone_row(maps):  # tap 5 empty; rows 128..255 (a 128-row tile of
+        maps[5] = -1     # the row-tile kernel, two 64-row tiles of the
+        maps[:, 128:256] = -1  # entry lists) hold only row 200
+        maps[13, 200] = 7
+
+    def all_valid(maps):
+        maps[:] = rng.integers(0, maps.shape[1], maps.shape)
+
+    def repeated_rows(maps):  # every entry valid, input rows hit many
+        maps[:] = rng.integers(0, 50, maps.shape)  # times a tap: more
+        # entries than tapsplit's scratch rows (K min(N_in, N_out))
+
+    i32, i64 = torch.int32, torch.int64
+    cases = {
+        "empty_tap_lone_row_tile": case(300, 300, 27, 32, 64, i64,
+                                        edit=lone_row),
+        "all_valid": case(256, 256, 27, 16, 32, i32, edit=all_valid),
+        "repeated_rows_past_scratch": case(50, 300, 27, 16, 32, i32,
+                                           edit=repeated_rows),
+        "absent_ge_N_in_N_out_gt_N_in": case(100, 260, 27, 8, 48, i64,
+                                             p=0.4, hi=130),
+        "cin1_k343_cout32": case(2000, 2000, 343, 1, 32, i32, p=0.07),
+        "cin3_cout48": case(777, 777, 125, 3, 48, i64, p=0.1),
+        "cin320_cout128": case(600, 600, 125, 320, 128, i32, p=0.05),
+        "cin384_cout1024": case(300, 300, 27, 384, 1024, i64, p=0.2),
+        "cin768_cout48": case(400, 400, 125, 768, 48, i32, p=0.02),
+    }
+    res, ok_all = {}, True
+    for name, (f, w, nbr) in cases.items():
+        r = {}
+        for dt, lim in ((torch.float32, 2e-5), (torch.bfloat16, 1e-4)):
+            ref = cuda_conv.sparse_conv_plain(f, w, nbr, dt)
+            scale = float(ref.abs().max())
+            for kind in ("rowtile", "tapsplit"):
+                fn = getattr(cuda_conv, "sparse_conv_" + kind)
+                a, a2 = fn(f, w, nbr, dt), fn(f, w, nbr, dt)
+                torch.cuda.synchronize()
+                err = float((a - ref).abs().max())
+                ok = err <= lim * scale and scale > 0 and torch.equal(a, a2)
+                r[f"{kind}_{str(dt)[6:]}"] = dict(max_abs_err=err,
+                                                  limit=lim * scale, ok=ok)
+                ok_all &= ok
+        same = entries_match(nbr, f.shape[0])
+        ok_all &= same
+        res[name] = dict(shape=f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}, "
+                               f"{f.shape[0]}->{nbr.shape[1]} rows, "
+                               f"{str(nbr.dtype)[6:]}",
+                         entries_match_plain=same, **r)
+    return res, ok_all
+
+
+def capture_conv_layers(model, caps, pair, dev):
+    """Every per-tap conv launch of one feature stage of `model` on `pair`
+    (bf16 operands, as register_pair_e2e runs it): (parameter name,
+    features, weights, map) in launch order."""
+    import torch
+
+    import umeregrobust_tpu_torch.models.resunet as resunet
+    from umeregrobust_tpu_torch.pipeline.e2e import pair_features_e2e
+
+    names = {p.data_ptr(): n[:-2] for n, p in model.named_parameters()}
+    got, conv = [], resunet.sparse_conv
+
+    def record(feats, w, nbr, bias=None, compute_dtype=torch.float32):
+        got.append((names.get(w.data_ptr(), "?"),
+                    feats.to(torch.float32).contiguous(),
+                    w.detach().contiguous(), nbr.contiguous()))
+        return conv(feats, w, nbr, bias=bias, compute_dtype=compute_dtype)
+
+    resunet.sparse_conv = record
+    try:
+        with torch.no_grad():
+            pair_features_e2e(model, caps, *pair_args(pair), device=dev)
+    finally:
+        resunet.sparse_conv = conv
+    torch.cuda.synchronize()
+    return got
+
+
+IM2COL_LIMIT = 8e9  # bytes of the library route's im2col tensor
+
+
+def old_route(n_out, cout, k_vol):
+    """The FMA tile that the port's first conv kernels routed a layer to
+    (choose_kernel before the tensor-core redesign): rowtile when its
+    64 x (64 or 32) output tiles alone reach 132, else tapsplit."""
+    tiles = -(-n_out // 64) * -(-cout // (64 if cout >= 64 else 32))
+    return "rowtile" if tiles >= 132 or k_vol == 1 else "tapsplit"
+
+
+def conv_layer_row(name, f, w, nbr):
+    """One real conv launch at bf16 operands: both wrappers against the
+    plain version (two launches bit-identical) and their device times
+    (CUDA graph), the routed one's time one call an event pair, the entry
+    lists against their plain twin, the FMA tile that the first port's
+    rule routed the layer to (the old kernel), the bound, and the library
+    route (gather into a zero-padded (N_out, K Cin) bf16 im2col tensor,
+    then one torch.mm), timed apart."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv
+
+    bf = torch.bfloat16
+    K, Cin, Cout = w.shape
+    N_in, N_out = f.shape[0], nbr.shape[1]
+    hit = (nbr >= 0) & (nbr < N_in)
+    valid = int(hit.sum())
+    taps_used = int(hit.any(1).sum())
+    rows_read = int(torch.unique(nbr[hit]).numel())
+    kind = cuda_conv.choose_kernel(N_out, Cout, K)[0]
+    fn = getattr(cuda_conv, "sparse_conv_" + kind)
+    ref = cuda_conv.sparse_conv_plain(f, w, nbr, bf)
+    scale = float(ref.abs().max())
+    both = {}  # each wrapper on this layer: error, bits, device time
+    for other in ("rowtile", "tapsplit"):
+        g = getattr(cuda_conv, "sparse_conv_" + other)
+        b1, b2 = g(f, w, nbr, bf), g(f, w, nbr, bf)
+        torch.cuda.synchronize()
+        e = float((b1 - ref).abs().max())
+        both[other] = dict(max_abs_err=e, ok=e <= 1e-4 * scale
+                           and torch.equal(b1, b2),
+                           kernel_ms=graph_ms(lambda: g(f, w, nbr, bf),
+                                              reps=5, inner=10))
+    entries_same = entries_match(nbr, N_in)
+    old_kind = old_route(N_out, Cout, K)
+    old = cuda_conv.sparse_conv_fma(f, w, nbr, old_kind, bf)
+    torch.cuda.synchronize()
+    err = both[kind]["max_abs_err"]
+    # bytes: the map, the feature rows it reads, the weights of the taps
+    # that have an entry, the output; operations: the valid entries' products
+    n_bytes = (nbr.numel() * nbr.element_size() + rows_read * Cin * 4
+               + taps_used * Cin * Cout * 4 + N_out * Cout * 4)
+    bb, by = bound_ms(n_bytes, 2 * valid * Cin * Cout, BF16_PEAK)
+    bb16, _ = bound_ms(n_bytes - taps_used * Cin * Cout * 2,
+                       2 * valid * Cin * Cout, BF16_PEAK)
+    row = dict(
+        layer=name, kernel=kind, K=K, cin=Cin, cout=Cout, rows_in=N_in,
+        rows_out=N_out, valid=valid, density=valid / (K * N_out),
+        taps_used=taps_used, max_abs_err=err, scale=scale,
+        ok=all(v["ok"] for v in both.values()) and scale > 0
+        and entries_same, entries_match_plain=entries_same,
+        old_max_abs_err=float((old - ref).abs().max()),
+        ms=time_ms(lambda: fn(f, w, nbr, bf), reps=10),
+        kernel_ms=both[kind]["kernel_ms"],
+        kernel_ms_rowtile=both["rowtile"]["kernel_ms"],
+        kernel_ms_tapsplit=both["tapsplit"]["kernel_ms"],
+        max_abs_err_other=both["tapsplit" if kind == "rowtile"
+                               else "rowtile"]["max_abs_err"],
+        plain_ms=time_ms(lambda: cuda_conv.sparse_conv_plain(f, w, nbr, bf),
+                         reps=3, warmup=1),
+        old_kernel=old_kind,
+        old_ms=time_ms(lambda: cuda_conv.sparse_conv_fma(
+            f, w, nbr, old_kind, bf), reps=10),
+        old_kernel_ms=graph_ms(lambda: cuda_conv.sparse_conv_fma(
+            f, w, nbr, old_kind, bf), reps=5, inner=10),
+        bound_ms=bb, bound_by=by, bound_ms_bf16_weights=bb16)
+    im2col = N_out * K * Cin * 2
+    if im2col > IM2COL_LIMIT:
+        row.update(library_ms=None, library_note=f"im2col {im2col / 1e9:.1f}"
+                   f" GB > {IM2COL_LIMIT / 1e9:.0f} GB")
+        return row
+    idx = torch.where(hit, nbr, N_in).T.contiguous()  # (N_out, K)
+    wb = w.reshape(K * Cin, Cout).to(bf)
+
+    def gather():
+        fp = torch.nn.functional.pad(f.to(bf), (0, 0, 0, 1))
+        return fp[idx].reshape(N_out, K * Cin)
+
+    A = gather()
+    lib_err = float((torch.mm(A, wb).float() - ref).abs().max())
+    g_ms = time_ms(gather, reps=10)
+    m_ms = time_ms(lambda: torch.mm(A, wb), reps=10)
+    del A
+    row.update(library_gather_ms=g_ms, library_gemm_ms=m_ms,
+               library_ms=g_ms + m_ms, library_max_abs_err=lib_err)
+    return row
+
+
+def phase_conv_layers(dev, pair, weights):
+    """Every conv launch of the ResUNet forward (11) and of the
+    ResUNetSmall2 conv_impl="scan" forward (18) on the nominal pair, one
+    row each (conv_layer_row), with their sums."""
+    import torch
+
+    from umeregrobust_tpu_torch.data.suite import REDUCED
+    from umeregrobust_tpu_torch.models.resunet import (
+        ARCHS, default_level_capacities, init_resunet)
+    from umeregrobust_tpu_torch.models.weights import load_model
+
+    n0 = pair["src"]["coords"].shape[0]
+    models = {
+        "ResUNet": (lambda: init_resunet(
+            ARCHS["ResUNet"], 1, 32, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0)),
+            default_level_capacities(n0, ARCHS["ResUNet"])),
+        "ResUNetSmall2_scan": (lambda: load_model(
+            weights, ARCHS["ResUNetSmall2"], device=dev, conv_impl="scan"),
+            REDUCED["caps"])}
+    out = {}
+    for mname, (make, caps) in models.items():
+        model = make()
+        layers = capture_conv_layers(model, caps, pair, dev)
+        del model
+        rows = []
+        for name, f, w, nbr in layers:
+            rows.append(conv_layer_row(name, f, w, nbr))
+            emit({"phase": "conv_layer", "model": mname, **rows[-1]})
+        del layers
+        keys = ("ms", "kernel_ms", "old_ms", "old_kernel_ms", "bound_ms",
+                "bound_ms_bf16_weights", "kernel_ms_rowtile",
+                "kernel_ms_tapsplit")
+        summary = {k: sum(r[k] for r in rows) for k in keys}
+        lib = [r["library_ms"] for r in rows if r["library_ms"] is not None]
+        summary.update(
+            launches=len(rows), library_ms=sum(lib),
+            library_layers=len(lib), ok=all(r["ok"] for r in rows),
+            by_kernel={k: {key: sum(r[key] for r in rows if r["kernel"] == k)
+                           for key in keys}
+                       for k in ("rowtile", "tapsplit")},
+            layers_slower_than_old=[r["layer"] for r in rows
+                                    if r["kernel_ms"] > r["old_kernel_ms"]])
+        emit({"phase": "conv_layers_summary", "model": mname, **summary})
+        out[mname] = dict(rows=rows, **summary)
+    return out
+
+
 def pair_args(p):
     s, tg = p["src"], p["tgt"]
     return (s["coords"], s["grid"], s["mask"], tg["coords"], tg["grid"],
@@ -884,9 +1210,38 @@ def phase_reference(dev, model_gpu, model_cpu, cfg_small):
     return dict(max_abs_T_init=d_init, max_abs_T_refined=d_ref, ok=ok)
 
 
+class OldConvKernels:
+    """Within the block the backbone's per-tap convs take the FMA tile by
+    the first port's rule (old_route): the forward as it ran before the
+    tensor-core redesign, for a comparison in one call. A measurement
+    aid; the port never routes so."""
+
+    def __enter__(self):
+        import torch
+
+        import umeregrobust_tpu_torch.models.resunet as resunet
+        from umeregrobust_tpu_torch.ops import cuda_conv
+
+        self.mod, self.conv = resunet, resunet.sparse_conv
+
+        def old(feats, w, nbr, bias=None, compute_dtype=torch.float32):
+            out = cuda_conv.sparse_conv_fma(
+                feats.to(torch.float32).contiguous(), w.contiguous(),
+                nbr.contiguous(), old_route(nbr.shape[1], w.shape[2],
+                                            w.shape[0]), compute_dtype)
+            return out if bias is None else out + bias.to(torch.float32)
+
+        resunet.sparse_conv = old
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sparse_conv = self.conv
+
+
 def phase_profile(run, pairs, cfg, unprofiled_wall_s, model):
     """The e2e pairs again under torch.profiler (same seeds and config);
-    `model` tags the lines ("grouped" or "scan")."""
+    `model` tags the lines ("grouped", "scan" or "resunet"; the last has
+    no unprofiled run of its own: None, and its idle estimate is NaN)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -921,7 +1276,7 @@ def phase_profile(run, pairs, cfg, unprofiled_wall_s, model):
         emit({"phase": "profile", "model": model, "stage": name,
               "host_ms_per_pair_profiled": v["host_ms"] / n,
               "device_ms_per_pair": v["device_ms"] / n})
-    unprof_ms = unprofiled_wall_s * 1e3
+    unprof_ms = (unprofiled_wall_s or float("nan")) * 1e3
     emit({"phase": "profile_summary", "model": model, "pairs": n,
           "icp_budget": cfg.icp_budget,
           "wall_ms_per_pair_profiled": wall_ms / n,
@@ -979,7 +1334,8 @@ def main() -> int:
     t0 = time.time()
     _build.load_library()
     emit({"phase": "build", "seconds": time.time() - t0,
-          "library": os.path.relpath(str(_build.build_library()), ROOT)})
+          "library": os.path.relpath(str(_build.build_library()), ROOT),
+          "ptxas_sparse_conv_taps": ptxas_report()})
 
     # --- data and model
     cfg = RegistrationConfig(**REDUCED_CFG)  # bench.py:321-326
@@ -993,6 +1349,28 @@ def main() -> int:
     # --- 3. kernels
     kern = phase_kernels(dev, model, pairs[0], cfg)
     kern.update(phase_kernels_family(dev, pairs[0], cfg))
+    conv_layers = phase_conv_layers(dev, pairs[0], weights)
+    forced, forced_ok = conv_forced_cases(dev)
+    emit({"phase": "conv_forced", "ok": forced_ok, **forced})
+    for name in ("sparse_conv_rowtile", "sparse_conv_tapsplit"):
+        kind = name[len("sparse_conv_"):]
+        mine = [r for r in conv_layers["ResUNet"]["rows"]
+                if r["kernel"] == kind]
+        kern[name].update(
+            ok=kern[name]["ok"] and forced_ok and all(
+                v["ok"] for v in conv_layers.values()),
+            shape="ResUNet layers routed here: " + "; ".join(
+                f"{r['layer']} K{r['K']} {r['cin']}->{r['cout']}, "
+                f"{r['rows_in']}->{r['rows_out']} rows, {r['valid']} valid"
+                for r in mine),
+            **{k: sum(r[k] for r in mine) for k in (
+                "ms", "kernel_ms", "old_ms", "old_kernel_ms", "plain_ms",
+                "bound_ms")},
+            library_ms=(None if any(r["library_ms"] is None for r in mine)
+                        else sum(r["library_ms"] for r in mine)),
+            bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+            max_abs_err=max([kern[name]["max_abs_err"]]
+                            + [r["max_abs_err"] for r in mine]))
     for name, res in kern.items():
         emit({"kernel": name, **res})
 
@@ -1002,7 +1380,7 @@ def main() -> int:
         corr_coarse_src=None, corr_rescore_top=16, icp_max_corr=0.5,
         icp_max_iter=15, filter_mode="topk")
     ref = phase_reference(dev, model, load_model(
-        weights, ARCHS["ResUNetSmall2"]), cfg_small)
+        weights, ARCHS["ResUNetSmall2"], device="cpu"), cfg_small)
     emit({"phase": "reference", **ref})
 
     # --- 5. end to end: ICP occupancy pre-check and budget escalation
@@ -1087,6 +1465,31 @@ def main() -> int:
         phase_profile(run, pairs, cfg, wall, "grouped")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
                       scan_wall, "scan")
+        with OldConvKernels():
+            run(pairs[0], 0, scan_model)  # warm-up
+            phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
+                          None, "scan_old_conv_kernels")
+        from umeregrobust_tpu_torch.models.resunet import (
+            default_level_capacities, init_resunet)
+
+        res_model = init_resunet(
+            ARCHS["ResUNet"], 1, 32, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        res_caps = default_level_capacities(pairs[0]["src"]["coords"].shape[0],
+                                            ARCHS["ResUNet"])
+
+        def run_resunet(p, seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return register_pair_e2e(res_model, res_caps, cfg, *pair_args(p),
+                                     generator=g, device=dev)
+
+        run_resunet(pairs[0], 0)  # warm-up
+        phase_profile(run_resunet, pairs, cfg, None, "resunet")
+        with OldConvKernels():
+            run_resunet(pairs[0], 0)
+            phase_profile(run_resunet, pairs, cfg, None,
+                          "resunet_old_conv_kernels")
+        del res_model
 
     failures = [f"kernel {k}" for k, v in kern.items() if not v["ok"]]
     if not ref["ok"]:
@@ -1115,7 +1518,7 @@ def main() -> int:
                "family": tuple(KERNELS),
                "scan": ("nn1_argmin", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",
-                        "sparse_conv_rowtile")}
+                        "sparse_conv_rowtile", "sparse_conv_tapsplit")}
     for path, names_ in on_path.items():
         for k in names_:
             if paths[path][k] <= 0:

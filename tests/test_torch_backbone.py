@@ -71,7 +71,7 @@ def test_resunet_forward_matches_jax_fp32(geoms):
     want, _ = resunet_apply(blob["params"], blob["bn_state"], jg,
                             jnp.asarray(fin), JARCHS["ResUNetSmall2"],
                             train=False, compute_dtype=jnp.float32)
-    model = load_model(WEIGHTS, ARCHS["ResUNetSmall2"])
+    model = load_model(WEIGHTS, ARCHS["ResUNetSmall2"], device="cpu")
     got = n(model(tg, t(fin)))
     want = np.asarray(want)
     np.testing.assert_allclose(got, want, atol=1e-4)

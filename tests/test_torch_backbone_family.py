@@ -75,7 +75,8 @@ def small2():
     caps2 = tuple(2 * c for c in CAPS)
     tg = build_unet_geometry(t(coords), t(mask), ARCHS["ResUNetSmall2"], caps2)
     fin = mask[:, None].astype(np.float32)
-    scan = n(load_model(WEIGHTS, ARCHS["ResUNetSmall2"], conv_impl="scan")(
+    scan = n(load_model(WEIGHTS, ARCHS["ResUNetSmall2"], conv_impl="scan",
+                      device="cpu")(
         tg, t(fin)))
     return coords, mask, caps2, tg, fin, scan
 
@@ -97,7 +98,8 @@ def test_scan_forward_matches_jax_scan(small2):
 def test_scan_forward_matches_grouped_forward(small2, dtype, tol):
     _, mask, _, tg, fin, scan = small2
     out = {impl: n(load_model(WEIGHTS, ARCHS["ResUNetSmall2"],
-                              conv_impl=impl)(tg, t(fin), dtype))
+                              conv_impl=impl, device="cpu")(
+        tg, t(fin), dtype))
            for impl in ("grouped", "scan")}
     # the two forms add the same fp32 products in another order. With
     # bf16 operands a last-bit difference in one layer's sum can flip the
@@ -137,7 +139,7 @@ def test_init_resunet_gives_the_jax_shapes(arch_name):
 def test_init_resunet_draws_he_normal_from_the_generator():
     arch = ARCHS["ResUNetSmall"]
     g = torch.Generator().manual_seed(7)
-    model = init_resunet(arch, 1, 16, generator=g)
+    model = init_resunet(arch, 1, 16, generator=g, device="cpu")
     assert not model.training
     sd = model.state_dict()
     for name, w in sd.items():
@@ -150,9 +152,9 @@ def test_init_resunet_draws_he_normal_from_the_generator():
             assert bool((w == 1).all()), name
         else:  # biases and running means
             assert bool((w == 0).all()), name
-    again = init_resunet(arch, 1, 16,
+    again = init_resunet(arch, 1, 16, device="cpu",
                          generator=torch.Generator().manual_seed(7))
     assert all(torch.equal(v, again.state_dict()[k]) for k, v in sd.items())
-    other = init_resunet(arch, 1, 16,
+    other = init_resunet(arch, 1, 16, device="cpu",
                          generator=torch.Generator().manual_seed(8))
     assert not torch.equal(sd["conv2.w"], other.state_dict()["conv2.w"])

@@ -48,7 +48,7 @@ def test_register_pair_e2e_matches_jax():
                                    tg["corr_pts"], tg["corr_mask"])),
         compute_dtype=jnp.float32)
 
-    model = load_model(WEIGHTS, ARCHS["ResUNetSmall2"])
+    model = load_model(WEIGHTS, ARCHS["ResUNetSmall2"], device="cpu")
     Ti, Tr = register_pair_e2e(
         model, CAPS, RegistrationConfig(**cfg_kw),
         s["coords"], s["grid"], s["mask"], tg["coords"], tg["grid"],
@@ -88,7 +88,8 @@ def test_scan_model_registers_like_the_grouped_model():
                                                 ("tgt_kp", "tgt"))}
     out = {}
     for impl in ("grouped", "scan"):
-        model = load_model(WEIGHTS, ARCHS["ResUNetSmall2"], conv_impl=impl)
+        model = load_model(WEIGHTS, ARCHS["ResUNetSmall2"], conv_impl=impl,
+                           device="cpu")
         out[impl] = [n(x) for x in register_pair_e2e(
             model, CAPS, cfg, *_pair_args(pair), compute_dtype=torch.float32,
             draws=draws, device="cpu")]
@@ -107,7 +108,8 @@ def test_pair_features_e2e_matches_jax():
                      JARCHS["ResUNetSmall2"], CAPS,
                      *(jnp.asarray(a) for a in _pair_args(pair)),
                      compute_dtype=jnp.float32)
-    got = pair_features_e2e(load_model(WEIGHTS, ARCHS["ResUNetSmall2"]), CAPS,
+    got = pair_features_e2e(load_model(WEIGHTS, ARCHS["ResUNetSmall2"],
+                                       device="cpu"), CAPS,
                             *_pair_args(pair), compute_dtype=torch.float32,
                             device="cpu")
     assert len(got) == 4

@@ -69,6 +69,24 @@ def test_entry_point_refuses_to_fall_back_to_the_cpu():
         register_pair_e2e(None, (), _cfg(), *([None] * 10))
 
 
+@pytest.mark.parametrize("make", ["load_model", "init_resunet"])
+def test_model_constructors_default_to_the_card(make):
+    from umeregrobust_tpu_torch.models.resunet import ARCHS, init_resunet
+    from umeregrobust_tpu_torch.models.weights import load_model
+
+    weights = str(ROOT / "weights" / "synthetic_pretrain.pkl")
+    build = {"load_model": lambda **kw: load_model(
+                 weights, ARCHS["ResUNetSmall2"], **kw),
+             "init_resunet": lambda **kw: init_resunet(
+                 ARCHS["ResUNetSmall2"], 1, 32, **kw)}[make]
+    model = build(device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+
+
 def _cfg():
     from umeregrobust_tpu_torch.pipeline.registration import (
         RegistrationConfig)
@@ -128,9 +146,11 @@ def test_load_library_raises_without_nvcc(no_nvcc):
         torch.zeros(8, 4, device=d), torch.zeros(125, 4, 6, device=d),
         torch.zeros((125, 8), dtype=torch.int64, device=d),
         compute_dtype=torch.bfloat16),
+    lambda d: cuda_conv.conv_entries(
+        torch.zeros((27, 8), dtype=torch.int64, device=d), 8).cnt,
 ], ids=["nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
         "gather_padded", "sparse_conv_rowtile", "sparse_conv_tapsplit",
-        "sparse_conv"])
+        "sparse_conv", "conv_entries"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises

@@ -70,20 +70,86 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu(wrapper):
     assert cuda_conv.LAUNCHES == before  # no kernel was launched
 
 
-def test_choose_kernel_is_a_fixed_rule_on_shapes():
-    # tens of thousands of rows: output tiles alone fill the card
-    assert cuda_conv.choose_kernel(32768, 32, 343) == ("rowtile", 1)
-    assert cuda_conv.choose_kernel(4352, 128, 125) == ("rowtile", 1)
-    # deep levels: few rows, wide taps -> split the taps
-    kind, S = cuda_conv.choose_kernel(256, 1024, 125)
-    assert kind == "tapsplit" and 2 <= S <= 125
-    kind, S = cuda_conv.choose_kernel(256, 512, 27)
-    assert kind == "tapsplit" and 2 <= S <= 27
-    for n_out, cout, k in [(1, 32, 27), (64, 32, 343), (300, 48, 5)]:
-        kind, S = cuda_conv.choose_kernel(n_out, cout, k)
-        assert 1 <= S <= k
-        per = -(-k // S)
-        assert -(-k // per) == S  # no empty segment
+# (n_out, cout, k_vol) of the ResUNet forward on the nominal suite pair
+# and of the ResUNetSmall2 conv_impl="scan" forward, with the kernel each
+# is routed to (per-layer device times of both kernels, chip_smoke.py)
+_ROUTES = [
+    ((32768, 32, 343), "rowtile"),  # ResUNet k7 stem: one input channel
+    ((4352, 64, 125), "tapsplit"),  # conv2
+    ((1536, 128, 125), "tapsplit"),  # conv3
+    ((256, 1024, 125), "tapsplit"),  # conv6
+    ((768, 512, 125), "tapsplit"),  # conv4_tr
+    ((4352, 256, 125), "tapsplit"),  # conv2_tr
+    ((32768, 128, 125), "tapsplit"),  # conv1_tr: few entries a tap
+    ((32768, 32, 125), "rowtile"),  # a k5 stem (ResUNet2..5)
+    ((32768, 32, 27), "rowtile"),  # scan level 0
+    ((20480, 64, 27), "rowtile"),  # scan level 1
+    ((8192, 128, 27), "tapsplit"),  # scan level 2
+    ((2560, 128, 27), "tapsplit"),  # scan level 3
+    ((512, 256, 27), "tapsplit"),  # scan level 4
+    ((77, 48, 27), "tapsplit"),
+    ((5000, 8, 1), "rowtile"),
+]
+
+
+@pytest.mark.parametrize("shape,kind", _ROUTES,
+                         ids=[f"{a}x{b}x{c}" for (a, b, c), _ in _ROUTES])
+def test_choose_kernel_is_a_fixed_rule_on_shapes(shape, kind):
+    n_out, cout, k = shape
+    got, S = cuda_conv.choose_kernel(n_out, cout, k)
+    assert got == kind
+    assert (got, S) == cuda_conv.choose_kernel(n_out, cout, k)  # no state
+    # S: the FMA tile's tap segments, none of them empty
+    assert 1 <= S <= k
+    assert S == 1 or -(-k // -(-k // S)) == S
+
+
+def _entries_numpy(nbr, n_in, tile_rows):
+    """The per-tap entry lists by a loop over the map."""
+    K, n_out = nbr.shape
+    ent = np.full((K, n_out, 2), -1, np.int64)
+    cnt = np.zeros(K, np.int64)
+    pos = np.full((K, n_out), -1, np.int64)
+    T = -(-n_out // tile_rows)
+    tile_start = np.zeros((K, T + 1), np.int64)
+    for k in range(K):
+        for i in range(n_out):
+            if i % tile_rows == 0:
+                tile_start[k, i // tile_rows] = cnt[k]
+            if 0 <= nbr[k, i] < n_in:
+                ent[k, cnt[k]] = (i, nbr[k, i])
+                pos[k, i] = k * n_out + cnt[k]
+                cnt[k] += 1
+        tile_start[k, T] = cnt[k]
+    return ent, cnt, tile_start, pos
+
+
+@pytest.mark.parametrize("tile_rows", [32, 64])
+@pytest.mark.parametrize("idx", ["int32", "int64"])
+@pytest.mark.parametrize("case", ["monotone_empty_taps", "past_n_in"])
+def test_conv_entries_plain_matches_numpy(case, idx, tile_rows):
+    rng = np.random.default_rng(17)
+    n_out, K = 300, 27
+    nbr = make_maps(rng, K, n_out).astype(np.int64)
+    n_in = n_out
+    if case == "monotone_empty_taps":
+        nbr[[0, 5, 26]] = -1  # taps with no entry anywhere
+        nbr[:, 64:128] = -1  # a tile with no entry ...
+        nbr[13, 100] = 7  # ... but one
+    else:  # indices at and past n_in are absent; more rows out than in
+        n_in = 180
+        nbr[nbr >= 0] = nbr[nbr >= 0] % 240
+    want = _entries_numpy(nbr, n_in, tile_rows)
+    got = cuda_conv.conv_entries(t(nbr.astype(idx)), n_in, tile_rows)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(n(g), w, err_msg=name)
+    assert int(got.cnt.sum()) == int(((nbr >= 0) & (nbr < n_in)).sum())
+    if case == "monotone_empty_taps":
+        assert int(got.cnt[0]) == 0 and int(got.cnt[5]) == 0
+        T = 64 // tile_rows  # the first tile of rows 64..
+        assert int((got.tile_start[:, T + 64 // tile_rows]
+                    - got.tile_start[:, T]).sum()) == 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

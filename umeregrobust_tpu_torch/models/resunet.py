@@ -466,11 +466,15 @@ class ResUNet(nn.Module):
 
 def init_resunet(arch: ArchSpec, in_channels: int = 1, out_channels: int = 32,
                  generator: Optional[torch.Generator] = None,
-                 conv_impl: str = "grouped", device="cpu") -> ResUNet:
-    """A ResUNet in eval mode with fresh parameters on `device`: He-normal
-    conv and head weights (std = sqrt(2 / (k_vol * cin))) drawn from
-    `generator` (on `device`; default: seed 0), unit scales, zero biases,
-    running mean 0 and variance 1."""
+                 conv_impl: str = "grouped", device="cuda") -> ResUNet:
+    """A ResUNet in eval mode with fresh parameters on `device` (the card
+    unless `device="cpu"`; raises without CUDA): He-normal conv and head
+    weights (std = sqrt(2 / (k_vol * cin))) drawn from `generator` (on
+    `device`; default: seed 0), unit scales, zero biases, running mean 0
+    and variance 1."""
+    from umeregrobust_tpu_torch.pipeline.e2e import resolve_device
+
+    device = resolve_device(device)
     with torch.device(device):
         model = ResUNet(arch, in_channels, out_channels, conv_impl)
     if generator is None:

@@ -47,10 +47,14 @@ def params_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any]
             for k, v in flat.items()}
 
 
-def load_model(path: str, arch: ArchSpec, device="cpu", in_channels: int = 1,
+def load_model(path: str, arch: ArchSpec, device="cuda", in_channels: int = 1,
                out_channels: int = 32, conv_impl: str = "grouped") -> ResUNet:
     """A ResUNet in eval mode with the checkpoint's weights, on `device`
-    (`conv_impl`: see models.resunet.ResUNet)."""
+    (the card unless `device="cpu"`; raises without CUDA) (`conv_impl`:
+    see models.resunet.ResUNet)."""
+    from umeregrobust_tpu_torch.pipeline.e2e import resolve_device
+
+    device = resolve_device(device)
     blob = load_checkpoint(path)
     model = ResUNet(arch, in_channels, out_channels, conv_impl)
     model.load_state_dict(params_from_jax(blob["params"], blob["bn_state"]),

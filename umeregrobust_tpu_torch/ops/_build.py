@@ -30,7 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures: every pointer and the stream are void*, sizes are int
+# (long long where they may pass 2^31)
 _SIGNATURES = {
     "umr_nn1_argmin": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "umr_ume_moments": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
@@ -44,6 +46,15 @@ _SIGNATURES = {
                                 _INT, _INT, _INT, _VP],
     "umr_sparse_conv_tapsplit": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                                  _INT, _INT, _INT, _INT, _INT, _INT, _VP],
+    "umr_conv_entries": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                         _INT, _INT, _VP],
+    "umr_sparse_conv_tapsplit_mma": [_VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                                     _INT, _INT, _INT, _INT, _INT, _LL,
+                                     _INT, _VP],
+    "umr_sparse_conv_rowtile_mma": [_VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                                    _INT, _INT, _INT, _INT, _VP],
+    "umr_sparse_conv_cin1": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                             _INT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -22,12 +22,13 @@ _INDEX_DTYPES = (torch.int32, torch.int64)
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor,
                       fill: float = 0.0) -> torch.Tensor:
-    """Rows of table (N, ...) by idx (any shape); idx < 0 yields `fill`
-    rows. Returns idx.shape + table.shape[1:]."""
+    """Rows of table (N, ...) by idx (any shape); an index outside [0, N)
+    yields a `fill` row, as in the kernel. Returns idx.shape +
+    table.shape[1:]."""
     N = table.shape[0]
     pad = torch.full((1,) + table.shape[1:], fill, dtype=table.dtype,
                      device=table.device)
-    safe = torch.where(idx < 0, torch.full_like(idx, N), idx)
+    safe = torch.where((idx < 0) | (idx >= N), torch.full_like(idx, N), idx)
     return torch.cat([table, pad], dim=0)[safe.to(torch.int64)]
 
 
