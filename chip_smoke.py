@@ -8,7 +8,11 @@ Phases (any failure ends the run with a non-zero exit):
   2. build: compiles the port's CUDA kernels (csrc/*.cu) with nvcc;
   3. kernels: on a real suite pair's clouds, at the main path's shapes,
      each kernel against its plain PyTorch version (nn1_argmin: identical
-     indices; ume_moments_fused: max abs error <= 1e-5 x max |out|;
+     indices, also at ops/cuda_nn.forced_cases (ties on both sides of this
+     card's segment and tile boundaries, masks, ragged sizes), with the
+     device's time alone (kernel_ms, library_kernel_ms: CUDA graphs), the
+     host's time to issue a call (host_ms) and the issue floor (9 fp32
+     instructions a pair at the top SM clock); ume_moments_fused: max abs error <= 1e-5 x max |out|;
      corr_scores_fused: max abs error <= 1e-4 x max |score| and the same
      argmax at every stage's shape and at forced ragged shapes (H of 1, 7,
      9; both grids; nothing in radius: exact zeros; rows without features
@@ -25,8 +29,9 @@ Phases (any failure ends the run with a non-zero exit):
      reads alone (kernel_ms_all_capped), the rate of row reads (l2_tbps)
      and what a barrier per point tile would cost a block of 8 warps
      (tile_wait_factor); gather_rows: identical rows, at the
-     main path's two shapes and at N = 32768, C = 32 / 128 / 512, fp32 and
-     bf16, random and monotone indices; sparse_conv_rowtile and
+     main path's two shapes (with kernel_ms, library_kernel_ms, host_ms)
+     and at N = 32768, C = 32 / 128 / 512, fp32 and bf16, random and
+     monotone indices, and at ragged row counts with indices -1 and N; sparse_conv_rowtile and
      sparse_conv_tapsplit, each forced: max abs error <= 2e-5 x max |out|
      with fp32 operands (sums of up to 64,000 fp32 products in another
      order) and <= 1e-4 x max |out| with bf16-rounded operands, at N =
@@ -136,23 +141,96 @@ def time_ms(fn, reps=20, warmup=3, inner=1):
     return float(np.median(times))
 
 
-def graph_ms(fn, reps=7, inner=20):
-    """Median CUDA-event time in ms of one fn() among `inner` captured in
-    one CUDA graph and replayed: the device's time alone, however long the
-    host takes to launch (time_ms with inner > 1 reads the host's time
-    where that is the longer)."""
+def capture(fn, inner=20):
+    """`inner` calls of fn() captured in one CUDA graph, after a warm-up
+    call on a side stream."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the default stream
+    with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
-    return time_ms(graph.replay, reps=reps) / inner
+    return graph
+
+
+def graph_ms(fn, reps=7, inner=20):
+    """Median CUDA-event time in ms of one fn() among `inner` captured in
+    one CUDA graph and replayed: the device's time alone, however long the
+    host takes to launch (time_ms with inner > 1 reads the host's time
+    where that is the longer)."""
+    return time_ms(capture(fn, inner).replay, reps=reps) / inner
+
+
+def kernel_split_ms(fn, calls=20):
+    """Mean device ms a launch of each CUDA kernel that fn() launches,
+    over `calls` calls (torch.profiler), by kernel name."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.search(r"\w+_kernel", a.key).group(): a.self_device_time_total
+            / a.count / 1e3 for a in prof.key_averages()
+            if re.search(r"\w+_kernel", a.key)}
+
+
+def sm_clock_under_load(fn, seconds=1.0):
+    """nvidia-smi's SM clock (MHz) read halfway through `seconds` of fn()
+    run back to back from a CUDA graph."""
+    import threading
+
+    import torch
+
+    graph, got = capture(fn), []
+    reader = threading.Thread(target=lambda: (time.sleep(seconds / 2),
+                                              got.append(smi("clocks.sm"))))
+    reader.start()
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        graph.replay()
+    torch.cuda.synchronize()
+    reader.join()
+    return float(got[0].split()[0])
+
+
+def host_ms(fn, calls=200):
+    """The host's time in ms to issue one fn(): `calls` calls back to back
+    with no synchronisation between them, over the count (the wrapper's
+    Python work and the launch; the device runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
+
+
+def smi(query):
+    """One nvidia-smi reading, e.g. "name,power.limit", of the card that
+    CUDA calls device 0 (picked by its UUID, whatever
+    CUDA_VISIBLE_DEVICES selects)."""
+    import torch
+
+    uuid = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+    return subprocess.run(
+        ["nvidia-smi", "-i", uuid, f"--query-gpu={query}",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
 
 
 _KEY_TABLES = {}  # device -> (cell index -> its share of the key, offsets)
@@ -363,13 +441,50 @@ def phase_kernels(dev, model, pair, cfg):
     parked = torch.where(pm[:, None], p, torch.full_like(p, 1e9))
     M, N = q.shape[0], p.shape[0]
     bb, by = bound_ms(M * 12 + N * 13 + M * 8, M * N * 9)
+    # the issue floor: the kernel must not fuse a multiply into an add (the
+    # bits of the plain version), so a pair is 8 fp32 instructions and a
+    # compare, one instruction a lane and clock on every SM at its top clock
+    # (the published 67 TFLOP/s counts a fused multiply-add as two)
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out["nn1_argmin"] = dict(
         shape=f"{M}x{N}", max_abs_err=float(mism), mismatches=mism,
         ok=mism == 0,
         ms=time_ms(lambda: cuda_nn.nn1_argmin(q, p, pm)),
         plain_ms=time_ms(lambda: cuda_nn.nn1_argmin_plain(q, p, pm)),
         library_ms=time_ms(lambda: torch.cdist(q, parked).argmin(1)),
-        bound_ms=bb, bound_by=by)
+        bound_ms=bb, bound_by=by,
+        # the device alone (20 calls in one CUDA graph), the library call
+        # the same way, and the host's time to issue one call
+        kernel_ms=graph_ms(lambda: cuda_nn.nn1_argmin(q, p, pm)),
+        library_kernel_ms=graph_ms(lambda: torch.cdist(q, parked).argmin(1)),
+        host_ms=host_ms(lambda: cuda_nn.nn1_argmin(q, p, pm)),
+        issue_floor_ms=M * N * 9 / (sms * 128 * sm_mhz * 1e6) * 1e3,
+        sm_clock_max_mhz=sm_mhz)
+
+    # where the device time goes: each of the two kernels (the sweep and
+    # the merge); the SM clock while the kernel runs back to back (the
+    # issue floor's clock)
+    out["nn1_argmin"].update(
+        split_ms=kernel_split_ms(lambda: cuda_nn.nn1_argmin(q, p, pm)),
+        sm_clock_under_load_mhz=sm_clock_under_load(
+            lambda: cuda_nn.nn1_argmin(q, p, pm)))
+    # forced cases (ops/cuda_nn.forced_cases, the same as the CPU tests'):
+    # ties on this card's segment and tile boundaries, masks, ragged sizes
+    forced = {}
+    for name, arrs in cuda_nn.forced_cases(sms).items():
+        fq, fp, fm = (torch.as_tensor(x, device=dev) for x in arrs)
+        a = cuda_nn.nn1_argmin(fq, fp, fm)
+        b = cuda_nn.nn1_argmin_plain(fq, fp, fm)
+        _, S, seg = cuda_nn.launch_plan(fq.shape[0], fp.shape[0], sms)
+        bad = int((a != b).sum())
+        forced[name] = dict(shape=f"{fq.shape[0]}x{fp.shape[0]}", segments=S,
+                            segment_length=seg, mismatches=bad, ok=bad == 0)
+    out["nn1_argmin"].update(
+        forced=forced, ok=out["nn1_argmin"]["ok"] and all(
+            v["ok"] for v in forced.values()),
+        max_abs_err=float(mism + sum(v["mismatches"]
+                                     for v in forced.values())))
 
     # --- ume_moments_fused: 2048 keypoints x 16384 points, r 5, cap 750
     g = torch.Generator(device=dev).manual_seed(1)
@@ -658,8 +773,13 @@ def phase_kernels_family(dev, pair, cfg):
         torch.cuda.synchronize()
         mism = int((a != b).any(dim=1).sum())
         M, C, esz = idx.shape[0], tab.shape[1], tab.element_size()
-        bb, by = bound_ms(2 * M * C * esz + M * idx.element_size(), 0)
-        res = dict(table=f"{tab.shape[0]}x{C}", rows=M,
+        # each table row the indices name is read once (repeats come from
+        # the cache), each output row written once, each index read once
+        n_tab = tab.shape[0]
+        rows_read = torch.unique(idx[(idx >= 0) & (idx < n_tab)]).numel()
+        bb, by = bound_ms((rows_read + M) * C * esz + M * idx.element_size(),
+                          0)
+        res = dict(table=f"{n_tab}x{C}", rows=M, rows_read=rows_read,
                    dtype=str(tab.dtype)[6:], mismatched_rows=mism,
                    ok=mism == 0, bound_ms=bb, bound_by=by)
         if timed:
@@ -669,6 +789,15 @@ def phase_kernels_family(dev, pair, cfg):
                 plain_ms=time_ms(lambda: cuda_gather.gather_rows_plain(tab,
                                                                        idx)),
                 library_ms=time_ms(lambda: torch.index_select(tab, 0, safe)))
+        return res
+
+    def device_times(res, tab, idx):  # the device alone (CUDA graph)
+        safe = idx.clamp(min=0)
+        res.update(
+            kernel_ms=graph_ms(lambda: cuda_gather.gather_rows(tab, idx)),
+            library_kernel_ms=graph_ms(
+                lambda: torch.index_select(tab, 0, safe)),
+            host_ms=host_ms(lambda: cuda_gather.gather_rows(tab, idx)))
         return res
 
     # main-path shapes: the feature transfer (4096 rows of the 16384 x 32
@@ -684,7 +813,7 @@ def phase_kernels_family(dev, pair, cfg):
         tab = torch.as_tensor(rng.standard_normal((n_tab, 32)),
                               dtype=torch.float32, device=dev)
         idx = torch.as_tensor(rng.integers(-1, n_tab, m), device=dev)
-        main[name] = gather_case(tab, idx)
+        main[name] = device_times(gather_case(tab, idx), tab, idx)
     # the probe script's grid: N = 32768 rows, C = 32 / 128 / 512
     N = 32768
     idx_rand = rng.integers(0, N, N)
@@ -703,7 +832,22 @@ def phase_kernels_family(dev, pair, cfg):
         torch.as_tensor(rng.integers(-1, 1000, 777), device=dev,
                         dtype=torch.int32), timed=False)
         for C in (1, 7) for dt in (torch.float32, torch.bfloat16)}
-    cases = {**main, **grid, **odd}
+    # row counts that are no multiple of the rows a block covers (256
+    # threads, a 16-byte piece each), indices -1 and N (zero rows), both
+    # index types
+    edge = {}
+    for C, dt in ((32, torch.float32), (32, torch.bfloat16),
+                  (128, torch.float32)):
+        per = 256 * 16 // (C * (2 if dt == torch.bfloat16 else 4))
+        tab = torch.as_tensor(rng.standard_normal((1000, C)),
+                              dtype=torch.float32, device=dev).to(dt)
+        for it in (torch.int32, torch.int64):
+            ix = rng.integers(-1, 1001, 3 * per + 5)
+            ix[:2] = (-1, 1000)
+            edge[f"C{C}_{str(dt)[6:]}_{str(it)[6:]}_ragged_idx_N"] = \
+                gather_case(tab, torch.as_tensor(ix, device=dev, dtype=it),
+                            timed=False)
+    cases = {**main, **grid, **odd, **edge}
     out["gather_rows"] = dict(
         shape="per pair: " + ", ".join(
             f"{v['rows']} rows of {v['table']}" for v in main.values()),
@@ -711,7 +855,8 @@ def phase_kernels_family(dev, pair, cfg):
         ok=all(v["ok"] for v in cases.values()), bound_by="bytes",
         cases=cases, **{key: sum(v[key] for v in main.values())
                         for key in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms")})
+                                    "bound_ms", "kernel_ms",
+                                    "library_kernel_ms")})
 
     # --- the conv kernels
     def make_maps(K, n):  # the experiment script's self-map model, int32
@@ -1323,10 +1468,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(smi("name,power.limit"), flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -1335,7 +1477,8 @@ def main() -> int:
     _build.load_library()
     emit({"phase": "build", "seconds": time.time() - t0,
           "library": os.path.relpath(str(_build.build_library()), ROOT),
-          "ptxas_sparse_conv_taps": ptxas_report()})
+          "ptxas_sparse_conv_taps": ptxas_report(),
+          "ptxas_nn1_argmin": ptxas_report("nn1_argmin.cu")})
 
     # --- data and model
     cfg = RegistrationConfig(**REDUCED_CFG)  # bench.py:321-326
@@ -1534,7 +1677,9 @@ def main() -> int:
             max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
-            shape=k["shape"], status="ok" if k["ok"] else "failed"))
+            shape=k["shape"], status="ok" if k["ok"] else "failed",
+            **{key: k[key] for key in ("kernel_ms", "library_kernel_ms")
+               if key in k}))
     emit({"kernels": rows})
     if failures:
         log("chip_smoke FAILED: " + "; ".join(failures))

@@ -179,6 +179,24 @@ def _chip_smoke_kernels():
     return mod.KERNELS
 
 
+@pytest.mark.parametrize("M,N", [(4096, 16384), (1, 1), (8, 5000),
+                                 (135168, 513), (8, 300_000), (40, 3)])
+def test_nn1_argmin_plan_mirrors_the_kernel(M, N):
+    # the wrapper's constants are the kernel's; the plan cuts [0, N) into
+    # segments of whole steps, none empty, about two blocks an SM
+    src = (PKG / "csrc" / "nn1_argmin.cu").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert cuda_nn.QUERIES_PER_BLOCK == const["kThreads"] * const["kQ"]
+    assert (cuda_nn.TILE, cuda_nn.STEP) == (const["kTile"], const["kStep"])
+    tiles, S, seg = cuda_nn.launch_plan(M, N, 132)
+    assert tiles == -(-M // cuda_nn.QUERIES_PER_BLOCK)
+    assert seg % cuda_nn.STEP == 0 and (S - 1) * seg < N <= S * seg
+    assert tiles * S <= 2 * 132 or S == 1
+    if (M, N) == (4096, 16384):
+        assert (tiles, S, seg) == (8, 33, 500)
+
+
 def test_every_listed_kernel_has_a_source_and_an_entry_point():
     kernels = _chip_smoke_kernels()
     assert sorted(kernels) == sorted([

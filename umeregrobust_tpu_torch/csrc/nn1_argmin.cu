@@ -3,83 +3,190 @@
 // Replaces: umeregrobust_tpu/ops/pallas_nn.py, nn1_argmin (the Pallas
 // TPU kernel behind the SEM-grid -> correlator-point feature transfer).
 //
-// Bound on the H100: operations. About 8 fp32 operations per (query,
-// point) pair (3 sub, 3 mul, 2 add) plus a compare; at the main path's
-// 4096 x 16384 that is ~0.5 GFLOP per cloud, microseconds at 67 TFLOP/s,
-// while the inputs are only ~250 KB.
+// What it computes: for each query, the first index among the minima of
+// ((d0*d0 + d1*d1) + d2*d2), d = q - p, every operation rounded on its own
+// (umr_sqdist3: the bits of the plain version and of the JAX kernel);
+// masked rows are parked at 1e9. No multiply is fused into an add.
 //
-// Design: one thread per query. A block of 128 queries sweeps one
-// SEGMENT of the reference cloud, staged tile by tile in shared memory
-// (xyz, masked rows parked at 1e9 as the TPU kernel does), keeping a
-// running (min d2, argmin) with a strict `<` so the first index wins ties.
-// Splitting the cloud into segments gives enough blocks to fill the SMs
-// (4096 queries alone make only 32 blocks); a second pass takes the
-// segments in index order with the same strict `<`, so the result is the
-// exact first-index argmin, identical to the plain version. No atomics.
+// Bound on the H100: operations. A (query, point) pair is 8 fp32
+// operations and a compare; without fused multiply-adds at most one fp32
+// instruction issues a lane and clock, so the floor is 9 instructions a
+// pair over 132 SMs x 128 lanes x the SM clock (~0.018 ms at 4096 x 16384
+// and 1.98 GHz), twice what the published 67 TFLOP/s (which counts an FMA
+// as two operations) would give. The inputs are ~250 KB.
+//
+// Design:
+// - A thread keeps kQ queries in registers (kQ independent compare
+//   chains); a block of kThreads threads serves kThreads * kQ queries.
+// - The block stages its SEGMENT of the targets in shared memory as float4
+//   (x, y, z, pad), kTile at a time, with the mask applied while staging
+//   (masked rows at 1e9; the ragged end padded to a whole step with +inf,
+//   which never wins). One 16-byte broadcast load then serves the
+//   thread's kQ queries. The segment is a few KB read once a block:
+//   cp.async or TMA could not apply the mask and would have nothing to
+//   overlap.
+// - The sweep goes kStep targets a step, two steps a loop turn. Per query
+//   and step the kStep distances are reduced with fminf and one strict `<`
+//   against the running minimum keeps the first step that reaches it;
+//   after the sweep the step's kStep distances are computed again (the
+//   same bits, from shared memory when the step is in the last tile) and
+//   the first equal slot wins. That is ~1.5 instructions a pair for the
+//   running (min, argmin) instead of 3, and the exact first index.
+// - Running indices and the partials are int32 (the wrapper raises for
+//   N >= 2^31); the index widens to int64 only at the final store.
+// - The grid (query tiles x segments) is sized by the wrapper from the SM
+//   count, two blocks an SM in one wave (more blocks an SM did not make
+//   the sweep faster on the H100 and made the merge longer). The merge
+//   kernel takes each query's segments in index order with the same
+//   strict `<`, 8 warps a block over 32 queries, each warp one run of
+//   segments, then the runs in order: the exact first-index argmin,
+//   identical to the plain version. No atomics, no host read; two
+//   launches a call.
+// Tensor cores, wgmma and TMA do not apply: the expanded |q|^2 + |p|^2 -
+// 2 q.p form would change the argmin on near-ties and break exactness
+// against the JAX package.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kQueries = 128;  // threads (queries) per block
-constexpr int kTile = 1024;    // reference points staged per tile
+constexpr int kThreads = 128;  // threads a block
+constexpr int kQ = 4;          // queries a thread
+constexpr int kTile = 512;     // targets staged in shared memory a pass
+constexpr int kStep = 4;       // targets a step of the sweep
+constexpr int kPer = kTile / kThreads;  // targets a thread stages a pass
+constexpr int kMergeWarps = 8;  // warps that merge 32 queries' segments
+constexpr float kFar = 1e9f;   // where masked rows are parked
 
-__global__ void nn1_segment_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ p,
-                                   const uint8_t* __restrict__ mask,
-                                   float* __restrict__ part_d2,
-                                   int64_t* __restrict__ part_idx,
-                                   int M, int N, int seg_len) {
-  __shared__ float sp[kTile * 3];
-  const int qi = blockIdx.x * kQueries + threadIdx.x;
-  const int seg = blockIdx.y;
-  const int seg_lo = seg * seg_len;
-  const int seg_hi = min(N, seg_lo + seg_len);
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (qi < M) {
-    qx = q[3 * qi];
-    qy = q[3 * qi + 1];
-    qz = q[3 * qi + 2];
+// Target n of the segment [.., hi) as the sweep sees it: its point, 1e9
+// where masked, +inf at and past hi (a pad, never the minimum). The row
+// is read from a clamped index, so no load waits for a test.
+__device__ __forceinline__ float4 target(const float* __restrict__ p,
+                                         const uint8_t* __restrict__ mask,
+                                         int64_t n, int hi) {
+  const int64_t r = min(n, (int64_t)hi - 1);
+  const uint8_t ok = mask[r];
+  const float* row = p + 3 * r;
+  const float x = row[0], y = row[1], z = row[2];
+  const float inf = __int_as_float(0x7f800000);
+  if (n >= hi) return make_float4(inf, inf, inf, 0.f);
+  return ok ? make_float4(x, y, z, 0.f) : make_float4(kFar, kFar, kFar, 0.f);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    nn1_segment_kernel(const float* __restrict__ q,
+                       const float* __restrict__ p,
+                       const uint8_t* __restrict__ mask,
+                       float* __restrict__ part_d2,
+                       int32_t* __restrict__ part_idx, int M, int N,
+                       int seg_len) {
+  __shared__ float4 sp[kTile];
+  const int tid = threadIdx.x;
+  const int q0 = (int)blockIdx.x * (kThreads * kQ) + tid;
+  const int seg_lo = (int)blockIdx.y * seg_len;
+  const int seg_hi = (int)min((int64_t)N, (int64_t)seg_lo + seg_len);
+  float qx[kQ], qy[kQ], qz[kQ], best[kQ];
+  int bi[kQ];
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    const float* r = q + 3 * (int64_t)min(q0 + k * kThreads, M - 1);
+    qx[k] = r[0];
+    qy[k] = r[1];
+    qz[k] = r[2];
+    best[k] = __int_as_float(0x7f800000);  // +inf
+    bi[k] = seg_lo;
   }
-  float best = __int_as_float(0x7f800000);  // +inf
-  int64_t best_i = seg_lo;
-  for (int base = seg_lo; base < seg_hi; base += kTile) {
-    const int len = min(kTile, seg_hi - base);
+  int base = seg_lo;
+  for (int64_t tile = seg_lo; tile < seg_hi; tile += kTile) {
+    base = (int)tile;  // 64-bit step: no overflow near N = 2^31
+    const int steps = (min(kTile, seg_hi - base) + kStep - 1) / kStep;
+    if (base != seg_lo) __syncthreads();
+    float4 v[kPer];  // the pass's loads issued before its first store
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      v[j] = target(p, mask, tile + tid + j * kThreads, seg_hi);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (tid + j * kThreads < steps * kStep) sp[tid + j * kThreads] = v[j];
     __syncthreads();
-    for (int t = threadIdx.x; t < len; t += kQueries) {
-      const int n = base + t;
-      const bool ok = mask[n] != 0;
-      sp[3 * t] = ok ? p[3 * n] : 1e9f;
-      sp[3 * t + 1] = ok ? p[3 * n + 1] : 1e9f;
-      sp[3 * t + 2] = ok ? p[3 * n + 2] : 1e9f;
-    }
-    __syncthreads();
-    for (int t = 0; t < len; ++t) {
-      const float d2 = umr_sqdist3(qx, qy, qz, sp[3 * t], sp[3 * t + 1],
-                                   sp[3 * t + 2]);
-      if (d2 < best) {
-        best = d2;
-        best_i = base + t;
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      float4 tp[kStep];
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) tp[u] = sp[s * kStep + u];
+#pragma unroll
+      for (int k = 0; k < kQ; ++k) {
+        float m = umr_sqdist3(qx[k], qy[k], qz[k], tp[0].x, tp[0].y, tp[0].z);
+#pragma unroll
+        for (int u = 1; u < kStep; ++u)
+          m = fminf(m, umr_sqdist3(qx[k], qy[k], qz[k], tp[u].x, tp[u].y,
+                                   tp[u].z));
+        if (m < best[k]) {  // strict: the first step that reaches it
+          best[k] = m;
+          bi[k] = base + s * kStep;
+        }
       }
     }
   }
-  if (qi < M) {
-    part_d2[(int64_t)seg * M + qi] = best;
-    part_idx[(int64_t)seg * M + qi] = best_i;
+  // the first slot of the winning step that holds the minimum: its
+  // distances again, from shared memory when the step is in the last
+  // tile (always on a segment of at most kTile targets)
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    const int qi = q0 + k * kThreads;
+    if (qi >= M) continue;
+    int idx = bi[k];
+#pragma unroll
+    for (int u = kStep - 1; u >= 0; --u) {
+      float4 t;
+      if (bi[k] >= base)
+        t = sp[bi[k] - base + u];
+      else
+        t = target(p, mask, (int64_t)bi[k] + u, seg_hi);
+      if (umr_sqdist3(qx[k], qy[k], qz[k], t.x, t.y, t.z) == best[k])
+        idx = bi[k] + u;
+    }
+    part_d2[(int64_t)blockIdx.y * M + qi] = best[k];
+    part_idx[(int64_t)blockIdx.y * M + qi] = idx;
   }
 }
 
-__global__ void nn1_reduce_kernel(const float* __restrict__ part_d2,
-                                  const int64_t* __restrict__ part_idx,
-                                  int64_t* __restrict__ out, int M, int S) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= M) return;
-  float best = part_d2[qi];
-  int64_t best_i = part_idx[qi];
-  for (int s = 1; s < S; ++s) {
+// 32 queries a block: warp w takes the w-th run of segments in order
+// (strict `<`), then warp 0 takes the runs in order.
+__global__ void __launch_bounds__(32 * kMergeWarps)
+    nn1_merge_kernel(const float* __restrict__ part_d2,
+                     const int32_t* __restrict__ part_idx,
+                     int64_t* __restrict__ out, int M, int S) {
+  __shared__ float run_d2[kMergeWarps][32];
+  __shared__ int run_idx[kMergeWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int q = (int)blockIdx.x * 32 + lane;
+  const int qi = min(q, M - 1);
+  const int per = (S + kMergeWarps - 1) / kMergeWarps;
+  const int s_lo = w * per, s_hi = min(S, s_lo + per);
+  float best = __int_as_float(0x7f800000);  // an empty run never wins
+  int best_i = 0;
+  if (s_lo < s_hi) {
+    best = part_d2[(int64_t)s_lo * M + qi];
+    best_i = part_idx[(int64_t)s_lo * M + qi];
+  }
+#pragma unroll 4
+  for (int s = s_lo + 1; s < s_hi; ++s) {
     const float d2 = part_d2[(int64_t)s * M + qi];
+    const int i = part_idx[(int64_t)s * M + qi];
     if (d2 < best) {  // earlier segments (lower indices) win ties
       best = d2;
-      best_i = part_idx[(int64_t)s * M + qi];
+      best_i = i;
+    }
+  }
+  run_d2[w][lane] = best;
+  run_idx[w][lane] = best_i;
+  __syncthreads();
+  if (w != 0 || q >= M) return;
+#pragma unroll
+  for (int r = 1; r < kMergeWarps; ++r) {
+    if (run_d2[r][lane] < best) {
+      best = run_d2[r][lane];
+      best_i = run_idx[r][lane];
     }
   }
   out[qi] = best_i;
@@ -87,18 +194,23 @@ __global__ void nn1_reduce_kernel(const float* __restrict__ part_d2,
 
 }  // namespace
 
-// q (M,3) f32, p (N,3) f32, mask (N,) bool -> out (M,) int64.
-// part_d2 (S,M) f32 and part_idx (S,M) int64 are caller-allocated scratch.
+// q (M,3) f32, p (N,3) f32, mask (N,) bool -> out (M,) int64. scratch:
+// 2 S M int32 from the caller (the S x M partial minima, then their
+// indices); S segments of seg_len targets cover [0, N).
 UMR_EXPORT int umr_nn1_argmin(const float* q, const float* p,
-                              const uint8_t* mask, float* part_d2,
-                              int64_t* part_idx, int64_t* out, int M, int N,
-                              int S, void* stream) {
+                              const uint8_t* mask, int32_t* scratch,
+                              int64_t* out, int M, int N, int S, int seg_len,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int seg_len = (N + S - 1) / S;
-  dim3 grid((M + kQueries - 1) / kQueries, S);
-  nn1_segment_kernel<<<grid, kQueries, 0, st>>>(q, p, mask, part_d2,
-                                                part_idx, M, N, seg_len);
-  nn1_reduce_kernel<<<(M + 255) / 256, 256, 0, st>>>(part_d2, part_idx, out,
-                                                     M, S);
+  if (M <= 0 || N <= 0 || S <= 0 || seg_len <= 0 ||
+      (int64_t)(S - 1) * seg_len >= N || (int64_t)S * seg_len < N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* part_d2 = reinterpret_cast<float*>(scratch);
+  int32_t* part_idx = scratch + (int64_t)S * M;
+  const dim3 grid((M + kThreads * kQ - 1) / (kThreads * kQ), S);
+  nn1_segment_kernel<<<grid, kThreads, 0, st>>>(q, p, mask, part_d2, part_idx,
+                                                M, N, seg_len);
+  nn1_merge_kernel<<<(M + 31) / 32, 32 * kMergeWarps, 0, st>>>(
+      part_d2, part_idx, out, M, S);
   return static_cast<int>(cudaGetLastError());
 }

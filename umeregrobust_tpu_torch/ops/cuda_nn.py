@@ -9,14 +9,24 @@ or raises.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
+import numpy as np
 import torch
 
 from umeregrobust_tpu_torch.ops import _build
 from umeregrobust_tpu_torch.ops.neighbors import sqdist3
 
-__all__ = ["nn1_argmin", "nn1_argmin_plain", "LAUNCHES"]
+__all__ = ["nn1_argmin", "nn1_argmin_plain", "launch_plan", "forced_cases",
+           "LAUNCHES", "QUERIES_PER_BLOCK", "TILE", "STEP"]
 
-LAUNCHES = 0  # kernel launches by nn1_argmin (not by the plain version)
+LAUNCHES = 0  # calls of nn1_argmin that launched the kernel (2 launches each)
+
+# the kernel's shape (csrc/nn1_argmin.cu kThreads x kQ, kTile, kStep)
+QUERIES_PER_BLOCK = 128 * 4  # a block's queries: 128 threads, 4 each
+TILE = 512  # targets a block stages in shared memory a pass
+STEP = 4  # targets a step of the sweep; segments are whole steps
+_BLOCKS_PER_SM = 2  # the grid aims at this many blocks an SM, one wave
 
 _FAR = 1e9
 
@@ -35,6 +45,17 @@ def nn1_argmin_plain(queries: torch.Tensor, points: torch.Tensor,
                                                   device=q.device)
 
 
+def launch_plan(M: int, N: int, sms: int) -> Tuple[int, int, int]:
+    """(query tiles, segments S, segment length) of one call: the targets
+    are cut into S segments of whole steps so that query tiles x S is
+    about two blocks on each of `sms` SMs."""
+    tiles = max(1, -(-M // QUERIES_PER_BLOCK))
+    S = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), -(-N // STEP)))
+    seg = -(-N // S)
+    seg = -(-seg // STEP) * STEP
+    return tiles, -(-N // seg), seg
+
+
 def nn1_argmin(queries: torch.Tensor, points: torch.Tensor,
                p_mask: torch.Tensor) -> torch.Tensor:
     """Index of the nearest valid reference point per query: (M,) int64.
@@ -43,27 +64,91 @@ def nn1_argmin(queries: torch.Tensor, points: torch.Tensor,
     if queries.device.type == "cpu":
         return nn1_argmin_plain(queries, points, p_mask)
     dev = queries.device
-    lib = _build.load_library()  # raises if it cannot be built
+    lib = _build.load_library()  # cached; raises if it cannot be built
     if dev.type != "cuda":
         raise ValueError(f"nn1_argmin runs on CUDA or CPU tensors, not {dev}")
     M, N = queries.shape[0], points.shape[0]
     _build.require(queries, "queries", torch.float32, (None, 3), dev)
     _build.require(points, "points", torch.float32, (None, 3), dev)
     _build.require(p_mask, "p_mask", torch.bool, (N,), dev)
-    if N == 0:
-        raise ValueError("nn1_argmin needs at least one reference point")
-    # enough segments of the reference cloud to put ~2 blocks on each SM
-    q_blocks = -(-M // 128)
-    S = max(1, min(-(-264 // max(q_blocks, 1)), -(-N // 1024)))
+    if N == 0 or max(M, N) >= 2 ** 31:
+        raise ValueError(f"nn1_argmin takes 1 <= N < 2^31 reference points "
+                         f"and M < 2^31 queries, got M={M}, N={N}")
     out = torch.empty(M, dtype=torch.int64, device=dev)
-    part_d2 = torch.empty((S, M), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((S, M), dtype=torch.int64, device=dev)
     if M == 0:
         return out
+    # get_device_properties reads the device once and keeps it
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, S, seg = launch_plan(M, N, sms)
+    scratch = torch.empty(2 * S * M, dtype=torch.int32, device=dev)
     code = lib.umr_nn1_argmin(
         queries.data_ptr(), points.data_ptr(), p_mask.data_ptr(),
-        part_d2.data_ptr(), part_idx.data_ptr(), out.data_ptr(), M, N, S,
+        scratch.data_ptr(), out.data_ptr(), M, N, S, seg,
         _build.stream_of(dev))
     _build.check(lib, code, "nn1_argmin")
     LAUNCHES += 1
     return out
+
+
+def forced_cases(sms: int = 132) -> Dict[str, Tuple[np.ndarray, np.ndarray,
+                                                      np.ndarray]]:
+    """Inputs (queries (M, 3) f32, points (N, 3) f32, mask (N,) bool) that
+    drive the kernel's edges on a card of `sms` SMs (launch_plan): equal
+    nearest points on both sides of segment boundaries and of shared-memory
+    tile boundaries, also with the first of each pair masked; all rows
+    masked but the last; all masked (index 0); M = 1; N = 1; N = TILE + 1
+    on a single segment; M not a multiple of QUERIES_PER_BLOCK;
+    coordinates near 1e4. Coordinates are multiples of 1/8 within 100 of a
+    base, so every distance to a valid row is exact in fp32 and equal
+    distances are real ties."""
+    rng = np.random.default_rng(17)
+
+    def lattice(n, base=0.0):
+        return (base + rng.integers(-128, 128, (n, 3)) / 4.0
+                ).astype(np.float32)
+
+    def valid(n, share):
+        return rng.random(n) < share
+
+    def ties(M, N, bounds, mask_first=False):
+        """Equal points at b - 1 and b for each boundary b, apart from the
+        rest; query i sits an eighth off the i-th pair (the answer is
+        b - 1, or b where the first of the pair is masked)."""
+        q, p, m = lattice(M), lattice(N), np.ones(N, bool)
+        for i, b in enumerate(bounds):
+            p[b - 1] = p[b] = (60.0, 8.0 * i - 40.0, 0.0)
+            q[i] = p[b] + np.float32(0.125)
+            m[b - 1] = not mask_first
+        return q, p, m
+
+    cases = {}
+    M, N = 8, 5000  # one query tile: many short segments
+    seg = launch_plan(M, N, sms)[2]
+    bounds = [seg, 2 * seg, 5 * seg]
+    cases["ties_at_segment_boundaries"] = ties(M, N, bounds)
+    cases["ties_at_segment_boundaries_first_masked"] = ties(M, N, bounds,
+                                                            True)
+    M, N = 8, 300_000  # segments longer than a tile
+    seg = launch_plan(M, N, sms)[2]
+    bounds = [TILE, seg, seg + TILE, 2 * seg]
+    cases["ties_at_tile_boundaries"] = ties(M, N, bounds)
+    cases["ties_at_tile_boundaries_first_masked"] = ties(M, N, bounds, True)
+    p = lattice(3000)
+    last = np.zeros(3000, bool)
+    last[-1] = True
+    cases["all_masked_but_last"] = (lattice(40), p, last)
+    cases["all_masked"] = (lattice(40), p, np.zeros(3000, bool))
+    cases["M1"] = (lattice(1), lattice(4000), valid(4000, 0.9))
+    cases["N1"] = (lattice(300), lattice(1), np.ones(1, bool))
+    # enough query tiles that the targets are one segment: a whole tile,
+    # then a ragged one
+    M = _BLOCKS_PER_SM * sms * QUERIES_PER_BLOCK
+    assert launch_plan(M, TILE + 1, sms)[1] == 1
+    cases["N_tile_plus_1_one_segment"] = (lattice(M), lattice(TILE + 1),
+                                          valid(TILE + 1, 0.9))
+    cases["M_ragged"] = (lattice(QUERIES_PER_BLOCK + 37), lattice(6000),
+                         valid(6000, 0.8))
+    p = lattice(6000, 1e4)
+    cases["near_1e4"] = (p[rng.integers(0, 6000, 700)] + np.float32(0.125),
+                         p, valid(6000, 0.8))
+    return cases
