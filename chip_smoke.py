@@ -49,6 +49,12 @@ Phases (any failure ends the run with a non-zero exit):
      indices >= N_in with N_out > N_in, Cin 1 / 3 / 320 / 384 / 768, Cout
      32 / 48 / 128 / 1024, int32 and int64), fp32 and bf16, both kernels, two
      launches bit-identical, the entry lists equal to their plain twin;
+     then the pair axis at B = 4 (the four regime pairs, phase_pair_axis):
+     nn1_argmin, ume_moments_fused and corr_scores_fused (four stage
+     shapes) with a leading pair axis, and gather_rows over the flattened
+     table, each pair bit-identical to its B = 1 call, the batch against
+     the plain version, kernel_ms (CUDA graph) at B = 1 and B = 4 and the
+     bound at B = 4;
   4. reference: the small pair through the whole path on the card and on
      the CPU (plain versions) with the same injected draws: the same
      transforms;
@@ -69,6 +75,25 @@ Phases (any failure ends the run with a non-zero exit):
   5c. scan: ResUNetSmall2 with the in-repo weights and conv_impl="scan"
      (every conv through the per-tap kernels) over phase 5's pairs and
      seeds: the same NP/SP verdict per pair as the grouped run;
+  5d. batched: register_pairs_batched (ResUNetSmall2, reduced point)
+     on the four regime pairs (B = 4) and on the eight pairs
+     tuning_seed(regime, i), i in {0, 1} (B = 8), each after a warm-up
+     batch and alternated with register_pair_e2e in one process (pair i
+     seeded i both ways; ICP's budget escalated over all eight): per
+     pair RRE / RTE, verdicts and |T_batched - T_seq|, per batch pairs/s
+     of both paths, kernel launches per pair, peak device memory; fails
+     on a verdict that differs, |dT_init| > 1e-4, or a main-path kernel
+     launched other than once a call site for the batch; both batches
+     once more through BlockMatmulProbe (the forward's per-pair dense
+     products against one torch.bmm, bit for bit); ResUNet (seeded random
+     parameters, full widths) on the nominal and rotheavy pairs through
+     pair_features_batched: each pair's features within 1e-4 of its own
+     call (level 1 fills), the run's launches counted as their own path
+     ("batched_resunet"), each of its 11 per-tap conv launches against
+     sparse_conv_plain and timed beside the pairs' own launches;
+  5e. hungarian: the nominal pair through register_pair_hungarian
+     (features from pair_features_e2e): RRE / RTE, the host assignment's
+     and the pair's seconds; held to a finite rigid transform;
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model, the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
@@ -77,7 +102,9 @@ Phases (any failure ends the run with a non-zero exit):
      record_function ranges) host ms and the device ms of the kernels
      inside it, device busy ms, the idle share of the profiled wall and,
      as an estimate combining two runs, of phase 5's unprofiled wall;
-     kernel launches and the top ops by device time.
+     kernel launches and the top ops by device time; then phase 5d's
+     two batches through register_pairs_batched (models "batched", B = 4,
+     and "batched_x2", B = 8; per pair).
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -743,6 +770,232 @@ def phase_kernels(dev, model, pair, cfg):
     return out
 
 
+def stacked_args(ps):
+    """pair_args of several pairs, each array stacked on a leading pair
+    axis (register_pairs_batched's inputs)."""
+    return tuple(np.stack(a) for a in zip(*(pair_args(p) for p in ps)))
+
+
+def ume_work(kp, p, pm, r, cap):
+    """Data-dependent work of one pair's ume_moments_fused call: (radius
+    tests up to each keypoint's cap-th hit, rows selected)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.neighbors import sqdist3
+
+    N, tested, selected = p.shape[0], 0, 0
+    for c0 in range(0, kp.shape[0], 256):
+        ok = (sqdist3(kp[c0:c0 + 256], p) <= r * r) & pm[None]
+        cum = torch.cumsum(ok.int(), 1)
+        full = cum[:, -1] >= cap
+        first = torch.argmax((cum >= cap).int(), 1) + 1
+        tested += int(torch.where(full, first, torch.full_like(first, N)).sum())
+        selected += int(torch.clamp(cum[:, -1], max=cap).sum())
+    return tested, selected
+
+
+def phase_pair_axis(dev, model, pairs, cfg):
+    """The kernels with a pair axis (nn1_argmin, ume_moments_fused,
+    corr_scores_fused) and the flattened gather_rows at the main path's
+    shapes for B = len(pairs) pairs: each pair's output bit-identical to
+    its B = 1 call, the batched call against the plain version (the
+    kernels' phase-3 tolerances), and the device's time alone (CUDA
+    graph) at B = 1 (the first pair) and B, beside the bound at B (the sum
+    of the pairs' bounds: B x the B = 1 bound where it depends on the
+    shapes alone)."""
+    import torch
+
+    from umeregrobust_tpu_torch.data.suite import REDUCED
+    from umeregrobust_tpu_torch.ops import (
+        cuda_corr, cuda_gather, cuda_nn, cuda_ume)
+    from umeregrobust_tpu_torch.ops.neighbors import (
+        gather_padded, sqdist3, take_rows)
+    from umeregrobust_tpu_torch.pipeline.consensus import compact_structure
+    from umeregrobust_tpu_torch.pipeline.correlator import (
+        _radius_inputs, prepare_weighted_features)
+    from umeregrobust_tpu_torch.pipeline.e2e import pair_features_batched
+    from umeregrobust_tpu_torch.pipeline.sampling import (
+        weighted_sample_batched)
+
+    B = len(pairs)
+    args = [torch.as_tensor(a).to(dev) for a in stacked_args(pairs)]
+    (_, grid, mask, _, tgrid, tmask, cpts, cmask, tcpts, tcmask) = args
+    cpts, tcpts = cpts.float(), tcpts.float()
+    feat, tfeat, cs_f, ct_f = pair_features_batched(model, REDUCED["caps"],
+                                                    *args, device=dev)
+    out = {}
+
+    def one(fn, xs, b):  # fn on pair b alone (B = 1 views)
+        return fn(*(x[b] if torch.is_tensor(x) else x for x in xs))
+
+    def timing(fn, xs):
+        return dict(kernel_ms_b1=graph_ms(lambda: one(fn, xs, 0)),
+                    kernel_ms_batched=graph_ms(lambda: fn(*xs)))
+
+    # --- nn1_argmin: corr points (4096) vs SEM grid (16384), B pairs
+    xs = (cpts, grid, mask)
+    a = cuda_nn.nn1_argmin(*xs)
+    singles = [one(cuda_nn.nn1_argmin, xs, b) for b in range(B)]
+    plain = cuda_nn.nn1_argmin_plain(*xs)
+    torch.cuda.synchronize()
+    M, N = cpts.shape[1], grid.shape[1]
+    b1, by = bound_ms(M * 12 + N * 13 + M * 8, M * N * 9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out["nn1_argmin"] = dict(
+        shape=f"{B}x{M}x{N}", plan_b1=cuda_nn.launch_plan(M, N, sms),
+        plan_batched=cuda_nn.launch_plan(M, N, sms, B),
+        bit_identical_to_b1=all(torch.equal(a[b], singles[b])
+                                for b in range(B)),
+        mismatches_vs_plain=int((a != plain).sum()), bound_ms_b1=b1,
+        bound_ms_batched=B * b1, bound_by=by, **timing(cuda_nn.nn1_argmin,
+                                                       xs))
+    out["nn1_argmin"]["max_abs_err"] = float(
+        out["nn1_argmin"]["mismatches_vs_plain"])
+    out["nn1_argmin"]["ok"] = (out["nn1_argmin"]["bit_identical_to_b1"]
+                               and out["nn1_argmin"]["mismatches_vs_plain"]
+                               == 0)
+
+    # --- gather_rows over the flattened (B N, 32) table: the transfer
+    # (gather_padded offsets pair b's indices by b N; timed is the kernel's
+    # call on the flattened table, as gather_padded makes it)
+    idx = torch.where(cmask, a, torch.full_like(a, -1))
+    g = gather_padded(feat, idx)
+    same = all(torch.equal(g[b], gather_padded(feat[b], idx[b]))
+               for b in range(B))
+    table, table0 = feat.reshape(B * N, -1).contiguous(), feat[0].contiguous()
+    flat = torch.where(idx >= 0, idx + N * torch.arange(
+        B, device=dev)[:, None], idx).reshape(-1)
+    bb = sum(bound_ms((torch.unique(idx[b][idx[b] >= 0]).numel() + M) * 128
+                      + M * 8, 0)[0] for b in range(B))
+    out["gather_rows"] = dict(
+        shape=f"{B}x{M} rows of {B}x{N}x32", bit_identical_to_b1=same,
+        ok=same, max_abs_err=0.0, bound_ms_batched=bb, bound_by="bytes",
+        kernel_ms_b1=graph_ms(lambda: cuda_gather.gather_rows(table0,
+                                                              idx[0])),
+        kernel_ms_batched=graph_ms(lambda: cuda_gather.gather_rows(table,
+                                                                   flat)))
+
+    # --- ume_moments_fused: 2048 keypoints x 16384 points a pair
+    gens = [torch.Generator(device=dev).manual_seed(1) for _ in range(B)]
+    kidx = weighted_sample_batched(mask.float() / mask.float().sum(
+        1, keepdim=True), 2048, gens)
+    kp = take_rows(grid, kidx).contiguous()
+    f = feat * mask[..., None]
+    Z = torch.cat([f, f * grid[..., 0:1], f * grid[..., 1:2],
+                   f * grid[..., 2:3]], -1).contiguous()
+    r, cap = cfg.ume_r_nn, cfg.ume_max_nn
+    xs = (kp, grid, Z, mask, r, cap)
+    a = cuda_ume.ume_moments_fused(*xs)
+    singles = [one(cuda_ume.ume_moments_fused, xs, b) for b in range(B)]
+    plain = cuda_ume.ume_moments_plain(*xs)
+    torch.cuda.synchronize()
+    err, scale = float((a - plain).abs().max()), float(plain.abs().max())
+    Mk = kp.shape[1]
+    bounds = []
+    for b in range(B):
+        tested, selected = ume_work(kp[b], grid[b], mask[b], r, cap)
+        bounds.append(bound_ms(N * 512 + N * 13 + Mk * 12 + Mk * 512,
+                               tested * 9 + selected * 128))
+    out["ume_moments_fused"] = dict(
+        shape=f"{B}x{Mk}x{N}", max_abs_err=err, scale=scale,
+        bit_identical_to_b1=all(torch.equal(a[b], singles[b])
+                                for b in range(B)),
+        bound_ms_b1=bounds[0][0], bound_ms_batched=sum(x[0] for x in bounds),
+        bound_by=bounds[0][1], **timing(cuda_ume.ume_moments_fused, xs))
+    out["ume_moments_fused"]["ok"] = (
+        out["ume_moments_fused"]["bit_identical_to_b1"]
+        and err <= 1e-5 * scale)
+
+    # --- corr_scores_fused at the four stage shapes, B pairs
+    fs, ft = prepare_weighted_features(
+        cpts, cs_f, cmask, tcpts, ct_f, tcmask, var_knn=cfg.corr_var_knn,
+        var_anchors=cfg.corr_var_anchors)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    gts = torch.as_tensor(np.stack([p["gt"] for p in pairs]),
+                          dtype=torch.float32, device=dev)
+
+    def hyps(H):  # each pair's ground truth plus random planar motions
+        ang = (torch.rand(B, H, generator=gen, device=dev) * 2 - 1) * np.pi
+        T = torch.eye(4, device=dev).repeat(B, H, 1, 1)
+        T[..., 0, 0], T[..., 0, 1] = torch.cos(ang), -torch.sin(ang)
+        T[..., 1, 0], T[..., 1, 1] = torch.sin(ang), torch.cos(ang)
+        T[..., :2, 3] = (torch.rand(B, H, 2, generator=gen, device=dev)
+                         * 2 - 1) * 10
+        T[:, H // 3] = gts
+        return T
+
+    def sub(n, k):
+        return torch.stack([torch.randperm(n, generator=gen, device=dev)[:k]
+                            for _ in range(B)])
+
+    S, T = cpts.shape[1], tcpts.shape[1]
+    stages = {"triage": (2048, sub(S, 256), sub(T, 512)),
+              "coarse": (512, sub(S, 512), sub(T, 1024)),
+              "exact": (4, None, None)}
+    inputs = {}
+    for name, (H, si, ti) in stages.items():
+        src = [cpts, fs, cmask] if si is None else [take_rows(x, si) for x in
+                                                    (cpts, fs, cmask)]
+        tgt = [tcpts, ft, tcmask] if ti is None else [take_rows(x, ti) for x
+                                                      in (tcpts, ft, tcmask)]
+        inputs[name] = _radius_inputs(*src, *tgt, hyps(H))
+    inputs["arbiter"] = _radius_inputs(
+        *compact_structure(cpts, fs, cmask, 2048),
+        *compact_structure(tcpts, ft, tcmask, 2048), hyps(17))
+    sigma = cfg.corr_kernel_sigma
+    r2 = (2.0 * sigma) ** 2
+
+    def fused(*xs):
+        return cuda_corr.corr_scores_fused(*xs, sigma=sigma)
+
+    per_stage = {}
+    for name, xs in inputs.items():
+        pts_t, _, tp4, _ = xs
+        H, Sn, Tn = pts_t.shape[1], pts_t.shape[2], tp4.shape[1]
+        a = fused(*xs)
+        singles = [one(fused, xs, b) for b in range(B)]
+        plain = cuda_corr.corr_scores_plain(*xs, sigma=sigma)
+        torch.cuda.synchronize()
+        err = float((a - plain).abs().max())
+        agree = all(
+            float((a[b] - plain[b]).abs().max())
+            <= 1e-4 * float(plain[b].abs().max())
+            and int(a[b].argmax()) == int(plain[b].argmax())
+            for b in range(B))
+        bounds = []
+        for b in range(B):
+            n_in = sum(int((sqdist3(pts_t[b, h0:h0 + 16, :, :3],
+                                    tp4[b, :, :3]) <= r2).sum())
+                       for h0 in range(0, H, 16))
+            bounds.append(bound_ms(
+                H * Sn * 16 + Sn * 128 + Tn * 16 + Tn * 128 + H * 4,
+                H * Sn * Tn * 9 + Sn * Tn * 64 + n_in * 5))
+        per_stage[name] = dict(
+            shape=f"{B}x{H}x{Sn}x{Tn}", max_abs_err=err,
+            bit_identical_to_b1=all(torch.equal(a[b], singles[b])
+                                    for b in range(B)),
+            agrees_with_plain=agree, bound_ms_b1=bounds[0][0],
+            bound_ms_batched=sum(x[0] for x in bounds),
+            bound_by=bounds[0][1], **timing(fused, xs))
+        per_stage[name]["ok"] = (per_stage[name]["bit_identical_to_b1"]
+                                 and agree)
+    out["corr_scores_fused"] = dict(
+        shape="per batch: " + ", ".join(f"{k} {v['shape']}"
+                                        for k, v in per_stage.items()),
+        stages=per_stage, ok=all(v["ok"] for v in per_stage.values()),
+        max_abs_err=max(v["max_abs_err"] for v in per_stage.values()),
+        bit_identical_to_b1=all(v["bit_identical_to_b1"]
+                                for v in per_stage.values()),
+        bound_by=max(per_stage.values(),
+                     key=lambda v: v["bound_ms_batched"])["bound_by"],
+        **{k: sum(v[k] for v in per_stage.values())
+           for k in ("kernel_ms_b1", "kernel_ms_batched", "bound_ms_b1",
+                     "bound_ms_batched")})
+    for v in out.values():
+        v["B"] = B
+    return out
+
+
 def fused_pair(pair, dev):
     """Both clouds of a pair in one coordinate set (batch id 1 on the
     target), as register_pair_e2e feeds the backbone."""
@@ -1046,32 +1299,54 @@ def conv_forced_cases(dev):
     return res, ok_all
 
 
-def capture_conv_layers(model, caps, pair, dev):
-    """Every per-tap conv launch of one feature stage of `model` on `pair`
-    (bf16 operands, as register_pair_e2e runs it): (parameter name,
-    features, weights, map) in launch order."""
+def capture_conv_layers(model, run):
+    """Every per-tap conv launch of one feature stage of `model`, run by
+    `run()` (bf16 operands, as register_pair_e2e runs it): (parameter
+    name, features, weights, map, pairs) in launch order."""
     import torch
 
     import umeregrobust_tpu_torch.models.resunet as resunet
-    from umeregrobust_tpu_torch.pipeline.e2e import pair_features_e2e
 
     names = {p.data_ptr(): n[:-2] for n, p in model.named_parameters()}
     got, conv = [], resunet.sparse_conv
 
-    def record(feats, w, nbr, bias=None, compute_dtype=torch.float32):
+    def record(feats, w, nbr, bias=None, compute_dtype=torch.float32,
+               pairs=1):
         got.append((names.get(w.data_ptr(), "?"),
                     feats.to(torch.float32).contiguous(),
-                    w.detach().contiguous(), nbr.contiguous()))
-        return conv(feats, w, nbr, bias=bias, compute_dtype=compute_dtype)
+                    w.detach().contiguous(), nbr.contiguous(), pairs))
+        return conv(feats, w, nbr, bias=bias, compute_dtype=compute_dtype,
+                    pairs=pairs)
 
     resunet.sparse_conv = record
     try:
         with torch.no_grad():
-            pair_features_e2e(model, caps, *pair_args(pair), device=dev)
+            run()
     finally:
         resunet.sparse_conv = conv
     torch.cuda.synchronize()
     return got
+
+
+def conv_bound(f, w, nbr):
+    """(bound ms, bound_by, bound ms with bf16 weights, valid entries, taps
+    with an entry) of one conv launch at bf16 operands. Bytes: the map, the
+    feature rows it reads, the weights of the taps that have an entry, the
+    output; operations: the valid entries' products."""
+    import torch
+
+    K, Cin, Cout = w.shape
+    N_in, N_out = f.shape[0], nbr.shape[1]
+    hit = (nbr >= 0) & (nbr < N_in)
+    valid = int(hit.sum())
+    taps_used = int(hit.any(1).sum())
+    rows_read = int(torch.unique(nbr[hit]).numel())
+    n_bytes = (nbr.numel() * nbr.element_size() + rows_read * Cin * 4
+               + taps_used * Cin * Cout * 4 + N_out * Cout * 4)
+    bb, by = bound_ms(n_bytes, 2 * valid * Cin * Cout, BF16_PEAK)
+    bb16, _ = bound_ms(n_bytes - taps_used * Cin * Cout * 2,
+                       2 * valid * Cin * Cout, BF16_PEAK)
+    return bb, by, bb16, valid, taps_used
 
 
 IM2COL_LIMIT = 8e9  # bytes of the library route's im2col tensor
@@ -1100,10 +1375,7 @@ def conv_layer_row(name, f, w, nbr):
     bf = torch.bfloat16
     K, Cin, Cout = w.shape
     N_in, N_out = f.shape[0], nbr.shape[1]
-    hit = (nbr >= 0) & (nbr < N_in)
-    valid = int(hit.sum())
-    taps_used = int(hit.any(1).sum())
-    rows_read = int(torch.unique(nbr[hit]).numel())
+    bb, by, bb16, valid, taps_used = conv_bound(f, w, nbr)
     kind = cuda_conv.choose_kernel(N_out, Cout, K)[0]
     fn = getattr(cuda_conv, "sparse_conv_" + kind)
     ref = cuda_conv.sparse_conv_plain(f, w, nbr, bf)
@@ -1123,13 +1395,6 @@ def conv_layer_row(name, f, w, nbr):
     old = cuda_conv.sparse_conv_fma(f, w, nbr, old_kind, bf)
     torch.cuda.synchronize()
     err = both[kind]["max_abs_err"]
-    # bytes: the map, the feature rows it reads, the weights of the taps
-    # that have an entry, the output; operations: the valid entries' products
-    n_bytes = (nbr.numel() * nbr.element_size() + rows_read * Cin * 4
-               + taps_used * Cin * Cout * 4 + N_out * Cout * 4)
-    bb, by = bound_ms(n_bytes, 2 * valid * Cin * Cout, BF16_PEAK)
-    bb16, _ = bound_ms(n_bytes - taps_used * Cin * Cout * 2,
-                       2 * valid * Cin * Cout, BF16_PEAK)
     row = dict(
         layer=name, kernel=kind, K=K, cin=Cin, cout=Cout, rows_in=N_in,
         rows_out=N_out, valid=valid, density=valid / (K * N_out),
@@ -1156,6 +1421,7 @@ def conv_layer_row(name, f, w, nbr):
         row.update(library_ms=None, library_note=f"im2col {im2col / 1e9:.1f}"
                    f" GB > {IM2COL_LIMIT / 1e9:.0f} GB")
         return row
+    hit = (nbr >= 0) & (nbr < N_in)
     idx = torch.where(hit, nbr, N_in).T.contiguous()  # (N_out, K)
     wb = w.reshape(K * Cin, Cout).to(bf)
 
@@ -1183,6 +1449,7 @@ def phase_conv_layers(dev, pair, weights):
     from umeregrobust_tpu_torch.models.resunet import (
         ARCHS, default_level_capacities, init_resunet)
     from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.pipeline.e2e import pair_features_e2e
 
     n0 = pair["src"]["coords"].shape[0]
     models = {
@@ -1196,10 +1463,11 @@ def phase_conv_layers(dev, pair, weights):
     out = {}
     for mname, (make, caps) in models.items():
         model = make()
-        layers = capture_conv_layers(model, caps, pair, dev)
+        layers = capture_conv_layers(model, lambda: pair_features_e2e(
+            model, caps, *pair_args(pair), device=dev))
         del model
         rows = []
-        for name, f, w, nbr in layers:
+        for name, f, w, nbr, _ in layers:
             rows.append(conv_layer_row(name, f, w, nbr))
             emit({"phase": "conv_layer", "model": mname, **rows[-1]})
         del layers
@@ -1325,6 +1593,336 @@ def phase_family(dev, pair, cfg):
     return res
 
 
+def verdict(T, gt):
+    """RRE (deg), RTE (m), NP and SP of one transform."""
+    import torch
+
+    from umeregrobust_tpu_torch.core.transforms import relative_rotation_error
+
+    T = torch.as_tensor(T).double().cpu()
+    gt = torch.as_tensor(gt, dtype=torch.float64)
+    rre = float(relative_rotation_error(gt[:3, :3], T[:3, :3]))
+    rte = float(torch.linalg.vector_norm(T[:3, 3] - gt[:3, 3]))
+    return dict(rre_deg=rre, rte_m=rte, np_pass=rre <= 1.5 and rte <= 0.6,
+                sp_pass=rre <= 1.0 and rte <= 0.1,
+                finite=bool(torch.isfinite(T).all()))
+
+
+MAIN_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
+                "gather_rows")
+
+
+def phase_batched(dev, model, caps, cfg, batch, seeds, label):
+    """`batch` (pairs) through register_pairs_batched as one batch, after a
+    warm-up batch, alternated with the same pairs one at a time through
+    register_pair_e2e (pair i seeded seeds[i] both ways) in the order
+    sequential, batched, batched, sequential: per pair the two paths'
+    verdicts and |T_batched - T_seq|; per path pairs/s (each pass), kernel
+    launches per pair, peak device memory. Returns (summary, the first
+    batched pass's launch counts)."""
+    import torch
+
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        register_pair_e2e, register_pairs_batched)
+
+    B = len(batch)
+    bargs = stacked_args(batch)
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+
+    def batched():
+        return register_pairs_batched(model, caps, cfg, *bargs,
+                                      generators=gens(), device=dev)
+
+    per_pair = []  # the first sequential pass's launch counts, a pair
+
+    def sequential():
+        out = []
+        for p, g in zip(batch, gens()):
+            before = launch_counts()
+            out.append(register_pair_e2e(model, caps, cfg, *pair_args(p),
+                                         generator=g, device=dev))
+            if len(per_pair) < B:
+                per_pair.append({k: v - before[k]
+                                 for k, v in launch_counts().items()})
+        return (torch.stack([o[0] for o in out]),
+                torch.stack([o[1] for o in out]))
+
+    batched()  # warm-up
+    passes = {"sequential": [], "batched": []}
+    results, launches, peak = {}, {}, {}
+    for kind in ("sequential", "batched", "batched", "sequential"):
+        fn = batched if kind == "batched" else sequential
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        Ti, Tr = fn()
+        torch.cuda.synchronize()
+        passes[kind].append(time.time() - t0)
+        if kind not in results:
+            results[kind] = (Ti.cpu(), Tr.cpu())
+            launches[kind] = launch_counts()
+            peak[kind] = torch.cuda.max_memory_allocated()
+    rows = []
+    for i, p in enumerate(batch):
+        vb = verdict(results["batched"][1][i], p["gt"])
+        vs = verdict(results["sequential"][1][i], p["gt"])
+        rows.append(dict(
+            pair=i, regime=p.get("regime"), seed=p.get("seed"),
+            batched=vb, sequential=vs,
+            same_verdict=(vb["np_pass"], vb["sp_pass"])
+            == (vs["np_pass"], vs["sp_pass"]),
+            max_abs_dT_init=float((results["batched"][0][i]
+                                   - results["sequential"][0][i]).abs().max()),
+            max_abs_dT_refined=float((results["batched"][1][i]
+                                      - results["sequential"][1][i]
+                                      ).abs().max())))
+        emit({"phase": "batched_pair", "batch": label, **rows[-1]})
+    res = dict(
+        batch=label, B=B, icp_budget=cfg.icp_budget,
+        pairs_per_s_batched=[B / t for t in passes["batched"]],
+        pairs_per_s_sequential=[B / t for t in passes["sequential"]],
+        wall_s_batched=passes["batched"], wall_s_sequential=passes["sequential"],
+        launches_per_pair_batched={k: v / B for k, v in
+                                   launches["batched"].items()},
+        launches_per_pair_sequential={k: v / B for k, v in
+                                      launches["sequential"].items()},
+        launches_batched=launches["batched"],
+        max_memory_allocated_bytes_batched=peak["batched"],
+        max_memory_allocated_bytes_sequential=peak["sequential"],
+        np_recall_batched=float(np.mean([r["batched"]["np_pass"]
+                                         for r in rows])),
+        sp_recall_batched=float(np.mean([r["batched"]["sp_pass"]
+                                         for r in rows])),
+        max_abs_dT_init=max(r["max_abs_dT_init"] for r in rows),
+        max_abs_dT_refined=max(r["max_abs_dT_refined"] for r in rows),
+        same_verdicts=all(r["same_verdict"] for r in rows),
+        finite=all(r["batched"]["finite"] for r in rows))
+    # one launch a call site for the batch: each main-path kernel as often
+    # as in the pair whose run launched it most (the arbiter's scores run
+    # once when any pair's gate fires)
+    res["launches_sequential_per_pair"] = per_pair
+    res["one_launch_per_call_site"] = all(
+        launches["batched"][k] == max(c[k] for c in per_pair) > 0
+        for k in MAIN_KERNELS)
+    res["ok"] = (res["same_verdicts"] and res["max_abs_dT_init"] <= 1e-4
+                 and res["finite"] and res["one_launch_per_call_site"])
+    return res, launches["batched"]
+
+
+class BlockMatmulProbe:
+    """While active, each dense product that a batched forward makes per
+    pair-sized row block (ops.sparse.matmul_by_pair with pairs > 1) is
+    also made as a per-block torch.mm loop and as one strided-batched
+    torch.bmm over the same blocks (the weights broadcast), and the three
+    are compared bit for bit, per shape. The forward keeps its own result."""
+
+    def __enter__(self):
+        import torch
+
+        import umeregrobust_tpu_torch.models.resunet as resunet
+        from umeregrobust_tpu_torch.ops import sparse
+
+        self.mods, self.orig, self.seen = (sparse, resunet), \
+            sparse.matmul_by_pair, {}
+
+        def probe(x, w, pairs=1):
+            out = self.orig(x, w, pairs)
+            if pairs > 1:
+                n = x.shape[0] // pairs
+                loop = torch.cat([torch.mm(xb, w) for xb in x.split(n)])
+                bmm = torch.bmm(x.reshape(pairs, n, x.shape[1]),
+                                w.expand(pairs, *w.shape)).reshape(out.shape)
+                r = self.seen.setdefault(
+                    f"{pairs} x {n} x {x.shape[1]} -> {w.shape[1]}, "
+                    f"{str(x.dtype)[6:]}", dict(calls=0, bmm_equal=0,
+                                                path_equal_loop=0,
+                                                max_abs_diff=0.0))
+                r["calls"] += 1
+                r["bmm_equal"] += bool(torch.equal(bmm, loop))
+                r["path_equal_loop"] += bool(torch.equal(out, loop))
+                r["max_abs_diff"] = max(r["max_abs_diff"],
+                                        float((bmm - loop).abs().max()))
+            return out
+
+        for m in self.mods:
+            m.matmul_by_pair = probe
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.matmul_by_pair = self.orig
+
+    def summary(self):
+        v = self.seen.values()
+        return dict(shapes=self.seen, calls=sum(r["calls"] for r in v),
+                    bmm_equal_all=all(r["bmm_equal"] == r["calls"] for r in v),
+                    path_equal_loop_all=all(r["path_equal_loop"] == r["calls"]
+                                            for r in v))
+
+
+def batched_conv_row(name, f, w, nbr, pairs, b1):
+    """One conv launch of a batched forward (bf16 operands): the kernel
+    that sparse_conv routes it to (choose_kernel on a pair's rows) against
+    sparse_conv_plain (max abs error <= 1e-4 x max |out|, two launches
+    bit-identical), its device time (CUDA graph) beside the same layer's
+    launches of the pairs' own calls (`b1`: (f, w, nbr) a pair), and the
+    bound."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv
+
+    bf = torch.bfloat16
+    K, Cin, Cout = w.shape
+    kind = cuda_conv.choose_kernel(nbr.shape[1] // pairs, Cout, K)[0]
+    fn = getattr(cuda_conv, "sparse_conv_" + kind)
+    ref = cuda_conv.sparse_conv_plain(f, w, nbr, bf)
+    scale = float(ref.abs().max())
+    o1, o2 = fn(f, w, nbr, bf), fn(f, w, nbr, bf)
+    torch.cuda.synchronize()
+    err = float((o1 - ref).abs().max())
+    bb, by, _, valid, _ = conv_bound(f, w, nbr)
+    kinds_b1 = [cuda_conv.choose_kernel(n_.shape[1], Cout, K)[0]
+                for _, _, n_ in b1]
+    return dict(
+        layer=name, kernel=kind, pairs=pairs, K=K, cin=Cin, cout=Cout,
+        rows_in=f.shape[0], rows_out=nbr.shape[1], valid=valid,
+        max_abs_err=err, scale=scale,
+        ok=err <= 1e-4 * scale and scale > 0 and torch.equal(o1, o2)
+        and all(k == kind for k in kinds_b1),
+        kernel_b1=kinds_b1,
+        kernel_ms=graph_ms(lambda: fn(f, w, nbr, bf), reps=5, inner=10),
+        kernel_ms_b1=[graph_ms(lambda f_=f_, w_=w_, n_=n_: fn(f_, w_, n_, bf),
+                               reps=5, inner=10) for f_, w_, n_ in b1],
+        plain_ms=time_ms(lambda: cuda_conv.sparse_conv_plain(f, w, nbr, bf),
+                         reps=3, warmup=1),
+        bound_ms=bb, bound_by=by)
+
+
+def phase_resunet_batched(dev, pairs):
+    """ResUNet (seeded random parameters, full published widths) on the
+    pairs as one batch through pair_features_batched against each pair's
+    pair_features_e2e: features within 1e-4 (the card-vs-CPU bound of
+    phase 5b); valid rows per level and pair against the capacities (level
+    1 fills: the batch must keep each pair's own rows). The batched run is
+    counted on its own (launch counts set to 0 just before it) and its
+    per-tap conv launches are held against the plain version and timed
+    beside the pairs' own launches of the same layers (batched_conv_row);
+    one more batched run goes through BlockMatmulProbe."""
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import (
+        ARCHS, build_unet_geometry, default_level_capacities, init_resunet)
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        pair_features_batched, pair_features_e2e)
+
+    arch = ARCHS["ResUNet"]
+    caps = default_level_capacities(pairs[0]["src"]["coords"].shape[0], arch)
+    model = init_resunet(arch, 1, 32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    bargs = stacked_args(pairs)
+    fb = []
+    reset_launch_counts()
+    layers = capture_conv_layers(model, lambda: fb.extend(
+        pair_features_batched(model, caps, *bargs, device=dev)))
+    launches = launch_counts()
+    diffs, layers_b1 = [], []
+    for i, p in enumerate(pairs):
+        fs = []
+        layers_b1.append(capture_conv_layers(model, lambda p=p: fs.extend(
+            pair_features_e2e(model, caps, *pair_args(p), device=dev))))
+        diffs.append(max(float((a[i] - b).abs().max())
+                         for a, b in zip(fb, fs)))
+    conv_rows = []
+    for j, (name, f, w, nbr, B_) in enumerate(layers):
+        conv_rows.append(batched_conv_row(
+            name, f, w, nbr, B_, [lb[j][1:4] for lb in layers_b1]))
+        conv_rows[-1]["ok"] &= all(lb[j][0] == name for lb in layers_b1)
+        emit({"phase": "batched_conv_layer", "model": "ResUNet",
+              **conv_rows[-1]})
+    del layers, layers_b1
+    with BlockMatmulProbe() as bmp:
+        pair_features_batched(model, caps, *bargs, device=dev)
+    # the batch's pyramid: rows of each pair at each level
+    B, N = bargs[0].shape[:2]
+    coords = torch.as_tensor(np.stack([bargs[0], bargs[3]], 1)).to(dev)
+    mask = torch.as_tensor(np.stack([bargs[2], bargs[5]], 1)).to(dev)
+    coords[..., 0] += (torch.arange(2 * B, device=dev, dtype=torch.int32)
+                       .reshape(B, 2, 1) * mask)
+    geom = build_unet_geometry(coords.reshape(-1, 4), mask.reshape(-1), arch,
+                               tuple(2 * c for c in caps), pairs=B)
+    rows = [[int((lv.mask & (lv.coords[:, 0] // 2 == b)).sum())
+             for lv in geom["levels"]] for b in range(B)]
+    del model, geom
+    by_kernel = {k: dict(
+        launches=sum(r["kernel"] == k for r in conv_rows),
+        **{key: sum(r[key] for r in conv_rows if r["kernel"] == k)
+           for key in ("kernel_ms", "plain_ms", "bound_ms")},
+        kernel_ms_b1=sum(sum(r["kernel_ms_b1"]) for r in conv_rows
+                         if r["kernel"] == k),
+        max_abs_err=max([r["max_abs_err"] for r in conv_rows
+                         if r["kernel"] == k], default=0.0))
+        for k in ("rowtile", "tapsplit")}
+    return dict(arch="ResUNet", caps=caps, B=B,
+                max_abs_feature_diff=diffs, limit=1e-4,
+                valid_rows_per_level=rows,
+                level_full=[[v >= 2 * c for v, c in zip(r, caps)]
+                            for r in rows],
+                launches=launches, conv_launches=len(conv_rows),
+                conv_by_kernel=by_kernel,
+                conv_ok=all(r["ok"] for r in conv_rows),
+                block_matmul=bmp.summary(),
+                ok=all(d <= 1e-4 for d in diffs)
+                and all(r["ok"] for r in conv_rows) and len(conv_rows) > 0)
+
+
+def phase_hungarian(dev, model, caps, cfg, pair):
+    """The nominal pair through register_pair_hungarian on the card:
+    features from pair_features_e2e, the host assignment's seconds and the
+    whole pair's, RRE / RTE and the verdict; held to a finite rigid T."""
+    import torch
+
+    from umeregrobust_tpu_torch.pipeline import registration
+    from umeregrobust_tpu_torch.pipeline.e2e import pair_features_e2e
+
+    s, tg = pair["src"], pair["tgt"]
+    assign, seconds = registration.hungarian_match, []
+
+    def timed(D):  # the host assignment, timed where the path calls it
+        t = time.perf_counter()
+        out = assign(D)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    registration.hungarian_match = timed
+    try:
+        f = pair_features_e2e(model, caps, *pair_args(pair), device=dev)
+        res = registration.register_pair_hungarian(
+            cfg, s["grid"], f[0], s["mask"], tg["grid"], f[1], tg["mask"],
+            s["corr_pts"], f[2], s["corr_mask"], tg["corr_pts"], f[3],
+            tg["corr_mask"],
+            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+    finally:
+        registration.hungarian_match = assign
+    dt = time.time() - t0
+    T = res.T_refined.double().cpu()
+    R = T[:3, :3]
+    rigid = bool(torch.allclose(R @ R.T, torch.eye(3, dtype=torch.float64),
+                                atol=1e-4)
+                 and abs(float(torch.linalg.det(R)) - 1.0) <= 1e-4)
+    out = dict(seconds=dt, assignment_s=seconds[0],
+               keypoints=cfg.num_init_keypoints, launches=launch_counts(),
+               **verdict(T, pair["gt"]), rigid=rigid)
+    out["ok"] = out["finite"] and rigid
+    return out
+
+
 def phase_reference(dev, model_gpu, model_cpu, cfg_small):
     """The small pair on the card and on the CPU with the same draws."""
     import torch
@@ -1369,10 +1967,11 @@ class OldConvKernels:
 
         self.mod, self.conv = resunet, resunet.sparse_conv
 
-        def old(feats, w, nbr, bias=None, compute_dtype=torch.float32):
+        def old(feats, w, nbr, bias=None, compute_dtype=torch.float32,
+                pairs=1):
             out = cuda_conv.sparse_conv_fma(
                 feats.to(torch.float32).contiguous(), w.contiguous(),
-                nbr.contiguous(), old_route(nbr.shape[1], w.shape[2],
+                nbr.contiguous(), old_route(nbr.shape[1] // pairs, w.shape[2],
                                             w.shape[0]), compute_dtype)
             return out if bias is None else out + bias.to(torch.float32)
 
@@ -1383,10 +1982,12 @@ class OldConvKernels:
         self.mod.sparse_conv = self.conv
 
 
-def phase_profile(run, pairs, cfg, unprofiled_wall_s, model):
+def phase_profile(run, pairs, cfg, unprofiled_wall_s, model, run_all=None):
     """The e2e pairs again under torch.profiler (same seeds and config);
-    `model` tags the lines ("grouped", "scan" or "resunet"; the last has
-    no unprofiled run of its own: None, and its idle estimate is NaN)."""
+    `model` tags the lines ("grouped", "scan", "resunet" or "batched"; a
+    run without an unprofiled run of its own passes None, and its idle
+    estimate is NaN). run_all, when given, drives all the pairs in one
+    call (the batched path) instead of run(p, i) a pair."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1395,8 +1996,11 @@ def phase_profile(run, pairs, cfg, unprofiled_wall_s, model):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
-        for i, p in enumerate(pairs):
-            run(p, i)
+        if run_all is not None:
+            run_all()
+        else:
+            for i, p in enumerate(pairs):
+                run(p, i)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     n = len(pairs)
@@ -1457,7 +2061,8 @@ def main() -> int:
     from umeregrobust_tpu_torch.models.resunet import ARCHS
     from umeregrobust_tpu_torch.models.weights import load_model
     from umeregrobust_tpu_torch.ops import _build
-    from umeregrobust_tpu_torch.pipeline.e2e import register_pair_e2e
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        register_pair_e2e, register_pairs_batched)
     from umeregrobust_tpu_torch.pipeline.exactness import (
         escalated_budget, fine_grid_geometry, window_occupancy)
     from umeregrobust_tpu_torch.pipeline.registration import (
@@ -1514,6 +2119,16 @@ def main() -> int:
             bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
             max_abs_err=max([kern[name]["max_abs_err"]]
                             + [r["max_abs_err"] for r in mine]))
+    pair_axis = phase_pair_axis(dev, model, pairs, cfg)
+    for name, res in pair_axis.items():
+        emit({"phase": "pair_axis", "kernel": name, **res})
+        kern[name].update(
+            kernel_ms_b1=res["kernel_ms_b1"], B=res["B"],
+            kernel_ms_batched=res["kernel_ms_batched"],
+            bound_ms_batched=res["bound_ms_batched"],
+            bit_identical_to_b1=res["bit_identical_to_b1"],
+            ok=kern[name]["ok"] and res["ok"],
+            max_abs_err=max(kern[name]["max_abs_err"], res["max_abs_err"]))
     for name, res in kern.items():
         emit({"kernel": name, **res})
 
@@ -1602,8 +2217,54 @@ def main() -> int:
         for g, sc in zip(results, scan_results)],
         "pairs_per_s_grouped": len(results) / wall,
         "pairs_per_s_scan": len(scan_results) / scan_wall})
+    # --- 5d. pair batching: the four regime pairs as one batch, then the
+    # eight pairs tuning_seed(regime, i), i in {0, 1}, each against the
+    # same pairs one at a time; ICP's budget covers every pair's windows
+    for r, p in zip(names, pairs):
+        p.update(regime=r, seed=tuning_seed(r))
+    more = [dict(prep_pair(tuning_seed(r, 1), r, **REDUCED), regime=r,
+                 seed=tuning_seed(r, 1)) for r in names]
+    cfg_b = cfg
+    for p in more:
+        w, b = window_occupancy(p["tgt"]["corr_pts"][p["tgt"]["corr_mask"]],
+                                cell, dims)
+        if b != 0:
+            raise RuntimeError("ICP grid does not cover the batch's clouds")
+        if w > cfg_b.icp_budget:
+            cfg_b = replace(cfg_b, icp_budget=escalated_budget(
+                w, cfg_b.icp_budget))
+    batch_res = {}
+    for label, batch in (("regimes", pairs), ("regimes_x2", pairs + more)):
+        res, lc = phase_batched(dev, model, REDUCED["caps"], cfg_b, batch,
+                                list(range(len(batch))), label)
+        emit({"phase": "batched", **res})
+        batch_res[label] = (res, lc)
+    with BlockMatmulProbe() as bmp:
+        for batch in (pairs, pairs + more):
+            register_pairs_batched(
+                model, REDUCED["caps"], cfg_b, *stacked_args(batch),
+                device=dev, generators=[torch.Generator(
+                    device=dev).manual_seed(i) for i in range(len(batch))])
+    block_mm = bmp.summary()
+    emit({"phase": "block_matmul", "model": "ResUNetSmall2", **block_mm})
+    res_b = phase_resunet_batched(dev, pairs[:2])
+    emit({"phase": "batched_resunet", **res_b})
+    for name in ("sparse_conv_rowtile", "sparse_conv_tapsplit"):
+        c = res_b["conv_by_kernel"][name[len("sparse_conv_"):]]
+        kern[name].update(
+            B=res_b["B"], kernel_ms_b1=c["kernel_ms_b1"],
+            kernel_ms_batched=c["kernel_ms"], bound_ms_batched=c["bound_ms"],
+            ok=kern[name]["ok"] and res_b["conv_ok"],
+            max_abs_err=max(kern[name]["max_abs_err"], c["max_abs_err"]))
+
+    # --- 5e. the Hungarian parity path on the nominal pair
+    hung = phase_hungarian(dev, model, REDUCED["caps"], cfg, pairs[0])
+    emit({"phase": "hungarian", **hung})
+
     paths = {"e2e": e2e_launches, "family": fam["launches"],
-             "scan": scan_launches}
+             "scan": scan_launches, "batched": batch_res["regimes"][1],
+             "batched_resunet": res_b["launches"],
+             "hungarian": hung["launches"]}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
@@ -1633,6 +2294,17 @@ def main() -> int:
             phase_profile(run_resunet, pairs, cfg, None,
                           "resunet_old_conv_kernels")
         del res_model
+        # phase 5d's two batches (its seeds and budget), one batch each
+        for label, tag, batch in (("regimes", "batched", pairs),
+                                  ("regimes_x2", "batched_x2",
+                                   pairs + more)):
+            bargs = stacked_args(batch)
+            phase_profile(None, batch, cfg_b, float(np.mean(
+                batch_res[label][0]["wall_s_batched"])), tag,
+                run_all=lambda: register_pairs_batched(
+                    model, REDUCED["caps"], cfg_b, *bargs, device=dev,
+                    generators=[torch.Generator(device=dev).manual_seed(i)
+                                for i in range(len(batch))]))
 
     failures = [f"kernel {k}" for k, v in kern.items() if not v["ok"]]
     if not ref["ok"]:
@@ -1655,9 +2327,21 @@ def main() -> int:
             failures.append(f"pair {g['pair']}: scan verdict differs")
         if sc["launches"]["sparse_conv_rowtile"] == 0:
             failures.append(f"pair {g['pair']}: scan ran no per-tap kernel")
+    for label, (res, _) in batch_res.items():
+        if not res["ok"]:
+            failures.append(f"batched {label}: verdicts, |dT_init| or launches"
+                            " differ from the sequential path")
+    if not res_b["ok"]:
+        failures.append("batched ResUNet: features differ from one pair's, "
+                        "or a conv launch disagrees with its plain version")
+    if not hung["ok"]:
+        failures.append("Hungarian path: no finite rigid transform")
     # a kernel of a path must have launched in that path's counted run
-    on_path = {"e2e": ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
-                       "gather_rows"),
+    on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
+               "batched_resunet": ("nn1_argmin", "gather_rows",
+                                   "sparse_conv_rowtile",
+                                   "sparse_conv_tapsplit"),
+               "hungarian": MAIN_KERNELS,
                "family": tuple(KERNELS),
                "scan": ("nn1_argmin", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",
@@ -1678,8 +2362,10 @@ def main() -> int:
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             shape=k["shape"], status="ok" if k["ok"] else "failed",
-            **{key: k[key] for key in ("kernel_ms", "library_kernel_ms")
-               if key in k}))
+            **{key: k[key] for key in (
+                "kernel_ms", "library_kernel_ms", "B", "kernel_ms_b1",
+                "kernel_ms_batched", "bound_ms_batched",
+                "bit_identical_to_b1") if key in k}))
     emit({"kernels": rows})
     if failures:
         log("chip_smoke FAILED: " + "; ".join(failures))

@@ -40,7 +40,7 @@ def test_importing_every_module_leaves_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert len(MODULES) >= 27
-    for new in ("ops.cuda_gather", "ops.cuda_conv"):
+    for new in ("ops.cuda_gather", "ops.cuda_conv", "devices"):
         assert f"umeregrobust_tpu_torch.{new}" in MODULES
 
 
@@ -213,3 +213,63 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
         tpu_file, line = replaces.split(":")
         text = (ROOT / tpu_file).read_text().splitlines()
         assert "def " in text[int(line) - 1], (name, replaces)
+
+
+def _c_params(src, fn):
+    """The parameter list of `UMR_EXPORT int fn(...)` in a CUDA source."""
+    m = re.search(rf"UMR_EXPORT int {fn}\(([^)]*)\)", src)
+    return [p.strip() for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("fn,source", [
+    ("umr_nn1_argmin", "nn1_argmin.cu"), ("umr_ume_moments", "ume_moments.cu"),
+    ("umr_corr_scores", "corr_scores.cu")])
+def test_pair_axis_entries_have_their_ctypes_signature(fn, source):
+    # the C entries of the three kernels with a pair axis take B, and
+    # _SIGNATURES lists every argument with its ctypes type (a pointer
+    # without one would be cut to 32 bits)
+    params = _c_params((PKG / "csrc" / source).read_text(), fn)
+    assert "int B" in params
+    sig = _build._SIGNATURES[fn]
+    assert len(sig) == len(params)
+    for p, ct in zip(params, sig):
+        want = (_build._VP if "*" in p else _build._FLT
+                if p.startswith("float") else _build._INT)
+        assert ct is want, (fn, p)
+
+
+@pytest.mark.parametrize("call", [
+    lambda d: cuda_nn.nn1_argmin(torch.zeros(2, 4, 3, device=d),
+                                 torch.zeros(2, 8, 3, device=d),
+                                 torch.ones(2, 8, dtype=torch.bool, device=d)),
+    lambda d: cuda_ume.ume_moments_fused(
+        torch.zeros(2, 4, 3, device=d), torch.zeros(2, 8, 3, device=d),
+        torch.zeros(2, 8, 128, device=d),
+        torch.ones(2, 8, dtype=torch.bool, device=d), 1.0, 4),
+    lambda d: cuda_corr.corr_scores_fused(
+        torch.zeros(2, 2, 8, 4, device=d), torch.zeros(2, 8, 32, device=d),
+        torch.zeros(2, 16, 4, device=d), torch.zeros(2, 16, 32, device=d)),
+    lambda d: gather_padded(torch.zeros(2, 8, 4, device=d),
+                            torch.zeros((2, 5), dtype=torch.int64, device=d)),
+], ids=["nn1_argmin", "ume_moments_fused", "corr_scores_fused",
+        "gather_padded"])
+def test_pair_axis_wrappers_raise_instead_of_falling_back(no_nvcc, call):
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        call("meta")
+    assert call("cpu").shape[0] == 2  # CPU tensors: plain version, per pair
+
+
+def test_batched_and_hungarian_entries_refuse_the_cpu_fallback():
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        pair_features_batched, register_pairs_batched)
+    from umeregrobust_tpu_torch.pipeline.registration import (
+        register_pair_hungarian)
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    for call in (lambda: register_pairs_batched(None, (), _cfg(),
+                                                *([None] * 10)),
+                 lambda: pair_features_batched(None, (), *([None] * 10)),
+                 lambda: register_pair_hungarian(_cfg(), *([None] * 12))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -11,7 +11,8 @@ import torch
 from umeregrobust_tpu_torch.core.so3 import gram_schmidt, kabsch_rotation
 
 __all__ = ["subspace_projection", "projection_packed", "ume_distance",
-           "estimate_rigid_from_ume", "ume_validity_mask"]
+           "ume_pairwise_distance", "estimate_rigid_from_ume",
+           "ume_validity_mask"]
 
 
 def subspace_projection(F: torch.Tensor) -> torch.Tensor:
@@ -36,6 +37,22 @@ def ume_distance(ume1: torch.Tensor, ume2: torch.Tensor) -> torch.Tensor:
     """Elementwise (matched-pair) subspace distance."""
     diff = subspace_projection(ume1) - subspace_projection(ume2)
     return torch.sqrt(torch.sum(diff * diff, dim=(-2, -1))) / math.sqrt(2.0)
+
+
+def ume_pairwise_distance(ume1: torch.Tensor,
+                          ume2: torch.Tensor) -> torch.Tensor:
+    """Pairwise subspace distance D[..., i, j] = |P1_i - P2_j|_F / sqrt(2)
+    for ume1 (..., M, d, 4), ume2 (..., N, d, 4) -> (..., M, N): one plain
+    matmul of the packed projections, in full fp32 (callers keep TF32
+    off), outside any kernel as in the JAX package."""
+    P1 = projection_packed(ume1)
+    P2 = projection_packed(ume2)
+    sq1 = torch.sum(P1 * P1, dim=-1)
+    sq2 = torch.sum(P2 * P2, dim=-1)
+    cross = P1 @ P2.transpose(-1, -2)
+    d2 = torch.clamp(sq1[..., :, None] + sq2[..., None, :] - 2.0 * cross,
+                     min=0.0)
+    return torch.sqrt(d2) / math.sqrt(2.0)
 
 
 def estimate_rigid_from_ume(

@@ -36,6 +36,10 @@
 //    one tile a block. The hypothesis loop is compiled for each count
 //    1..8, so a block of fewer than 8 hypotheses tests no padding (the
 //    exact stage has 4).
+// Pair axis: a call scores B pairs of one shape; grid y runs over (pair,
+// hypothesis block) with per-pair pointer offsets, and each pair keeps the
+// grid and partial layout of its B = 1 call, so its scores have the same
+// bits.
 // Distance and weight are fp32 with explicitly rounded operations (never
 // below fp32: rounding coordinates flips radius membership) and an exact
 // divide. Each block writes one partial sum per (hypothesis, source tile,
@@ -176,7 +180,14 @@ corr_partial_kernel(const float4* __restrict__ pts_t,
                     float inv_s2, float r2) {
   __shared__ Shared sm;
   const int tid = threadIdx.x;
-  const int h0 = blockIdx.y * kHB;
+  const int hblocks = (H + kHB - 1) / kHB;
+  const int64_t pair = blockIdx.y / hblocks;
+  pts_t += pair * H * S;
+  fs += pair * S * kC4;
+  tp += pair * T;
+  ft += pair * T * kC4;
+  partial += pair * H * gridDim.x * gridDim.z;
+  const int h0 = (blockIdx.y % hblocks) * kHB;
   const int nh = min(kHB, H - h0);
   // grid z is 1 (this block sweeps every target tile) or the tiles' count
   const int tile0 = blockIdx.z;
@@ -229,21 +240,24 @@ __global__ void corr_sum_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-// pts_t (H,S,4), fs (S,C), tp (T,4), ft (T,C) f32, 16-byte aligned ->
-// out (H,) f32. split: 0 = a block sweeps every target, else one block per
-// tile of 128 targets. partial (H, ceil(S/256), split ? ceil(T/128) : 1)
-// f32 is caller-allocated scratch. C must be 32; H, S, T >= 1.
+// B pairs: pts_t (B,H,S,4), fs (B,S,C), tp (B,T,4), ft (B,T,C) f32,
+// 16-byte aligned -> out (B,H) f32. split: 0 = a block sweeps every
+// target, else one block per tile of 128 targets. partial (B, H,
+// ceil(S/256), split ? ceil(T/128) : 1) f32 is caller-allocated scratch.
+// C must be 32; B, H, S, T >= 1.
 UMR_EXPORT int umr_corr_scores(const float* pts_t, const float* fs,
                                const float* tp, const float* ft,
-                               float* partial, float* out, int H, int S,
-                               int T, int C, int split, float inv_s2,
+                               float* partial, float* out, int B, int H,
+                               int S, int T, int C, int split, float inv_s2,
                                float r2, void* stream) {
-  if (C != kC || H < 1 || S < 1 || T < 1)
+  if (C != kC || B < 1 || H < 1 || S < 1 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_src = (S + kThreads - 1) / kThreads;
   const int n_seg = split ? (T + kTT - 1) / kTT : 1;
-  dim3 grid(n_src, (H + kHB - 1) / kHB, n_seg);
+  const int64_t grid_y = (int64_t)B * ((H + kHB - 1) / kHB);
+  if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(n_src, (unsigned)grid_y, n_seg);
   if (grid.y > 65535u || grid.z > 65535u)
     return static_cast<int>(cudaErrorInvalidValue);
   corr_partial_kernel<<<grid, kThreads, 0, st>>>(
@@ -251,8 +265,9 @@ UMR_EXPORT int umr_corr_scores(const float* pts_t, const float* fs,
       reinterpret_cast<const float4*>(fs), reinterpret_cast<const float4*>(tp),
       reinterpret_cast<const float4*>(ft), partial, H, S, T, inv_s2, r2);
   constexpr int kSumThreads = 128;  // 4 hypotheses a block
-  const int sum_blocks = (H * 32 + kSumThreads - 1) / kSumThreads;
-  corr_sum_kernel<<<sum_blocks, kSumThreads, 0, st>>>(partial, out, H,
-                                                      n_src * n_seg);
+  const int64_t sum_blocks = ((int64_t)B * H * 32 + kSumThreads - 1) /
+                             kSumThreads;
+  corr_sum_kernel<<<(unsigned)sum_blocks, kSumThreads, 0, st>>>(
+      partial, out, B * H, n_src * n_seg);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,11 @@
 //   segments, then the runs in order: the exact first-index argmin,
 //   identical to the plain version. No atomics, no host read; two
 //   launches a call.
+// - Pair axis: a call serves B independent (queries, targets) problems of
+//   one shape; the pair is grid z of the sweep and grid y of the merge,
+//   with per-pair pointer offsets. The wrapper's plan gives each pair
+//   fewer segments as B grows (about two blocks an SM in all); a pair's
+//   answer is exact whatever its segments, so it equals the B = 1 call.
 // Tensor cores, wgmma and TMA do not apply: the expanded |q|^2 + |p|^2 -
 // 2 q.p form would change the argmin on near-ties and break exactness
 // against the JAX package.
@@ -81,6 +86,12 @@ __global__ void __launch_bounds__(kThreads)
                        int seg_len) {
   __shared__ float4 sp[kTile];
   const int tid = threadIdx.x;
+  const int64_t pair = blockIdx.z;
+  q += pair * M * 3;
+  p += pair * N * 3;
+  mask += pair * N;
+  part_d2 += pair * gridDim.y * M;
+  part_idx += pair * gridDim.y * M;
   const int q0 = (int)blockIdx.x * (kThreads * kQ) + tid;
   const int seg_lo = (int)blockIdx.y * seg_len;
   const int seg_hi = (int)min((int64_t)N, (int64_t)seg_lo + seg_len);
@@ -158,6 +169,10 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
                      int64_t* __restrict__ out, int M, int S) {
   __shared__ float run_d2[kMergeWarps][32];
   __shared__ int run_idx[kMergeWarps][32];
+  const int64_t pair = blockIdx.y;
+  part_d2 += pair * S * M;
+  part_idx += pair * S * M;
+  out += pair * M;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int q = (int)blockIdx.x * 32 + lane;
   const int qi = min(q, M - 1);
@@ -194,23 +209,25 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
 
 }  // namespace
 
-// q (M,3) f32, p (N,3) f32, mask (N,) bool -> out (M,) int64. scratch:
-// 2 S M int32 from the caller (the S x M partial minima, then their
-// indices); S segments of seg_len targets cover [0, N).
+// B pairs: q (B,M,3) f32, p (B,N,3) f32, mask (B,N) bool -> out (B,M)
+// int64. scratch: 2 B S M int32 from the caller (the B x S x M partial
+// minima, then their indices); per pair, S segments of seg_len targets
+// cover [0, N).
 UMR_EXPORT int umr_nn1_argmin(const float* q, const float* p,
                               const uint8_t* mask, int32_t* scratch,
-                              int64_t* out, int M, int N, int S, int seg_len,
-                              void* stream) {
+                              int64_t* out, int B, int M, int N, int S,
+                              int seg_len, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || S <= 0 || seg_len <= 0 ||
-      (int64_t)(S - 1) * seg_len >= N || (int64_t)S * seg_len < N)
+  if (B <= 0 || B > 65535 || M <= 0 || N <= 0 || S <= 0 || S > 65535 ||
+      seg_len <= 0 || (int64_t)(S - 1) * seg_len >= N ||
+      (int64_t)S * seg_len < N)
     return static_cast<int>(cudaErrorInvalidValue);
   float* part_d2 = reinterpret_cast<float*>(scratch);
-  int32_t* part_idx = scratch + (int64_t)S * M;
-  const dim3 grid((M + kThreads * kQ - 1) / (kThreads * kQ), S);
+  int32_t* part_idx = scratch + (int64_t)B * S * M;
+  const dim3 grid((M + kThreads * kQ - 1) / (kThreads * kQ), S, B);
   nn1_segment_kernel<<<grid, kThreads, 0, st>>>(q, p, mask, part_d2, part_idx,
                                                 M, N, seg_len);
-  nn1_merge_kernel<<<(M + 31) / 32, 32 * kMergeWarps, 0, st>>>(
+  nn1_merge_kernel<<<dim3((M + 31) / 32, B), 32 * kMergeWarps, 0, st>>>(
       part_d2, part_idx, out, M, S);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,10 @@
 //    reads only the rows that were selected.
 //  - A warp stops sweeping once its count reaches max_nn, which the capped
 //    semantics make exact.
+// Pair axis: a call serves B independent clouds of one shape (grid y of
+// both kernels, per-pair pointer offsets, a packed copy per pair). A
+// keypoint's warp does what it does at B = 1, so each pair's rows are
+// added in the same order and its output has the bits of the B = 1 call.
 // Candidates that were measured on the card and not kept: point tiles
 // shared by the block with no row read between its barriers (the block
 // first fills an in-radius bitmap for its 8 keypoints, then each warp
@@ -83,6 +87,10 @@ __global__ void ume_pack_points_kernel(const float* __restrict__ pts,
                                        const uint8_t* __restrict__ mask,
                                        float* __restrict__ packed, int N,
                                        int P) {
+  const int64_t pair = blockIdx.y;
+  pts += pair * N * 3;
+  mask += pair * N;
+  packed += pair * 3 * P;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= P) return;
   const bool ok = n < N && mask[n] != 0;
@@ -128,6 +136,11 @@ ume_moments_kernel(const float* __restrict__ kpts,
   const int warp = threadIdx.x >> 5;
   const int k = blockIdx.x * kWarps + warp;
   if (k >= M) return;  // whole warps leave; no block-wide barrier follows
+  const int64_t pair = blockIdx.y;
+  kpts += pair * M * 3;
+  packed += pair * 3 * P;
+  Z += pair * N * kCols;
+  out += pair * M * kCols;
   int* q = queue[warp];
   const float kx = kpts[3 * (int64_t)k];
   const float ky = kpts[3 * (int64_t)k + 1];
@@ -194,23 +207,27 @@ ume_moments_kernel(const float* __restrict__ kpts,
 
 }  // namespace
 
-// floats of scratch that umr_ume_moments needs for a cloud of N points
+// floats of scratch that umr_ume_moments needs a pair for a cloud of N
+// points
 UMR_EXPORT int umr_ume_moments_scratch(int N) { return 3 * packed_points(N); }
 
-// kpts (M,3), pts (N,3), Z (N,128) f32, mask (N,) bool -> out (M,128) f32;
-// scratch: umr_ume_moments_scratch(N) floats, overwritten. C4 must be 128
-// (checked by the wrapper; passed for the record).
+// B pairs: kpts (B,M,3), pts (B,N,3), Z (B,N,128) f32, mask (B,N) bool ->
+// out (B,M,128) f32; scratch: B x umr_ume_moments_scratch(N) floats,
+// overwritten. C4 must be 128 (checked by the wrapper; passed for the
+// record).
 UMR_EXPORT int umr_ume_moments(const float* kpts, const float* pts,
                                const float* Z, const uint8_t* mask,
-                               float* out, float* scratch, int M, int N,
-                               int C4, float r2, int max_nn, void* stream) {
-  if (C4 != kCols) return static_cast<int>(cudaErrorInvalidValue);
+                               float* out, float* scratch, int B, int M,
+                               int N, int C4, float r2, int max_nn,
+                               void* stream) {
+  if (C4 != kCols || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int P = packed_points(N);
-  ume_pack_points_kernel<<<(P + 255) / 256, 256, 0, st>>>(pts, mask, scratch,
-                                                          N, P);
+  ume_pack_points_kernel<<<dim3((P + 255) / 256, B), 256, 0, st>>>(
+      pts, mask, scratch, N, P);
   const int blocks = (M + kWarps - 1) / kWarps;
-  ume_moments_kernel<<<blocks, kWarps * 32, 0, st>>>(kpts, scratch, Z, out, M,
-                                                     N, P, r2, max_nn);
+  ume_moments_kernel<<<dim3(blocks, B), kWarps * 32, 0, st>>>(
+      kpts, scratch, Z, out, M, N, P, r2, max_nn);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,14 +20,15 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from umeregrobust_tpu_torch.devices import resolve_device
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, pack_code, sorted_join_rank)
 from umeregrobust_tpu_torch.ops.sparse import (
     WINDOW_PAD, GroupedMap, Level, build_level_maps, code_window_table,
     downsample_coords, group_kernel_map, interface_candidates,
-    invert_map_batch, kernel_offsets, masked_batch_norm, round_to,
-    sort_level, sparse_conv, sparse_conv_grouped, ungroup_kernel_map,
-    window_probe)
+    invert_map_batch, kernel_offsets, masked_batch_norm, matmul_by_pair,
+    round_to, sort_level, sparse_conv, sparse_conv_grouped,
+    ungroup_kernel_map, window_probe)
 
 __all__ = ["ArchSpec", "ARCHS", "CONV_IMPLS", "default_level_capacities",
            "build_unet_geometry", "ResUNet", "init_resunet"]
@@ -289,8 +290,8 @@ def _geometry_generic(levels: List[Level], arch: ArchSpec, ts: List[int]):
 
 
 def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
-                        arch: ArchSpec, capacities: Tuple[int, ...]
-                        ) -> Dict[str, Any]:
+                        arch: ArchSpec, capacities: Tuple[int, ...],
+                        pairs: int = 1) -> Dict[str, Any]:
     """Coordinate pyramid and every kernel map of the UNet: dict with
     levels; enc_maps (per level, the encoder conv map into it; level 0:
     the stem's self map), block_maps (k=3 self maps) and dec_maps (per
@@ -299,7 +300,10 @@ def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
     forward takes (GroupedMap for k=3 layers, the per-tap table for k5/k7
     layers); order0 / inv0 between the caller's row order and level 0's
     sorted order. Voxels beyond |x|, |y| < 512 or |z| < 256 fine units
-    drop out of the neighbour maps (ops/sortmaps.pack_code)."""
+    drop out of the neighbour maps (ops/sortmaps.pack_code). pairs=B > 1:
+    the rows hold the 2B clouds of B pairs (batch index b of pair b // 2)
+    and `capacities` hold per pair: each pair's levels keep the voxels its
+    own pyramid keeps, and level i has B x capacities[i] rows."""
     L = len(arch.channels)
     if len(capacities) != L:
         raise ValueError(f"{L} levels need {L} capacities, got "
@@ -309,7 +313,8 @@ def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
     levels = [level0]
     for i in range(1, L):
         c, m = downsample_coords(levels[i - 1].coords, levels[i - 1].mask,
-                                 out_stride=ts[i], capacity=int(capacities[i]))
+                                 out_stride=ts[i], capacity=int(capacities[i]),
+                                 pairs=pairs)
         levels.append(Level(c, m))
     fast = (all(k == 3 for k in arch.kernel_sizes)
             and all(s in (2, 3) for s in arch.strides[1:]))
@@ -317,16 +322,19 @@ def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
         _geometry_fast if fast else _geometry_generic)(levels, arch, ts)
     return {"levels": levels, "enc_maps": enc_maps, "block_maps": block_maps,
             "dec_maps": dec_maps, "enc_g": enc_g, "block_g": block_g,
-            "dec_g": dec_g, "order0": order0, "inv0": inv0}
+            "dec_g": dec_g, "order0": order0, "inv0": inv0, "pairs": pairs}
 
 
 def _conv(feats: torch.Tensor, w: torch.Tensor, nbr,
-          compute_dtype: torch.dtype) -> torch.Tensor:
+          compute_dtype: torch.dtype, pairs: int = 1) -> torch.Tensor:
     """Dispatch on the map's form: GroupedMap -> grouped-window conv, a
-    plain (K, N_out) table -> per-tap conv."""
+    plain (K, N_out) table -> per-tap conv. pairs=B: every call is made
+    as for one pair's level (a pyramid of B pairs)."""
     if isinstance(nbr, GroupedMap):
-        return sparse_conv_grouped(feats, w, nbr, compute_dtype=compute_dtype)
-    return sparse_conv(feats, w, nbr, compute_dtype=compute_dtype)
+        return sparse_conv_grouped(feats, w, nbr, compute_dtype=compute_dtype,
+                                   pairs=pairs)
+    return sparse_conv(feats, w, nbr, compute_dtype=compute_dtype,
+                       pairs=pairs)
 
 
 class _Conv(nn.Module):
@@ -372,11 +380,12 @@ class _Block(nn.Module):
             self.conv2 = _Conv(27, c, c)
             self.norm2 = _Norm(c)
 
-    def forward(self, x, mask, nbr, compute_dtype):
-        out = self.norm1(_conv(x, self.conv1.w, nbr, compute_dtype), mask)
+    def forward(self, x, mask, nbr, compute_dtype, pairs=1):
+        out = self.norm1(_conv(x, self.conv1.w, nbr, compute_dtype, pairs),
+                         mask)
         if hasattr(self, "conv2"):
             out = self.norm2(_conv(torch.relu(out), self.conv2.w, nbr,
-                                   compute_dtype), mask)
+                                   compute_dtype, pairs), mask)
         return torch.relu(out + x) * mask.to(torch.float32)[:, None]
 
 
@@ -423,9 +432,13 @@ class ResUNet(nn.Module):
     def forward(self, geom: Dict[str, Any], in_feats: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """in_feats (N0, Cin), invalid rows zero -> (N0, out) fp32 unit-
-        norm features in the caller's row order (zero on invalid rows)."""
+        norm features in the caller's row order (zero on invalid rows).
+        A geometry of B pairs (build_unet_geometry pairs=B) runs as one
+        forward whose every dense product is made as for one pair's level,
+        so each pair gets the features its own forward gives it."""
         L = len(self.arch.channels)
         levels = geom["levels"]
+        pairs = geom.get("pairs", 1)
         if self.conv_impl == "grouped":
             enc_m, block_m, dec_m = (geom["enc_g"], geom["block_g"],
                                      geom["dec_g"])
@@ -437,27 +450,27 @@ class ResUNet(nn.Module):
         for i in range(L):
             mask = levels[i].mask
             out = _conv(out, getattr(self, f"conv{i+1}").w, enc_m[i],
-                        compute_dtype)
+                        compute_dtype, pairs)
             out = getattr(self, f"norm{i+1}")(out, mask)
             out = getattr(self, f"block{i+1}")(out, mask, block_m[i],
-                                               compute_dtype)
+                                               compute_dtype, pairs)
             skips.append(out)
             out = torch.relu(out)
         for d in range(L - 1):
             lvl = L - 2 - d
             mask = levels[lvl].mask
             out = _conv(out, getattr(self, f"conv{lvl+1}_tr").w, dec_m[d],
-                        compute_dtype)
+                        compute_dtype, pairs)
             out = getattr(self, f"norm{lvl+1}_tr")(out, mask)
             out = getattr(self, f"block{lvl+1}_tr")(out, mask, block_m[lvl],
-                                                    compute_dtype)
+                                                    compute_dtype, pairs)
             out = torch.cat([torch.relu(out), skips[lvl]], dim=-1)
         mask0 = levels[0].mask.to(torch.float32)[:, None]
-        out = round_to(out, compute_dtype) @ round_to(self.mlp1.w,
-                                                      compute_dtype)
+        out = matmul_by_pair(round_to(out, compute_dtype),
+                             round_to(self.mlp1.w, compute_dtype), pairs)
         out = torch.relu(out)
-        out = round_to(out, compute_dtype) @ round_to(self.final.w,
-                                                      compute_dtype)
+        out = matmul_by_pair(round_to(out, compute_dtype),
+                             round_to(self.final.w, compute_dtype), pairs)
         out = out + self.final.b[None, :]
         out = out / (torch.linalg.vector_norm(out, dim=-1, keepdim=True)
                      + 1e-12)
@@ -472,8 +485,6 @@ def init_resunet(arch: ArchSpec, in_channels: int = 1, out_channels: int = 32,
     weights (std = sqrt(2 / (k_vol * cin))) drawn from `generator` (on
     `device`; default: seed 0), unit scales, zero biases, running mean 0
     and variance 1."""
-    from umeregrobust_tpu_torch.pipeline.e2e import resolve_device
-
     device = resolve_device(device)
     with torch.device(device):
         model = ResUNet(arch, in_channels, out_channels, conv_impl)

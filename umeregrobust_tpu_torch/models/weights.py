@@ -15,6 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from umeregrobust_tpu_torch.devices import resolve_device
 from umeregrobust_tpu_torch.models.resunet import ArchSpec, ResUNet
 
 __all__ = ["load_checkpoint", "params_from_jax", "load_model"]
@@ -52,8 +53,6 @@ def load_model(path: str, arch: ArchSpec, device="cuda", in_channels: int = 1,
     """A ResUNet in eval mode with the checkpoint's weights, on `device`
     (the card unless `device="cpu"`; raises without CUDA) (`conv_impl`:
     see models.resunet.ResUNet)."""
-    from umeregrobust_tpu_torch.pipeline.e2e import resolve_device
-
     device = resolve_device(device)
     blob = load_checkpoint(path)
     model = ResUNet(arch, in_channels, out_channels, conv_impl)

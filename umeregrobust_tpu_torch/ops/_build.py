@@ -34,12 +34,13 @@ _LL = ctypes.c_longlong
 # C signatures: every pointer and the stream are void*, sizes are int
 # (long long where they may pass 2^31)
 _SIGNATURES = {
-    "umr_nn1_argmin": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    "umr_nn1_argmin": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                       _INT, _VP],
     "umr_ume_moments": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                        _FLT, _INT, _VP],
+                        _INT, _FLT, _INT, _VP],
     "umr_ume_moments_scratch": [_INT],
     "umr_corr_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                        _INT, _INT, _FLT, _FLT, _VP],
+                        _INT, _INT, _INT, _FLT, _FLT, _VP],
     "umr_gather_rows": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
                         _VP],
     "umr_sparse_conv_rowtile": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,

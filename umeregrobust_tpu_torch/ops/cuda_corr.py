@@ -4,7 +4,9 @@ umeregrobust_tpu/ops/pallas_corr.py, same Python signature).
 
 score_h = sum_i sum_j 1[d2 <= (rf sigma)^2] / (1 + d2 / sigma^2) <f_i, g_j>,
 d2 = |pts_t[h, i] - q_j|^2 from direct differences in fp32. Invalid rows
-must carry zero features. On a CPU tensor the wrapper runs the plain
+must carry zero features. A leading pair axis (B pairs of one shape) is
+optional and costs no extra launch; each pair keeps its B = 1 plan
+(`launch_plan`), so its scores have the same bits. On a CPU tensor the wrapper runs the plain
 version; on a CUDA tensor it launches the kernel or raises.
 
 The kernel computes <f_i, g_j> only for the (warp of 32 source rows,
@@ -16,6 +18,7 @@ longer than it saves at every stage's shape: PERF.md, section 6).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -55,33 +58,38 @@ def corr_scores_plain(pts_t: torch.Tensor, src_featw: torch.Tensor,
                       tgt_pts4: torch.Tensor, tgt_featw: torch.Tensor,
                       sigma: float = 1.5, radius_factor: float = 2.0,
                       max_elems: int = 1 << 22) -> torch.Tensor:
-    """(H,) scores; hypotheses chunked so each (h, i, j) block holds at
-    most max_elems entries."""
+    """([B,] H) scores; hypotheses chunked so each (h, i, j) block holds
+    at most max_elems entries."""
     inv_s2, r2 = (c.to(pts_t.device) for c in _constants(sigma, radius_factor))
-    H, S, _ = pts_t.shape
-    T = tgt_pts4.shape[0]
-    G = src_featw.to(torch.float32) @ tgt_featw.to(torch.float32).T  # (S, T)
-    q = tgt_pts4[:, :3].to(torch.float32)
-    hc = max(1, max_elems // max(S * T, 1))
+    H, S = pts_t.shape[-3:-1]
+    T = tgt_pts4.shape[-2]
+    G = src_featw.to(torch.float32) @ tgt_featw.to(torch.float32).transpose(
+        -1, -2)  # ([B,] S, T)
+    q = tgt_pts4[..., None, :, :3].to(torch.float32)
+    B = math.prod(pts_t.shape[:-3])
+    hc = max(1, max_elems // max(B * S * T, 1))
     out = []
     for h0 in range(0, H, hc):
-        d2 = sqdist3(pts_t[h0:h0 + hc, :, :3].to(torch.float32), q)
+        d2 = sqdist3(pts_t[..., h0:h0 + hc, :, :3].to(torch.float32), q)
         w = torch.where(d2 <= r2, 1.0 / (1.0 + d2 * inv_s2),
                         torch.zeros_like(d2))
-        out.append(torch.sum(w * G, dim=(1, 2)))
+        out.append(torch.sum(w * G[..., None, :, :], dim=(-2, -1)))
     if not out:
-        return torch.zeros(0, dtype=torch.float32, device=pts_t.device)
-    return torch.cat(out)
+        return torch.zeros(pts_t.shape[:-2], dtype=torch.float32,
+                           device=pts_t.device)
+    return torch.cat(out, dim=-1)
 
 
 def corr_scores_fused(pts_t: torch.Tensor, src_featw: torch.Tensor,
                       tgt_pts4: torch.Tensor, tgt_featw: torch.Tensor,
                       sigma: float = 1.5, radius_factor: float = 2.0,
                       ts: int = 256, tt: int = 512) -> torch.Tensor:
-    """Radius-capped Cauchy correlation scores (H,). pts_t (H, S, 4)
-    transformed source points (4th column ignored), src_featw (S, C),
-    tgt_pts4 (T, 4), tgt_featw (T, C) f32, C = 32 on CUDA; coordinates
-    finite. `ts`/`tt` are the TPU kernel's tile sizes, kept for signature
+    """Radius-capped Cauchy correlation scores ([B,] H). pts_t ([B,] H,
+    S, 4) transformed source points (4th column ignored), src_featw ([B,]
+    S, C), tgt_pts4 ([B,] T, 4), tgt_featw ([B,] T, C) f32, C = 32 on
+    CUDA; coordinates finite. With a leading pair axis B, pair b's
+    hypotheses are scored against pair b's targets, all pairs in one
+    launch. `ts`/`tt` are the TPU kernel's tile sizes, kept for signature
     parity: the CUDA kernel tiles on its own and takes any S and T."""
     global LAUNCHES
     if pts_t.device.type == "cpu":
@@ -91,26 +99,32 @@ def corr_scores_fused(pts_t: torch.Tensor, src_featw: torch.Tensor,
     lib = _build.load_library()  # raises if it cannot be built
     if dev.type != "cuda":
         raise ValueError(f"corr_scores_fused runs on CUDA or CPU tensors, not {dev}")
-    H, S, _ = pts_t.shape
-    T = tgt_pts4.shape[0]
-    _build.require(pts_t, "pts_t", torch.float32, (None, None, 4), dev)
-    _build.require(src_featw, "src_featw", torch.float32, (S, 32), dev)
-    _build.require(tgt_pts4, "tgt_pts4", torch.float32, (None, 4), dev)
-    _build.require(tgt_featw, "tgt_featw", torch.float32, (T, 32), dev)
+    lead = tuple(pts_t.shape[:-3])
+    if len(lead) > 1:
+        raise ValueError("corr_scores_fused takes at most one leading pair "
+                         f"axis, got pts_t of shape {tuple(pts_t.shape)}")
+    B = lead[0] if lead else 1
+    H, S = pts_t.shape[-3:-1]
+    T = tgt_pts4.shape[-2]
+    _build.require(pts_t, "pts_t", torch.float32, lead + (None, None, 4), dev)
+    _build.require(src_featw, "src_featw", torch.float32, lead + (S, 32), dev)
+    _build.require(tgt_pts4, "tgt_pts4", torch.float32, lead + (None, 4), dev)
+    _build.require(tgt_featw, "tgt_featw", torch.float32, lead + (T, 32), dev)
     for name, x in (("pts_t", pts_t), ("src_featw", src_featw),
                     ("tgt_pts4", tgt_pts4), ("tgt_featw", tgt_featw)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: expected 16-byte aligned rows")
-    if H == 0 or S == 0 or T == 0:  # nothing to launch
-        return torch.zeros(H, dtype=torch.float32, device=dev)
+    if B == 0 or H == 0 or S == 0 or T == 0:  # nothing to launch
+        return torch.zeros(lead + (H,), dtype=torch.float32, device=dev)
     n_src, n_seg = launch_plan(H, S, T)
-    out = torch.empty(H, dtype=torch.float32, device=dev)
-    partial = torch.empty((H, n_src, n_seg), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (H,), dtype=torch.float32, device=dev)
+    partial = torch.empty((B, H, n_src, n_seg), dtype=torch.float32,
+                          device=dev)
     inv_s2, r2 = _constants(sigma, radius_factor)
     code = lib.umr_corr_scores(
         pts_t.data_ptr(), src_featw.data_ptr(), tgt_pts4.data_ptr(),
-        tgt_featw.data_ptr(), partial.data_ptr(), out.data_ptr(), H, S, T,
-        32, int(n_seg > 1), float(inv_s2), float(r2), _build.stream_of(dev))
+        tgt_featw.data_ptr(), partial.data_ptr(), out.data_ptr(), B, H, S,
+        T, 32, int(n_seg > 1), float(inv_s2), float(r2), _build.stream_of(dev))
     _build.check(lib, code, "corr_scores_fused")
     LAUNCHES += 1
     return out

@@ -3,9 +3,10 @@ its plain PyTorch version (port of umeregrobust_tpu/ops/pallas_nn.py).
 
 For each query, the index of the nearest valid reference point from
 direct squared differences summed over c = 0, 1, 2; ties go to the first
-index; masked rows are parked at 1e9 and never win. On a CPU tensor the
-wrapper runs the plain version; on a CUDA tensor it launches the kernel
-or raises.
+index; masked rows are parked at 1e9 and never win. A leading pair axis
+(B problems of one shape) is optional and costs no extra launch. On a CPU
+tensor the wrapper runs the plain version; on a CUDA tensor it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -33,24 +34,25 @@ _FAR = 1e9
 
 def nn1_argmin_plain(queries: torch.Tensor, points: torch.Tensor,
                      p_mask: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """(M,) int64 index of the nearest valid point, in the kernel's
+    """([B,] M) int64 index of the nearest valid point, in the kernel's
     arithmetic (one rounding per operation, first index on ties)."""
-    p = torch.where(p_mask[:, None], points.to(torch.float32),
+    p = torch.where(p_mask[..., None], points.to(torch.float32),
                     torch.full_like(points, _FAR, dtype=torch.float32))
     q = queries.to(torch.float32)
     out = []
-    for s in range(0, q.shape[0], chunk):
-        out.append(torch.argmin(sqdist3(q[s:s + chunk], p), dim=1))
-    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int64,
-                                                  device=q.device)
+    for s in range(0, q.shape[-2], chunk):
+        out.append(torch.argmin(sqdist3(q[..., s:s + chunk, :], p), dim=-1))
+    return torch.cat(out, dim=-1) if out else torch.zeros(
+        q.shape[:-1], dtype=torch.int64, device=q.device)
 
 
-def launch_plan(M: int, N: int, sms: int) -> Tuple[int, int, int]:
-    """(query tiles, segments S, segment length) of one call: the targets
-    are cut into S segments of whole steps so that query tiles x S is
-    about two blocks on each of `sms` SMs."""
+def launch_plan(M: int, N: int, sms: int, B: int = 1
+                ) -> Tuple[int, int, int]:
+    """(query tiles, segments S, segment length) of one call over B pairs:
+    each pair's targets are cut into S segments of whole steps so that B x
+    query tiles x S is about two blocks on each of `sms` SMs."""
     tiles = max(1, -(-M // QUERIES_PER_BLOCK))
-    S = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), -(-N // STEP)))
+    S = max(1, min(-(-_BLOCKS_PER_SM * sms // (tiles * B)), -(-N // STEP)))
     seg = -(-N // S)
     seg = -(-seg // STEP) * STEP
     return tiles, -(-N // seg), seg
@@ -58,8 +60,10 @@ def launch_plan(M: int, N: int, sms: int) -> Tuple[int, int, int]:
 
 def nn1_argmin(queries: torch.Tensor, points: torch.Tensor,
                p_mask: torch.Tensor) -> torch.Tensor:
-    """Index of the nearest valid reference point per query: (M,) int64.
-    queries (M, 3) f32, points (N, 3) f32, p_mask (N,) bool."""
+    """Index of the nearest valid reference point per query: ([B,] M)
+    int64. queries ([B,] M, 3) f32, points ([B,] N, 3) f32, p_mask ([B,] N)
+    bool; with a leading pair axis B, pair b's queries search pair b's
+    points, all pairs in one launch."""
     global LAUNCHES
     if queries.device.type == "cpu":
         return nn1_argmin_plain(queries, points, p_mask)
@@ -67,23 +71,29 @@ def nn1_argmin(queries: torch.Tensor, points: torch.Tensor,
     lib = _build.load_library()  # cached; raises if it cannot be built
     if dev.type != "cuda":
         raise ValueError(f"nn1_argmin runs on CUDA or CPU tensors, not {dev}")
-    M, N = queries.shape[0], points.shape[0]
-    _build.require(queries, "queries", torch.float32, (None, 3), dev)
-    _build.require(points, "points", torch.float32, (None, 3), dev)
-    _build.require(p_mask, "p_mask", torch.bool, (N,), dev)
-    if N == 0 or max(M, N) >= 2 ** 31:
-        raise ValueError(f"nn1_argmin takes 1 <= N < 2^31 reference points "
-                         f"and M < 2^31 queries, got M={M}, N={N}")
-    out = torch.empty(M, dtype=torch.int64, device=dev)
+    lead = tuple(queries.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("nn1_argmin takes at most one leading pair axis, "
+                         f"got queries of shape {tuple(queries.shape)}")
+    B = lead[0] if lead else 1
+    M, N = queries.shape[-2], points.shape[-2]
+    _build.require(queries, "queries", torch.float32, lead + (None, 3), dev)
+    _build.require(points, "points", torch.float32, lead + (None, 3), dev)
+    _build.require(p_mask, "p_mask", torch.bool, lead + (N,), dev)
+    if N == 0 or max(M, N) >= 2 ** 31 or not 1 <= B <= 65535:
+        raise ValueError(f"nn1_argmin takes 1 <= N < 2^31 reference points, "
+                         f"M < 2^31 queries and 1 <= B <= 65535 pairs, got "
+                         f"M={M}, N={N}, B={B}")
+    out = torch.empty(lead + (M,), dtype=torch.int64, device=dev)
     if M == 0:
         return out
     # get_device_properties reads the device once and keeps it
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, S, seg = launch_plan(M, N, sms)
-    scratch = torch.empty(2 * S * M, dtype=torch.int32, device=dev)
+    _, S, seg = launch_plan(M, N, sms, B)
+    scratch = torch.empty(2 * B * S * M, dtype=torch.int32, device=dev)
     code = lib.umr_nn1_argmin(
         queries.data_ptr(), points.data_ptr(), p_mask.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), M, N, S, seg,
+        scratch.data_ptr(), out.data_ptr(), B, M, N, S, seg,
         _build.stream_of(dev))
     _build.check(lib, code, "nn1_argmin")
     LAUNCHES += 1

@@ -28,28 +28,30 @@ def _r2(radius: float) -> torch.Tensor:
 def ume_moments_plain(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
                       p_mask: torch.Tensor, radius: float, max_nn: int,
                       chunk: int = 256) -> torch.Tensor:
-    """(M, 4C) fp32 capped moments, chunked over keypoints."""
+    """([B,] M, 4C) fp32 capped moments, chunked over keypoints."""
     r2 = _r2(radius).to(pts.device)
     pts = pts.to(torch.float32)
     Z = Z.to(torch.float32)
     out = []
-    for s in range(0, kpts.shape[0], chunk):
-        ok = (sqdist3(kpts[s:s + chunk].to(torch.float32), pts) <= r2) \
-            & p_mask[None, :]
-        cum = torch.cumsum(ok.to(torch.int32), dim=1)
+    for s in range(0, kpts.shape[-2], chunk):
+        ok = (sqdist3(kpts[..., s:s + chunk, :].to(torch.float32), pts)
+              <= r2) & p_mask[..., None, :]
+        cum = torch.cumsum(ok.to(torch.int32), dim=-1)
         w = (ok & (cum <= max_nn)).to(torch.float32)
         out.append(w @ Z)
     if not out:
-        return torch.zeros((0, Z.shape[1]), dtype=torch.float32,
-                           device=Z.device)
-    return torch.cat(out)
+        return torch.zeros(kpts.shape[:-2] + (0, Z.shape[-1]),
+                           dtype=torch.float32, device=Z.device)
+    return torch.cat(out, dim=-2)
 
 
 def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
                       p_mask: torch.Tensor, radius: float,
                       max_nn: int) -> torch.Tensor:
-    """Capped UME moments (M, 4C) f32 with 4C = 128. kpts (M, 3) f32,
-    pts (N, 3) f32, Z (N, 4C) f32, p_mask (N,) bool."""
+    """Capped UME moments ([B,] M, 4C) f32 with 4C = 128. kpts ([B,] M, 3)
+    f32, pts ([B,] N, 3) f32, Z ([B,] N, 4C) f32, p_mask ([B,] N) bool;
+    with a leading pair axis B, pair b's keypoints see pair b's points, all
+    pairs in one launch."""
     global LAUNCHES
     if kpts.device.type == "cpu":
         return ume_moments_plain(kpts, pts, Z, p_mask, radius, max_nn)
@@ -57,19 +59,24 @@ def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
     lib = _build.load_library()  # raises if it cannot be built
     if dev.type != "cuda":
         raise ValueError(f"ume_moments_fused runs on CUDA or CPU tensors, not {dev}")
-    M, N = kpts.shape[0], pts.shape[0]
-    _build.require(kpts, "kpts", torch.float32, (None, 3), dev)
-    _build.require(pts, "pts", torch.float32, (None, 3), dev)
-    _build.require(Z, "Z", torch.float32, (N, 128), dev)
-    _build.require(p_mask, "p_mask", torch.bool, (N,), dev)
-    out = torch.empty((M, 128), dtype=torch.float32, device=dev)
-    if M == 0:
+    lead = tuple(kpts.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("ume_moments_fused takes at most one leading pair "
+                         f"axis, got kpts of shape {tuple(kpts.shape)}")
+    B = lead[0] if lead else 1
+    M, N = kpts.shape[-2], pts.shape[-2]
+    _build.require(kpts, "kpts", torch.float32, lead + (None, 3), dev)
+    _build.require(pts, "pts", torch.float32, lead + (None, 3), dev)
+    _build.require(Z, "Z", torch.float32, lead + (N, 128), dev)
+    _build.require(p_mask, "p_mask", torch.bool, lead + (N,), dev)
+    out = torch.empty(lead + (M, 128), dtype=torch.float32, device=dev)
+    if M == 0 or B == 0:
         return out
-    scratch = torch.empty((lib.umr_ume_moments_scratch(N),),
+    scratch = torch.empty((B * lib.umr_ume_moments_scratch(N),),
                           dtype=torch.float32, device=dev)
     code = lib.umr_ume_moments(
         kpts.data_ptr(), pts.data_ptr(), Z.data_ptr(), p_mask.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), M, N, 128,
+        out.data_ptr(), scratch.data_ptr(), B, M, N, 128,
         float(radius) ** 2,  # rounded to fp32 in the call, as _r2 rounds it
         int(max_nn), _build.stream_of(dev))
     _build.check(lib, code, "ume_moments_fused")

@@ -9,18 +9,21 @@ import torch
 from umeregrobust_tpu_torch.ops.cuda_gather import (
     gather_rows, gather_rows_plain)
 
-__all__ = ["pairwise_sqdist", "sqdist3", "knn", "gather_padded", "topk_stable"]
+__all__ = ["pairwise_sqdist", "sqdist3", "knn", "gather_padded", "topk_stable",
+           "take_rows"]
 
 _BIG = 1e30
 
 
 def pairwise_sqdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(M, N) squared distances as |q|^2 + |p|^2 - 2 q.p, clamped at 0."""
+    """([B,] M, N) squared distances as |q|^2 + |p|^2 - 2 q.p, clamped at
+    0 (q ([B,] M, 3), p ([B,] N, 3))."""
     q = q.to(torch.float32)
     p = p.to(torch.float32)
     qq = torch.sum(q * q, dim=-1)
     pp = torch.sum(p * p, dim=-1)
-    return torch.clamp(qq[:, None] + pp[None, :] - 2.0 * (q @ p.T), min=0.0)
+    return torch.clamp(qq[..., :, None] + pp[..., None, :]
+                       - 2.0 * (q @ p.transpose(-1, -2)), min=0.0)
 
 
 def sqdist3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,6 +37,19 @@ def sqdist3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d2 = d2 + d * d
     d = a[..., :, None, 2] - b[..., None, :, 2]
     return d2 + d * d
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx, :] per leading index: x (*L, N, *R), idx (*L, K) int64
+    in [0, N) -> (*L, K, *R) (plain indexing when L is empty, else one
+    gather)."""
+    lead = idx.shape[:-1]
+    if not lead:
+        return x[idx]
+    rest = tuple(x.shape[len(lead) + 1:])
+    full = idx.reshape(tuple(idx.shape) + (1,) * len(rest)).expand(
+        tuple(idx.shape) + rest)
+    return torch.gather(x, len(lead), full)
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,26 +67,39 @@ def knn(
     p_mask: Optional[torch.Tensor] = None,
     chunk: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K nearest neighbors sorted ascending: (dists (M, K), idx (M, K) int64).
-    Invalid points sit at +1e30 squared distance."""
+    """K nearest neighbors sorted ascending: (dists ([B,] M, K), idx ([B,]
+    M, K) int64), over an optional leading pair axis. Invalid points sit at
+    +1e30 squared distance."""
     ds, ids = [], []
-    for s in range(0, query.shape[0], chunk):
-        d2 = pairwise_sqdist(query[s:s + chunk], points)
+    for s in range(0, query.shape[-2], chunk):
+        d2 = pairwise_sqdist(query[..., s:s + chunk, :], points)
         if p_mask is not None:
-            d2 = torch.where(p_mask[None, :], d2, torch.full_like(d2, _BIG))
+            d2 = torch.where(p_mask[..., None, :], d2,
+                             torch.full_like(d2, _BIG))
         neg, idx = topk_stable(-d2, K)
         ds.append(-neg)
         ids.append(idx)
-    d = torch.sqrt(torch.clamp(torch.cat(ds), min=0.0))
+    d = torch.sqrt(torch.clamp(torch.cat(ds, dim=-2), min=0.0))
     if q_mask is not None:
-        d = torch.where(q_mask[:, None], d, torch.full_like(d, _BIG))
-    return d, torch.cat(ids)
+        d = torch.where(q_mask[..., None], d, torch.full_like(d, _BIG))
+    return d, torch.cat(ids, dim=-2)
 
 
 def gather_padded(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """Rows of x (N, C) by idx (..., K); idx == -1 yields fill rows. A CPU
-    tensor takes the plain version; a CUDA fp32 or bf16 table with fill 0
-    goes through the gather_rows kernel; any other CUDA input raises."""
+    """Rows of x (N, C) by idx (..., K); idx == -1 yields fill rows. With a
+    leading pair axis, x (B, N, C) and idx (B, ..., K) take pair b's rows
+    for pair b's indices, as one gather over the flattened (B N, C) table.
+    A CPU tensor takes the plain version; a CUDA fp32 or bf16 table with
+    fill 0 goes through the gather_rows kernel; any other CUDA input
+    raises."""
+    if x.dim() == 3:
+        B, N = x.shape[:2]
+        if B > 1:  # one pair's indices need no offset (>= N gives fill)
+            base = (torch.arange(B, device=idx.device) * N).reshape(
+                (B,) + (1,) * (idx.dim() - 1))
+            idx = torch.where((idx >= 0) & (idx < N), idx + base,
+                              torch.full_like(idx, -1))
+        x = x.reshape(B * N, x.shape[2])
     if x.device.type == "cpu":
         return gather_rows_plain(x, idx, fill)
     if fill != 0.0 or x.dim() != 2:

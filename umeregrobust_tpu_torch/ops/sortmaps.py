@@ -3,11 +3,13 @@
 
 A (b, x, y, z) voxel packs into one code
     (b << 29) | ((x + 512) << 19) | ((y + 512) << 9) | (z + 256),
-valid for b <= 2, |x|, |y| < 512 and |z| < 256 fine-voxel units; rows
-outside that range, and invalid rows, take a sentinel that sorts after
-every valid code. Codes are int64 here (the same values as the JAX
-package's int32 codes; int64 keeps the packing of out-of-range rows from
-overflowing before they are replaced by the sentinel).
+valid for 0 <= b < MAX_CLOUDS, |x|, |y| < 512 and |z| < 256 fine-voxel
+units; rows outside that range, and invalid rows, take a sentinel that
+sorts after every valid code. Codes are int64 here: the same values as the
+JAX package's int32 codes for b <= 2, and room for the 2B clouds of a
+batch of B pairs in one pyramid (the JAX package's int32 codes stop at
+b = 2, one pair). The sentinels keep the JAX package's low 31 bits under
+a high bit above every valid code.
 
 Joins are a `torch.sort` (where the keys are not sorted yet) plus one
 `torch.searchsorted`; the results are integer rows, equal to the JAX
@@ -19,10 +21,12 @@ import torch
 
 __all__ = ["KEY_SENTINEL", "QUERY_SENTINEL", "pack_code", "sorted_join_rank",
            "sorted_join_code", "pack_coords", "batched_sorted_lookup",
-           "COMPACT_BX", "COMPACT_BZ"]
+           "COMPACT_BX", "COMPACT_BZ", "MAX_CLOUDS", "SENTINEL_HIGH"]
 
-KEY_SENTINEL = 0x7FFFFFF0
-QUERY_SENTINEL = 0x7FFFFF00
+MAX_CLOUDS = 1 << 24  # batch indices a code holds (b < MAX_CLOUDS)
+SENTINEL_HIGH = 1 << 56  # above every valid code (< MAX_CLOUDS << 29)
+KEY_SENTINEL = SENTINEL_HIGH | 0x7FFFFFF0
+QUERY_SENTINEL = SENTINEL_HIGH | 0x7FFFFF00
 COMPACT_BX = 512
 COMPACT_BZ = 256
 
@@ -32,7 +36,7 @@ def pack_code(c: torch.Tensor, valid: torch.Tensor, sentinel: int) -> torch.Tens
     rows -> sentinel."""
     c = c.to(torch.int64)
     b, x, y, z = c[..., 0], c[..., 1], c[..., 2], c[..., 3]
-    ok = (valid & (b >= 0) & (b <= 2)
+    ok = (valid & (b >= 0) & (b < MAX_CLOUDS)
           & (x >= -COMPACT_BX) & (x < COMPACT_BX)
           & (y >= -COMPACT_BX) & (y < COMPACT_BX)
           & (z >= -COMPACT_BZ) & (z < COMPACT_BZ))
@@ -64,14 +68,14 @@ def sorted_join_code(key_code: torch.Tensor, q_code: torch.Tensor) -> torch.Tens
 def pack_coords(c: torch.Tensor, valid: torch.Tensor, sentinel: int) -> torch.Tensor:
     """(..., 4) int coords -> (...) int64 wide code, the JAX package's
     (hi, lo) word pair in one word: b < 127, |x| < 2^23, |y|, |z| < 2^15;
-    invalid rows -> the sentinel in both halves."""
+    invalid rows -> the sentinel's low 32 bits in both halves."""
     c = c.to(torch.int64)
     hi = (c[..., 0] << 24) | ((c[..., 1] + (1 << 23)) & 0xFFFFFF)
     lo = (((c[..., 2] + (1 << 15)) & 0xFFFF) << 16) | (
         (c[..., 3] + (1 << 15)) & 0xFFFF)
     code = (hi << 32) | lo
-    return torch.where(valid, code, torch.full_like(
-        code, (sentinel << 32) | sentinel))
+    low = sentinel & 0xFFFFFFFF
+    return torch.where(valid, code, torch.full_like(code, (low << 32) | low))
 
 
 def batched_sorted_lookup(key_coords: torch.Tensor, key_mask: torch.Tensor,

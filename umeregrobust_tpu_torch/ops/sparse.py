@@ -22,8 +22,8 @@ import torch
 from umeregrobust_tpu_torch.ops.cuda_conv import (
     choose_kernel, round_to, sparse_conv_rowtile, sparse_conv_tapsplit)
 from umeregrobust_tpu_torch.ops.sortmaps import (
-    KEY_SENTINEL, QUERY_SENTINEL, batched_sorted_lookup, pack_code,
-    sorted_join_code)
+    KEY_SENTINEL, QUERY_SENTINEL, SENTINEL_HIGH, batched_sorted_lookup,
+    pack_code, sorted_join_code)
 
 __all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
            "sort_level", "downsample_coords", "kernel_offsets",
@@ -31,11 +31,11 @@ __all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
            "build_level_maps", "interface_candidates", "invert_map_batch",
            "code_window_table", "window_probe", "group_kernel_map",
            "ungroup_kernel_map", "sparse_conv", "sparse_conv_grouped",
-           "masked_batch_norm", "round_to"]
+           "masked_batch_norm", "round_to", "matmul_by_pair"]
 
 # window-table pad word: above every valid code, distinct from both
 # sentinels and their +-stride neighbourhoods
-WINDOW_PAD = 0x7F000001
+WINDOW_PAD = SENTINEL_HIGH | 0x7F000001
 
 
 class Level(NamedTuple):
@@ -55,10 +55,13 @@ def sort_level(coords: torch.Tensor, mask: torch.Tensor
 
 
 def downsample_coords(coords: torch.Tensor, mask: torch.Tensor,
-                      out_stride: int, capacity: int
+                      out_stride: int, capacity: int, pairs: int = 1
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """unique(floor(c / s) * s) in code-sorted order with a valid prefix,
-    padded to `capacity` (overflow beyond it is dropped)."""
+    padded to `capacity` (overflow beyond it is dropped). pairs=B > 1: the
+    rows hold the 2B clouds of B pairs (batch index b of pair b // 2), each
+    pair keeps at most `capacity` voxels (its lowest codes, as alone), and
+    the level has B x capacity rows with one valid prefix."""
     s = int(out_stride)
     q = torch.cat([coords[:, :1], torch.div(coords[:, 1:], s,
                                             rounding_mode="floor") * s], -1)
@@ -69,12 +72,23 @@ def downsample_coords(coords: torch.Tensor, mask: torch.Tensor,
     first[1:] = code_s[1:] != code_s[:-1]
     first = first & valid_s
     pos = torch.cumsum(first.to(torch.int64), 0) - 1
-    n_unique = int(first.sum())
-    take = first & (pos < capacity)
-    out = torch.zeros((capacity, 4), dtype=coords.dtype, device=coords.device)
+    if pairs == 1:
+        take = first & (pos < capacity)
+        n_keep = torch.clamp(torch.sum(first), max=capacity)
+    else:  # rank within the pair; pairs are contiguous in code order
+        pair = torch.clamp(q[row_s, 0].to(torch.int64) // 2, 0, pairs - 1)
+        n_pair = torch.zeros(pairs, dtype=torch.int64,
+                             device=coords.device).index_add_(
+            0, pair, first.to(torch.int64))
+        rank = pos - (torch.cumsum(n_pair, 0) - n_pair)[pair]
+        keep = torch.clamp(n_pair, max=capacity)
+        pos = (torch.cumsum(keep, 0) - keep)[pair] + rank
+        take = first & (rank < capacity)
+        n_keep = torch.sum(keep)
+    out = torch.zeros((pairs * capacity, 4), dtype=coords.dtype,
+                      device=coords.device)
     out[pos[take]] = q[row_s[take]]
-    out_mask = torch.arange(capacity, device=coords.device) < min(n_unique,
-                                                                  capacity)
+    out_mask = torch.arange(pairs * capacity, device=coords.device) < n_keep
     return out, out_mask
 
 
@@ -274,17 +288,36 @@ def ungroup_kernel_map(gmap: GroupedMap) -> torch.Tensor:
     return g.reshape(27, g.shape[-1])
 
 
+def matmul_by_pair(x: torch.Tensor, w: torch.Tensor,
+                   pairs: int = 1) -> torch.Tensor:
+    """x (N, K) @ w (K, C) as `pairs` matmuls over equal row blocks: each
+    block is the call a one-pair run makes (the same shapes), so its rows
+    get that run's bits, where one matmul over all rows may take another
+    cuBLAS kernel and round otherwise."""
+    if pairs == 1:
+        return x @ w
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for xb, ob in zip(x.chunk(pairs), out.chunk(pairs)):
+        torch.mm(xb, w, out=ob)
+    return out
+
+
 def sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
                 nbr_map: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32,
+                pairs: int = 1) -> torch.Tensor:
     """Sparse conv over a per-tap map. feats (N_in, Cin), invalid rows
     zero; weights (K_vol, Cin, Cout); nbr_map (K_vol, N_out) rows into
     feats, -1 absent; optional bias (Cout,). Returns (N_out, Cout) fp32.
     Operands are rounded to compute_dtype, products summed in fp32. A CUDA
     tensor goes to one of the two hand-written kernels, picked by
     `choose_kernel` from the shapes alone; a CPU tensor takes their plain
-    per-tap loop."""
-    kernel, _ = choose_kernel(nbr_map.shape[1], weights.shape[2],
+    per-tap loop. pairs=B: the rows are B pairs' levels, and the kernel is
+    the one a pair's level alone takes (with bf16 operands a row's sums
+    then do not depend on the batch; the fp32 FMA tile's tap segments do,
+    in the last bits)."""
+    kernel, _ = choose_kernel(nbr_map.shape[1] // pairs, weights.shape[2],
                               weights.shape[0])
     conv = sparse_conv_rowtile if kernel == "rowtile" else sparse_conv_tapsplit
     out = conv(feats.to(torch.float32).contiguous(), weights.contiguous(),
@@ -297,12 +330,14 @@ def sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
 def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
                         gmap: GroupedMap,
                         bias: Optional[torch.Tensor] = None,
-                        compute_dtype: torch.dtype = torch.float32
-                        ) -> torch.Tensor:
+                        compute_dtype: torch.dtype = torch.float32,
+                        pairs: int = 1) -> torch.Tensor:
     """Sparse k=3 conv with grouped window gathers. feats (N_in, Cin),
     invalid rows zero; weights (27, Cin, Cout); optional bias (Cout,).
     Returns (N_out, Cout) fp32.
-    Operands are rounded to compute_dtype, products summed in fp32."""
+    Operands are rounded to compute_dtype, products summed in fp32.
+    pairs=B: the output rows are B equal blocks (pairs' levels), each
+    block's products one matmul (`matmul_by_pair`)."""
     _, Cin, Cout = weights.shape
     G, _, N_out = gmap.masks.shape
     N_in = feats.shape[0]
@@ -321,7 +356,7 @@ def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
         masked = wide * gmap.masks[g].T[:, :, None].to(f.dtype)
         mid = masked[:, 2] + wide[:, 1] * gmap.patho[g][:, None].to(f.dtype)
         x3 = torch.cat([masked[:, 0], masked[:, 1], mid], dim=1)
-        out = out + x3 @ w3[g].reshape(3 * Cin, Cout)
+        out = out + matmul_by_pair(x3, w3[g].reshape(3 * Cin, Cout), pairs)
     if bias is not None:
         out = out + bias.to(torch.float32)[None, :]
     return out

@@ -1,17 +1,20 @@
-"""UME subspace-distance matching (port of the argmin and probabilistic-
-filter parts of umeregrobust_tpu/pipeline/matching.py; the Hungarian
-path is not ported yet)."""
+"""UME subspace-distance matching (port of
+umeregrobust_tpu/pipeline/matching.py): the argmin matcher, the
+probabilistic match filter, and the Hungarian assignment of the parity
+path. The device functions take an optional leading pair axis."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from umeregrobust_tpu_torch.core.ume import projection_packed
-from umeregrobust_tpu_torch.pipeline.sampling import weighted_sample
+from umeregrobust_tpu_torch.pipeline.sampling import weighted_sample_batched
 
-__all__ = ["argmin_match", "probabilistic_match_filter"]
+__all__ = ["argmin_match", "probabilistic_match_filter_batched",
+           "hungarian_match"]
 
 
 def argmin_match(
@@ -22,42 +25,54 @@ def argmin_match(
     chunk: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per source keypoint, the target minimizing the subspace distance and
-    that distance: (m (M,) int64, -1 on invalid sources; d (M,) f32, 1e6 on
-    invalid sources). The cross term runs in full fp32 (the JAX package
-    uses Precision.HIGH, 3 bf16 passes, on the TPU)."""
+    that distance: (m ([B,] M) int64, -1 on invalid sources; d ([B,] M) f32,
+    1e6 on invalid sources), over an optional leading pair axis (one
+    batched product a chunk). The cross term runs in full fp32 (the JAX
+    package uses Precision.HIGH, 3 bf16 passes, on the TPU)."""
     A = projection_packed(ume_src)
     B = projection_packed(ume_tgt)
     sq1 = torch.sum(A * A, dim=-1)
     sq2 = torch.sum(B * B, dim=-1)
     if tgt_mask is not None:
         sq2 = torch.where(tgt_mask, sq2, torch.full_like(sq2, 1e30))
+    Bt = B.transpose(-1, -2)
     ms, ds = [], []
-    for s in range(0, A.shape[0], chunk):
-        dist2 = sq1[s:s + chunk, None] + sq2[None, :] - 2.0 * (
-            A[s:s + chunk] @ B.T)
+    for s in range(0, A.shape[-2], chunk):
+        dist2 = sq1[..., s:s + chunk, None] + sq2[..., None, :] - 2.0 * (
+            A[..., s:s + chunk, :] @ Bt)
         j = torch.argmin(dist2, dim=-1)
         ms.append(j)
-        ds.append(torch.gather(dist2, 1, j[:, None])[:, 0])
-    m = torch.cat(ms)
-    d = torch.sqrt(torch.clamp(torch.cat(ds), min=0.0)) / math.sqrt(2.0)
+        ds.append(torch.gather(dist2, -1, j[..., None])[..., 0])
+    m = torch.cat(ms, dim=-1)
+    d = torch.sqrt(torch.clamp(torch.cat(ds, dim=-1), min=0.0)) / math.sqrt(
+        2.0)
     if src_mask is not None:
         m = torch.where(src_mask, m, torch.full_like(m, -1))
         d = torch.where(src_mask, d, torch.full_like(d, 1e6))
     return m, d
 
 
-def probabilistic_match_filter(
-    match_dist: torch.Tensor,
-    num_keep: int,
-    tau: float,
-    generator: Optional[torch.Generator] = None,
-    idx: Optional[torch.Tensor] = None,
+def probabilistic_match_filter_batched(
+    match_dist: torch.Tensor, num_keep: int, tau: float,
+    generators: Sequence, fixed: Optional[Sequence] = None,
 ) -> torch.Tensor:
-    """num_keep match indices ~ softmax((1 - d) / tau) without replacement
-    (reference evaluate.py:233-245): (num_keep,) int64. `idx` injects the
-    draw instead of sampling."""
-    if idx is not None:
-        return idx
+    """num_keep match indices a pair ~ softmax((1 - d) / tau) without
+    replacement (reference evaluate.py:233-245), over a leading pair axis:
+    match_dist (B, M) -> (B, num_keep) int64, pair b drawing from
+    generators[b] unless fixed[b] injects its draw."""
     logits = (1.0 - match_dist) / tau
-    a = torch.exp(logits - torch.max(logits))
-    return weighted_sample(a / torch.sum(a), num_keep, generator)
+    a = torch.exp(logits - torch.max(logits, dim=-1, keepdim=True).values)
+    return weighted_sample_batched(a / torch.sum(a, dim=-1, keepdim=True),
+                                   num_keep, generators, fixed)
+
+
+def hungarian_match(D: np.ndarray) -> np.ndarray:
+    """Host-side optimal assignment over a distance matrix, returning (K, 2)
+    int64 [src, tgt] pairs, K = min(M, N), rows ascending (reference
+    evaluate.py:216-222). scipy's linear_sum_assignment: an exact solver of
+    the assignment the JAX package's native Jonker-Volgenant code solves
+    (its own fallback is the same scipy call)."""
+    from scipy.optimize import linear_sum_assignment
+
+    r, c = linear_sum_assignment(np.asarray(D, np.float64))
+    return np.stack([r, c], axis=1).astype(np.int64)

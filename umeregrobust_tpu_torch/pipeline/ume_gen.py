@@ -29,25 +29,26 @@ def ume_from_ball_query(
     k_mask: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
 ) -> torch.Tensor:
-    """(M, C, 4) fp32 UME moment matrices [m0 | m1] for every keypoint,
-    normalised by the total zeroth moment. feats (N, C) must be zero on
-    invalid rows."""
-    N, C = feats.shape
-    M = kpts.shape[0]
+    """([B,] M, C, 4) fp32 UME moment matrices [m0 | m1] for every
+    keypoint, normalised by the total zeroth moment, over an optional
+    leading pair axis (one kernel launch for the batch). feats ([B,] N, C)
+    must be zero on invalid rows."""
+    C = feats.shape[-1]
     pts = pts.to(torch.float32).contiguous()
     f = feats.to(torch.float32)
     if p_mask is not None:
-        f = f * p_mask[:, None]
-    Z = torch.cat([f, f * pts[:, 0:1], f * pts[:, 1:2], f * pts[:, 2:3]],
-                  dim=1).contiguous()
+        f = f * p_mask[..., None]
+    Z = torch.cat([f, f * pts[..., 0:1], f * pts[..., 1:2], f * pts[..., 2:3]],
+                  dim=-1).contiguous()
     pm = (p_mask if p_mask is not None
-          else torch.ones(N, dtype=torch.bool, device=pts.device))
+          else torch.ones(feats.shape[:-1], dtype=torch.bool,
+                          device=pts.device))
     F = ume_moments_fused(kpts.to(torch.float32).contiguous(), pts, Z,
                           pm.contiguous(), radius=float(radius),
                           max_nn=int(max_nn))
-    F = F.reshape(M, 4, C).transpose(1, 2)
-    total = torch.sum(F[:, :, 0], dim=-1, keepdim=True)[..., None]
+    F = F.reshape(F.shape[:-1] + (4, C)).transpose(-1, -2)
+    total = torch.sum(F[..., 0], dim=-1, keepdim=True)[..., None]
     F = F / (total + eps)
     if k_mask is not None:
-        F = F * k_mask[:, None, None]
+        F = F * k_mask[..., None, None]
     return F
