@@ -29,7 +29,8 @@ Phases (any failure ends the run with a non-zero exit):
      reads alone (kernel_ms_all_capped), the rate of row reads (l2_tbps)
      and what a barrier per point tile would cost a block of 8 warps
      (tile_wait_factor); gather_rows: identical rows, at the
-     main path's two shapes (with kernel_ms, library_kernel_ms, host_ms)
+     main path's two shapes and the kNN scorer's step (8 x 1024 x 20 rows
+     of a 10000 x 32 table; with kernel_ms, library_kernel_ms, host_ms)
      and at N = 32768, C = 32 / 128 / 512, fp32 and bf16, random and
      monotone indices, and at ragged row counts with indices -1 and N; sparse_conv_rowtile and
      sparse_conv_tapsplit, each forced: max abs error <= 2e-5 x max |out|
@@ -94,6 +95,24 @@ Phases (any failure ends the run with a non-zero exit):
   5e. hungarian: the nominal pair through register_pair_hungarian
      (features from pair_features_e2e): RRE / RTE, the host assignment's
      and the pair's seconds; held to a finite rigid transform;
+  5f. config_paths: the remaining RegistrationConfig paths on the four
+     regime pairs at the reduced point (CONFIG_PATHS: corr_mode="knn",
+     feat_copy_radius=0.6, icp_inner=1, filter_by_ume_dist=False,
+     sr_kpts=1024 with sr_gate_inliers=2.0, and the CLI's PARITY_PROFILE
+     whole), each pair alone through register_pair_e2e after a warm-up
+     pair, then the four as one batch through register_pairs_batched:
+     per pair and knob RRE / RTE, verdict, seconds and kernel launches;
+     fails on a non-finite or non-rigid transform, a batched verdict that
+     differs from the one-pair one or |dT_init| > 1e-4, or a kernel of
+     the knob's path that never launched;
+  5g. cli: umeregrobust_tpu_torch.cli.evaluate.main in this process at
+     the full kitti_test configuration (SEM cap 50000, correlator cap
+     10000, 10000 keypoints, 2500 hypotheses, raw ICP stage at 131072) on
+     3 synthetic pairs with the in-repo weights, then CLI_PARITY_PAIRS
+     pairs with --set parity=true: NP / SP, pairs/s (pair 0 excluded),
+     per pair the host prep's and the pipeline's seconds, peak device
+     memory, the escalations and the kernels launched; fails on a
+     non-finite transform or a kernel of the path that never launched;
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model, the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
@@ -1100,7 +1119,13 @@ def phase_kernels_family(dev, pair, cfg):
             edge[f"C{C}_{str(dt)[6:]}_{str(it)[6:]}_ragged_idx_N"] = \
                 gather_case(tab, torch.as_tensor(ix, device=dev, dtype=it),
                             timed=False)
-    cases = {**main, **grid, **odd, **edge}
+    # the kNN scorer's step at the CLI's parity profile (kitti_test): the
+    # 20 nearest of 8 hypotheses x 1024 source rows in a 10000 x 32 table
+    tab = torch.as_tensor(rng.standard_normal((10000, 32)),
+                          dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(rng.integers(0, 10000, 8 * 1024 * 20), device=dev)
+    knn = {"knn_step": device_times(gather_case(tab, idx), tab, idx)}
+    cases = {**main, **grid, **odd, **edge, **knn}
     out["gather_rows"] = dict(
         shape="per pair: " + ", ".join(
             f"{v['rows']} rows of {v['table']}" for v in main.values()),
@@ -1923,6 +1948,211 @@ def phase_hungarian(dev, model, caps, cfg, pair):
     return out
 
 
+def rigid(T):
+    """T (4, 4) a proper rigid transform to 1e-4 (float64)."""
+    import torch
+
+    T = torch.as_tensor(T).double().cpu()
+    R = T[:3, :3]
+    return bool(torch.allclose(R @ R.T, torch.eye(3, dtype=torch.float64),
+                               atol=1e-4)
+                and abs(float(torch.linalg.det(R)) - 1.0) <= 1e-4
+                and torch.allclose(T[3], torch.tensor(
+                    [0.0, 0.0, 0.0, 1.0], dtype=torch.float64)))
+
+
+class TimeIn:
+    """While active, the seconds spent inside each named module function
+    (the device synchronised before and after every call), by name: e.g.
+    the kNN scorer's share of a pair. A measurement aid."""
+
+    def __init__(self, **targets):  # name -> (module, function name)
+        self.targets, self.seconds = targets, {k: 0.0 for k in targets}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = {}
+        for name, (mod, fn) in self.targets.items():
+            orig = self.saved[name] = getattr(mod, fn)
+
+            def timed(*a, _orig=orig, _name=name, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                return out
+
+            setattr(mod, fn, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, fn) in self.targets.items():
+            setattr(mod, fn, self.saved[name])
+
+
+def scorer_timer():
+    from umeregrobust_tpu_torch.pipeline import correlator
+
+    return TimeIn(knn_scores=(correlator, "correlator_scores"),
+                  radius_scores=(correlator,
+                                 "correlator_scores_radius_fused"),
+                  spatial_var=(correlator, "feature_spatial_var"))
+
+
+def count_kernels(fn):
+    """(CUDA kernels launched, their device ms) of one fn() call, by
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ks), sum(k.time_range.elapsed_us() for k in ks) / 1e3
+
+
+# phase 5f: each RegistrationConfig path (on the reduced point) and the
+# kernels it must launch
+CONFIG_PATHS = {
+    "knn": (dict(corr_mode="knn"),
+            ("nn1_argmin", "ume_moments_fused", "gather_rows")),
+    "grid_copy": (dict(feat_copy_radius=0.6),
+                  ("ume_moments_fused", "corr_scores_fused", "gather_rows")),
+    "icp_inner1": (dict(icp_inner=1), MAIN_KERNELS),
+    "no_ume_filter": (dict(filter_by_ume_dist=False), MAIN_KERNELS),
+    "second_round": (dict(sr_kpts=1024, sr_gate_inliers=2.0), MAIN_KERNELS),
+    "parity": (None, ("nn1_argmin", "ume_moments_fused", "gather_rows")),
+}
+
+
+def phase_config_paths(dev, model, caps, cfg, pairs):
+    """Each knob of CONFIG_PATHS on the four regime pairs: each pair alone
+    through register_pair_e2e (after a warm-up pair; seeded i), then the
+    four as one batch through register_pairs_batched (the same seeds):
+    per pair RRE / RTE, verdict, seconds and kernel launches, per knob the
+    batch's seconds and launches; fails a knob on a non-finite or
+    non-rigid transform, a batched verdict that differs from the one-pair
+    one or |dT_init| > 1e-4, or a kernel of its path that never
+    launched. Returns ({knob: summary}, {knob: launch counts of both
+    runs})."""
+    from dataclasses import replace
+
+    import torch
+
+    from umeregrobust_tpu_torch.cli.evaluate import PARITY_PROFILE
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        register_pair_e2e, register_pairs_batched)
+
+    out, launches = {}, {}
+    for knob, (kw, expect) in CONFIG_PATHS.items():
+        cfg_k = replace(cfg, **(PARITY_PROFILE if kw is None else kw))
+
+        def one(p, i):
+            return register_pair_e2e(
+                model, caps, cfg_k, *pair_args(p), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(i))
+
+        one(pairs[0], 0)  # warm-up
+        kernels0, busy0 = count_kernels(lambda: one(pairs[0], 0))
+        reset_launch_counts()
+        rows, Ti1 = [], []
+        for i, p in enumerate(pairs):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with scorer_timer() as tm:
+                Ti, Tr = one(p, i)
+            torch.cuda.synchronize()
+            Ti1.append(Ti.cpu())
+            rows.append(dict(pair=i, regime=p.get("regime"),
+                             seconds=time.time() - t0,
+                             seconds_in=tm.seconds,
+                             launches={k: v - before[k] for k, v in
+                                       launch_counts().items()},
+                             rigid=rigid(Tr), **verdict(Tr, p["gt"])))
+        lc_one = launch_counts()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        Tib, Trb = register_pairs_batched(
+            model, caps, cfg_k, *stacked_args(pairs), device=dev,
+            generators=[torch.Generator(device=dev).manual_seed(i)
+                        for i in range(len(pairs))])
+        torch.cuda.synchronize()
+        wall_b = time.time() - t0
+        lc_b = launch_counts()
+        for i, (r, p) in enumerate(zip(rows, pairs)):
+            vb = verdict(Trb[i], p["gt"])
+            r.update(batched=dict(vb, rigid=rigid(Trb[i])),
+                     same_verdict=(vb["np_pass"], vb["sp_pass"])
+                     == (r["np_pass"], r["sp_pass"]),
+                     max_abs_dT_init=float((Tib[i].cpu() - Ti1[i]).abs().max()))
+            emit({"phase": "config_path_pair", "knob": knob, **r})
+        missing = [k for k in expect if lc_one[k] <= 0 or lc_b[k] <= 0]
+        res = dict(
+            knob=knob, overrides=PARITY_PROFILE if kw is None else kw,
+            pairs=len(pairs),
+            seconds_one_at_a_time=[r["seconds"] for r in rows],
+            seconds_batched=wall_b, cuda_kernels_pair0=kernels0,
+            device_busy_ms_pair0=busy0, launches_one_at_a_time=lc_one,
+            launches_batched=lc_b, expected_kernels=list(expect),
+            missing_kernels=missing,
+            np_recall=float(np.mean([r["np_pass"] for r in rows])),
+            sp_recall=float(np.mean([r["sp_pass"] for r in rows])),
+            max_abs_dT_init=max(r["max_abs_dT_init"] for r in rows))
+        res["ok"] = (not missing
+                     and all(r["finite"] and r["rigid"]
+                             and r["batched"]["finite"]
+                             and r["batched"]["rigid"] and r["same_verdict"]
+                             for r in rows)
+                     and res["max_abs_dT_init"] <= 1e-4)
+        out[knob] = res
+        launches[knob] = {k: lc_one[k] + lc_b[k] for k in lc_one}
+    return out, launches
+
+
+CLI_WEIGHTS = os.path.join(ROOT, "weights", "synthetic_pretrain.pkl")
+CLI_PARITY_PAIRS = 2
+
+
+def phase_cli(label, argv, expect):
+    """umeregrobust_tpu_torch.cli.evaluate.main(argv) in this process (its
+    own prints go to stderr): NP / SP, pairs/s (pair 0 excluded, as the
+    CLI counts), per pair the host prep's and the pipeline's seconds,
+    peak device memory, the escalations and the kernels launched; fails
+    on a non-finite transform or an `expect`ed kernel that never
+    launched (an exception ends the run)."""
+    import contextlib
+
+    from umeregrobust_tpu_torch.cli import evaluate
+
+    reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr), scorer_timer() as tm:
+        r = evaluate.main(argv)
+    lc = launch_counts()
+    res = dict(
+        run=label, argv=argv, seconds=time.time() - t0,
+        seconds_in=tm.seconds,
+        n_pairs=r["n_pairs"], np_recall=r["np_recall"],
+        sp_recall=r["sp_recall"], mean_rre_deg=r["mean_rre"],
+        mean_rte_m=r["mean_rte"], pairs_per_s=r["pairs_per_sec"],
+        per_pair=r["per_pair"],
+        max_memory_allocated_bytes=r.get("max_memory_allocated_bytes"),
+        escalations=r["icp_exactness"]["escalations"],
+        icp_budget=r["registration_config"].icp_budget,
+        icp_raw_budget=r["registration_config"].icp_raw_budget,
+        launches=lc, expected_kernels=list(expect),
+        missing_kernels=[k for k in expect if lc[k] <= 0])
+    res["ok"] = (not res["missing_kernels"]
+                 and all(p["finite"] for p in r["per_pair"]))
+    return res
+
+
 def phase_reference(dev, model_gpu, model_cpu, cfg_small):
     """The small pair on the card and on the CPU with the same draws."""
     import torch
@@ -2261,10 +2491,32 @@ def main() -> int:
     hung = phase_hungarian(dev, model, REDUCED["caps"], cfg, pairs[0])
     emit({"phase": "hungarian", **hung})
 
+    # --- 5f. the remaining RegistrationConfig paths on the regime pairs
+    emit({"phase": "config_paths_start",
+          "seconds_total": time.time() - t_start})
+    cfg_paths, cfg_launches = phase_config_paths(dev, model, REDUCED["caps"],
+                                                 cfg_b, pairs)
+    for res in cfg_paths.values():
+        emit({"phase": "config_paths", **res,
+              "seconds_total": time.time() - t_start})
+
+    # --- 5g. the evaluate CLI at the full kitti_test configuration
+    cli_runs = [phase_cli("kitti_test", [
+        "--synthetic", "3", "--set",
+        f"model_checkpoint_path={CLI_WEIGHTS}"], MAIN_KERNELS)]
+    cli_runs.append(phase_cli("kitti_test_parity", [
+        "--synthetic", str(CLI_PARITY_PAIRS), "--set",
+        f"model_checkpoint_path={CLI_WEIGHTS}", "--set", "parity=true"],
+        CONFIG_PATHS["parity"][1]))
+    for res in cli_runs:
+        emit({"phase": "cli", **res, "seconds_total": time.time() - t_start})
+
     paths = {"e2e": e2e_launches, "family": fam["launches"],
              "scan": scan_launches, "batched": batch_res["regimes"][1],
              "batched_resunet": res_b["launches"],
-             "hungarian": hung["launches"]}
+             "hungarian": hung["launches"],
+             **{f"config_{k}": v for k, v in cfg_launches.items()},
+             **{f"cli_{r['run']}": r["launches"] for r in cli_runs}}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
@@ -2336,6 +2588,14 @@ def main() -> int:
                         "or a conv launch disagrees with its plain version")
     if not hung["ok"]:
         failures.append("Hungarian path: no finite rigid transform")
+    for knob, res in cfg_paths.items():
+        if not res["ok"]:
+            failures.append(f"config path {knob}: transform, batched verdict,"
+                            f" |dT_init| or launches {res['missing_kernels']}")
+    for res in cli_runs:
+        if not res["ok"]:
+            failures.append(f"cli {res['run']}: non-finite transform or "
+                            f"kernels {res['missing_kernels']} never launched")
     # a kernel of a path must have launched in that path's counted run
     on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
                "batched_resunet": ("nn1_argmin", "gather_rows",

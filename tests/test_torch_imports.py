@@ -40,7 +40,8 @@ def test_importing_every_module_leaves_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert len(MODULES) >= 27
-    for new in ("ops.cuda_gather", "ops.cuda_conv", "devices"):
+    for new in ("ops.cuda_gather", "ops.cuda_conv", "devices",
+                "cli.evaluate", "utils.config", "utils.prefetch"):
         assert f"umeregrobust_tpu_torch.{new}" in MODULES
 
 
@@ -94,16 +95,31 @@ def _cfg():
     return RegistrationConfig()
 
 
-def test_unported_knobs_raise():
+@pytest.mark.parametrize("kw", [
+    dict(sr_kpts=64), dict(feat_copy_radius=0.5), dict(corr_mode="knn"),
+    dict(filter_by_ume_dist=False), dict(icp_inner=1),
+    dict(filter_mode="nope")], ids=lambda kw: next(iter(kw)))
+def test_check_supported_accepts_every_ported_knob(kw):
     from umeregrobust_tpu_torch.pipeline.registration import (
         RegistrationConfig, check_supported)
 
     check_supported(RegistrationConfig())
-    for kw in (dict(sr_kpts=64), dict(feat_copy_radius=0.5),
-               dict(corr_mode="knn"), dict(filter_by_ume_dist=False),
-               dict(icp_inner=1)):
-        with pytest.raises(NotImplementedError):
+    if kw.get("filter_mode") == "nope":
+        with pytest.raises(ValueError, match="filter_mode"):
             check_supported(RegistrationConfig(**kw))
+    else:
+        check_supported(RegistrationConfig(**kw))
+
+
+def test_cli_reads_only_its_own_configs():
+    from umeregrobust_tpu_torch.cli import evaluate
+
+    cfg_dir = pathlib.Path(evaluate._CFG_DIR).resolve()
+    assert cfg_dir == PKG / "configs"
+    for rel in evaluate.BENCHMARK_CONFIGS.values():
+        assert (cfg_dir / rel).is_file(), rel
+    for p in PKG.rglob("*.py"):
+        assert "umeregrobust_tpu/configs" not in p.read_text(), p
 
 
 @pytest.fixture

@@ -11,14 +11,14 @@ each pair's candidates from its own grid.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from umeregrobust_tpu_torch.ops.neighbors import take_rows
 
 __all__ = ["DenseGrid", "build_dense_grid", "dense_candidates",
-           "max_window_count"]
+           "dense_nn_query", "max_window_count"]
 
 _FAR = 1e9  # parked coordinate for masked/padded rows
 
@@ -117,6 +117,19 @@ def _window_starts(grid: DenseGrid, queries: torch.Tensor) -> torch.Tensor:
                         ).reshape(flat.shape)
 
 
+def _candidates(grid: DenseGrid, queries: torch.Tensor, budget: int):
+    """(rows ([B,] M, 9*budget) of points_sorted, their points ([B,] M,
+    9*budget, 3)): row k of window w is start_w + k, clamped to N, the FAR
+    row past the array end."""
+    s = _window_starts(grid, queries)  # ([B,] M, 9)
+    N = grid.points_sorted.shape[-2] - 1
+    pos = torch.clamp(s[..., None] + torch.arange(budget, device=s.device),
+                      max=N).reshape(s.shape[:-1] + (-1,))
+    lead = tuple(queries.shape[:-2])
+    return pos, take_rows(grid.points_sorted, pos.reshape(
+        lead + (-1,))).reshape(pos.shape + (3,))
+
+
 def dense_candidates(grid: DenseGrid, queries: torch.Tensor,
                      budget: int = 8) -> torch.Tensor:
     """([B,] M, 9*budget, 3) candidate target points around each query
@@ -124,10 +137,30 @@ def dense_candidates(grid: DenseGrid, queries: torch.Tensor,
     points_sorted[start_w + k], FAR past the array end. Slots past a
     window's end hold real rows of later cells of the same cloud; they are
     duplicates of slots of another window or fail the radius filter."""
-    s = _window_starts(grid, queries)  # ([B,] M, 9)
-    N = grid.points_sorted.shape[-2] - 1
-    pos = s[..., None] + torch.arange(budget, device=queries.device)
-    pos = torch.clamp(pos, max=N)  # N is the FAR row
-    lead = tuple(queries.shape[:-2])
-    return take_rows(grid.points_sorted, pos.reshape(lead + (-1,))).reshape(
-        queries.shape[:-1] + (-1, 3))
+    return _candidates(grid, queries, budget)[1]
+
+
+def dense_nn_query(grid: DenseGrid, queries: torch.Tensor, radius: float,
+                   q_mask: Optional[torch.Tensor] = None,
+                   budget: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest neighbour within `radius` (<= grid.cell) among each query's
+    9 x budget window candidates: (dist ([B,] M), idx ([B,] M) int64), idx
+    the row of the indexed points (through grid.order), -1 and dist 0 on
+    no hit or a masked query. Ties go to the lower candidate slot, as
+    jnp.argmin does; the winner's sorted row is its window's start plus
+    its slot. Exact while every window holds <= budget points
+    (max_window_count)."""
+    assert radius <= grid.cell + 1e-9, "search radius must fit the cell size"
+    pos, cand = _candidates(grid, queries, budget)
+    d2 = torch.sum((queries[..., :, None, :] - cand) ** 2, dim=-1)
+    r2 = torch.tensor(radius, dtype=torch.float32, device=d2.device) ** 2
+    d2 = torch.where(d2 <= r2, d2, torch.full_like(d2, 1e30))
+    k = torch.argmin(d2, dim=-1, keepdim=True)
+    bd2 = torch.gather(d2, -1, k)[..., 0]
+    hit = bd2 < 1e29
+    if q_mask is not None:
+        hit = hit & q_mask
+    idx = torch.gather(grid.order, -1, torch.gather(pos, -1, k)[..., 0]
+                       .clamp(max=grid.order.shape[-1] - 1))
+    dist = torch.sqrt(torch.where(hit, bd2, torch.zeros_like(bd2)))
+    return dist, torch.where(hit, idx, torch.full_like(idx, -1))

@@ -1,16 +1,19 @@
-"""Kernel-correlation hypothesis scoring, radius mode (port of the radius
-parts of umeregrobust_tpu/pipeline/correlator.py; the kNN-20 mode is not
-ported yet).
+"""Kernel-correlation hypothesis scoring (port of
+umeregrobust_tpu/pipeline/correlator.py):
 
   m        = mean feature over src + tgt
   w_p      = mean kNN(50, self excluded) feature-difference norm per point
   f~       = (f - m) * w_p
-  score(T) = sum_i sum_j 1[d <= 2 sigma] cauchy(d, sigma) <f~_i, g~_j> / N_src,
-             d = |T p_i - q_j|
+  radius:  score(T) = sum_i sum_j 1[d <= 2 sigma] cauchy(d, sigma)
+                      <f~_i, g~_j> / N_src,   d = |T p_i - q_j|
+  knn:     score(T) = sum_i sum_{j in kNN20(T p_i)} cauchy(d, sigma)
+                      <f~_i, g~_j> / N_src    (the reference's semantics)
 
-Scores run in the CUDA kernel ops/cuda_corr (plain version on CPU
-tensors). select_best_transform runs the triage -> coarse -> exact
-cascade on random subsets (drawn from a generator, or injected);
+Radius scores run in the CUDA kernel ops/cuda_corr (plain version on CPU
+tensors); kNN scores are PyTorch ops whose K-row target gather goes
+through ops/neighbors.gather_padded (the gather_rows kernel on the card).
+select_best_transform runs the triage -> coarse -> exact cascade on
+random subsets (drawn from a generator, or injected);
 select_best_transform_batched runs it over a leading pair axis, one
 kernel launch a stage for the batch. The other functions take an optional
 leading pair axis as they are.
@@ -29,7 +32,8 @@ from umeregrobust_tpu_torch.pipeline.sampling import (
     injected_batched, subset_batched)
 
 __all__ = ["cauchy_kernel", "feature_spatial_var", "prepare_weighted_features",
-           "correlator_scores_radius", "correlator_scores_radius_fused",
+           "correlator_scores", "correlator_scores_radius",
+           "correlator_scores_radius_fused", "smallest_k",
            "select_best_transform", "select_best_transform_batched"]
 
 
@@ -120,16 +124,98 @@ def correlator_scores_radius_fused(src_pts, src_featw, src_mask, tgt_pts,
     return scores / src_pts.shape[-2]
 
 
-def _score(mode, *a, sigma=1.5):
-    if mode != "radius":
-        raise NotImplementedError("corr_mode='knn' is not ported yet")
-    return correlator_scores_radius_fused(*a, sigma=sigma)
+def smallest_k(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries of each row of d2 (..., T), values >= 0:
+    (values, indices) ascending, ties toward the lower index: what a
+    stable ascending sort's first k give (jax.lax.top_k of -d2), by one
+    top-(k+1) selection instead of a sort of the row. Rows where the k-th
+    and (k+1)-th smallest tie are chosen again from their full rows by a
+    (value bits, index) key; that read costs one host synchronisation."""
+    T = d2.shape[-1]
+    if k >= T:
+        vals, idx = torch.sort(d2, dim=-1, stable=True)
+        return vals, idx
+    vals, idx = torch.topk(d2, k + 1, dim=-1, largest=False, sorted=True)
+    tie = (vals[..., k - 1] == vals[..., k]).reshape(-1)
+    vals, idx = vals[..., :k].contiguous(), idx[..., :k].contiguous()
+    rows = torch.nonzero(tie)[:, 0]  # the one host read
+    if rows.numel():
+        flat_d2 = d2.reshape(-1, T)[rows]
+        # non-negative floats order as their bits; +0.0 for -0.0
+        key = ((torch.abs(flat_d2).view(torch.int32).to(torch.int64) << 32)
+               | torch.arange(T, device=d2.device))
+        sel = torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
+        idx.view(-1, k)[rows] = sel
+        vals.view(-1, k)[rows] = torch.gather(flat_d2, -1, sel)
+    # one order whatever topk did with ties: by index, then stably by value
+    o = torch.argsort(idx, dim=-1)
+    idx, vals = torch.gather(idx, -1, o), torch.gather(vals, -1, o)
+    o = torch.argsort(vals, dim=-1, stable=True)
+    return torch.gather(vals, -1, o), torch.gather(idx, -1, o)
+
+
+def correlator_scores(src_pts, src_featw, src_mask, tgt_pts, tgt_featw,
+                      tgt_mask, Ts, knn_k: int = 20, sigma: float = 1.5,
+                      chunk: int = 1024, hyp_chunk: int = 8) -> torch.Tensor:
+    """Exact kNN-capped scores ([B,] H) of the hypotheses Ts ([B,] H, 4, 4)
+    (the JAX package's correlator_scores, over an optional leading pair
+    axis): per (hyp_chunk hypotheses, chunk source rows) step the
+    distances to every target, the knn_k nearest (ties to the lower
+    index), their Cauchy weights and feature products, summed over the
+    chunk and added up chunk by chunk. Normalised by the static source
+    capacity N, as the JAX package does."""
+    one = src_pts.dim() == 2
+    if one:
+        src_pts, src_featw, src_mask, tgt_pts, tgt_featw, tgt_mask, Ts = (
+            x[None] for x in (src_pts, src_featw, src_mask, tgt_pts,
+                              tgt_featw, tgt_mask, Ts))
+    B, N = src_pts.shape[:2]
+    H = Ts.shape[1]
+    R = Ts[..., :3, :3].to(torch.float32)
+    t = Ts[..., :3, 3].to(torch.float32)
+    tp = tgt_pts.to(torch.float32)
+    tf = tgt_featw.to(torch.float32)
+    sp = src_pts.to(torch.float32)
+    sf = src_featw.to(torch.float32)
+    sm = src_mask.to(torch.float32)
+    out = []
+    for h in range(0, H, hyp_chunk):
+        Rh, th = R[:, h:h + hyp_chunk], t[:, h:h + hyp_chunk]
+        hc = Rh.shape[1]
+        acc = torch.zeros((B, hc), dtype=torch.float32, device=sp.device)
+        for s in range(0, N, chunk):
+            p = sp[:, None, s:s + chunk]  # (B, 1, c, 3)
+            c = p.shape[2]
+            p_t = (p @ Rh.transpose(-1, -2) + th[..., None, :]).reshape(
+                B, hc * c, 3)
+            d2 = pairwise_sqdist(p_t, tp)
+            d2 = torch.where(tgt_mask[:, None, :], d2,
+                             torch.full_like(d2, 1e30))
+            vals, idx = smallest_k(d2, knn_k)  # (B, hc c, K)
+            w = cauchy_kernel(torch.sqrt(torch.clamp(vals, min=0.0)), sigma)
+            g = gather_padded(tf, idx)  # (B, hc c, K, C)
+            f = sf[:, None, s:s + chunk].expand(B, hc, c, sf.shape[-1])
+            val = torch.sum(f.reshape(B, hc * c, 1, -1) * g, dim=-1)
+            acc = acc + torch.sum(
+                (w * val).reshape(B, hc, c, -1)
+                * sm[:, None, s:s + chunk, None], dim=(2, 3))
+        out.append(acc / N)
+    scores = torch.cat(out, dim=1)
+    return scores[0] if one else scores
+
+
+def _score(mode, *a, knn_k=20, sigma=1.5, chunk=1024):
+    """Scores ([B,] H) in corr_mode `mode`: the radius kernel, or kNN."""
+    if mode == "radius":
+        return correlator_scores_radius_fused(*a, sigma=sigma)
+    return correlator_scores(*a, knn_k=knn_k, sigma=sigma, chunk=chunk)
 
 
 def select_best_transform(
     src_pts, src_feat, src_mask, tgt_pts, tgt_feat, tgt_mask,
     Ts: torch.Tensor,
     sigma: float,
+    knn_k: int = 20,
     var_knn: int = 50,
     coarse_src: Optional[int] = 1024,
     coarse_tgt: Optional[int] = None,
@@ -153,12 +239,15 @@ def select_best_transform(
     subsample, keep rescore_top for the exact pass (plus extra_Ts).
     Subsets come from `draws` ("triage_src", "triage_tgt", "coarse_src",
     "coarse_tgt") when injected, else from `generator`. Top-k ties go to
-    the lower index, as in the JAX package. The one-pair view of
+    the lower index, as in the JAX package. mode="knn" scores with the
+    knn_k cap and weights features per point (var_anchors is ignored), the
+    reference's semantics. The one-pair view of
     select_best_transform_batched.
     """
     best, scores = select_best_transform_batched(
         *(x[None] for x in (src_pts, src_feat, src_mask, tgt_pts, tgt_feat,
-                            tgt_mask, Ts)), sigma=sigma, var_knn=var_knn,
+                            tgt_mask, Ts)), sigma=sigma, knn_k=knn_k,
+        var_knn=var_knn,
         coarse_src=coarse_src, coarse_tgt=coarse_tgt,
         rescore_top=rescore_top, generators=[generator], mode=mode,
         triage_src=triage_src, triage_tgt=triage_tgt, triage_top=triage_top,
@@ -171,6 +260,7 @@ def select_best_transform_batched(
     src_pts, src_feat, src_mask, tgt_pts, tgt_feat, tgt_mask,
     Ts: torch.Tensor,
     sigma: float,
+    knn_k: int = 20,
     var_knn: int = 50,
     coarse_src: Optional[int] = 1024,
     coarse_tgt: Optional[int] = None,
@@ -195,7 +285,8 @@ def select_best_transform_batched(
     else:
         fs, ft = prepare_weighted_features(
             src_pts, src_feat, src_mask, tgt_pts, tgt_feat, tgt_mask,
-            var_knn=var_knn, var_anchors=var_anchors)
+            var_knn=var_knn,
+            var_anchors=var_anchors if mode == "radius" else None)
     dev = src_pts.device
     B, S = src_pts.shape[:2]
     Tn, H = tgt_pts.shape[1], Ts.shape[1]
@@ -217,7 +308,7 @@ def select_best_transform_batched(
             ttp, ttf, ttm = cut(subset("triage_tgt", Tn, triage_tgt),
                                 tgt_pts, ft, tgt_mask)
         tri = _score(mode, *cut(ssel, src_pts, fs, src_mask), ttp, ttf, ttm,
-                     Ts, sigma=sigma)
+                     Ts, knn_k=knn_k, sigma=sigma, chunk=min(1024, triage_src))
         _, full_idx = topk_stable(tri, triage_top)
         Ts = take_rows(Ts, full_idx)
     if coarse_src is not None and coarse_src < S and H > rescore_top:
@@ -227,13 +318,14 @@ def select_best_transform_batched(
             ctp, ctf, ctm = cut(subset("coarse_tgt", Tn, coarse_tgt),
                                 tgt_pts, ft, tgt_mask)
         coarse = _score(mode, *cut(sel, src_pts, fs, src_mask), ctp, ctf, ctm,
-                        Ts, sigma=sigma)
+                        Ts, knn_k=knn_k, sigma=sigma,
+                        chunk=min(1024, coarse_src))
         _, top_idx = topk_stable(coarse, rescore_top)
         Ts_top = take_rows(Ts, top_idx)
         if extra_Ts is not None:
             Ts_top = torch.cat([Ts_top, extra_Ts], dim=1)
         fine = _score(mode, src_pts, fs, src_mask, tgt_pts, ft, tgt_mask,
-                      Ts_top, sigma=sigma)
+                      Ts_top, knn_k=knn_k, sigma=sigma)
         best = torch.argmax(fine, dim=-1)
         out_idx = top_idx if full_idx is None else take_rows(full_idx,
                                                              top_idx)
@@ -243,7 +335,7 @@ def select_best_transform_batched(
     n_main = Ts.shape[1]
     Ts_all = torch.cat([Ts, extra_Ts], dim=1) if extra_Ts is not None else Ts
     scores_all = _score(mode, src_pts, fs, src_mask, tgt_pts, ft, tgt_mask,
-                        Ts_all, sigma=sigma)
+                        Ts_all, knn_k=knn_k, sigma=sigma)
     best_T = take_rows(Ts_all, torch.argmax(scores_all, dim=-1)[:, None])[:, 0]
     scores = scores_all[:, :n_main]
     if full_idx is not None:

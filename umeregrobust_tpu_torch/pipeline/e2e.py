@@ -7,7 +7,8 @@ forward: cloud c (pair c // 2, source or target) carries batch index c,
 so a single sparse pyramid holds them all, each pair's levels capped at
 its own capacity; k5/k7 layers and `conv_impl="scan"` models run the
 per-tap conv kernels. Then feature transfer to the correlator clouds
-(kernels nn1_argmin and gather_rows), hypotheses (kernel
+(kernels nn1_argmin and gather_rows; with cfg.feat_copy_radius a
+dense-grid query and gather_rows), hypotheses (kernel
 ume_moments_fused), scoring (kernel corr_scores_fused), the consensus
 gate and ICP, each stage once for all pairs. register_pair_e2e is the
 one-pair view of register_pairs_batched.
@@ -26,7 +27,7 @@ from umeregrobust_tpu_torch.devices import resolve_device, to_device
 from umeregrobust_tpu_torch.models.resunet import ResUNet, build_unet_geometry
 from umeregrobust_tpu_torch.pipeline.registration import (
     RegistrationConfig, check_supported, copy_features_to_raw,
-    register_pair_features_batched)
+    copy_features_to_raw_grid, register_pair_features_batched)
 
 __all__ = ["register_pair_e2e", "register_pairs_batched", "pair_features_e2e",
            "pair_features_batched", "resolve_device"]
@@ -49,11 +50,13 @@ def _tf32_off():
 
 def _feature_stage(model, caps, compute_dtype, src_coords, src_grid, src_mask,
                    tgt_coords, tgt_grid, tgt_mask, corr_src_pts,
-                   corr_src_mask, corr_tgt_pts, corr_tgt_mask):
+                   corr_src_mask, corr_tgt_pts, corr_tgt_mask, cfg=None):
     """Fused geometry and forward of the 2B clouds of B pairs (inputs with
     a leading pair axis, on the model's device), then the 1-NN transfer to
-    the correlator clouds. Returns (src_feat, tgt_feat, corr_src_feat,
-    corr_tgt_feat), (B, .., C) each."""
+    the correlator clouds: exact (copy_features_to_raw), or a dense-grid
+    query when cfg.feat_copy_radius is set (copy_features_to_raw_grid).
+    Returns (src_feat, tgt_feat, corr_src_feat, corr_tgt_feat), (B, .., C)
+    each."""
     # stage ranges (the JAX package's named scopes) for torch.profiler;
     # record_function costs nothing while no profiler is active
     stage = torch.profiler.record_function
@@ -72,10 +75,14 @@ def _feature_stage(model, caps, compute_dtype, src_coords, src_grid, src_mask,
                       compute_dtype=compute_dtype).reshape(B, 2, N, -1)
         src_feat, tgt_feat = feats[:, 0], feats[:, 1]
     with stage("feat_to_raw"):
-        cs_f = copy_features_to_raw(corr_src_pts, corr_src_mask, src_grid,
-                                    src_feat, src_mask)
-        ct_f = copy_features_to_raw(corr_tgt_pts, corr_tgt_mask, tgt_grid,
-                                    tgt_feat, tgt_mask)
+        copy = copy_features_to_raw
+        if cfg is not None and cfg.feat_copy_radius is not None:
+            def copy(*a):
+                return copy_features_to_raw_grid(
+                    *a, radius=cfg.feat_copy_radius,
+                    budget=cfg.feat_copy_budget, dims=cfg.feat_copy_dims)
+        cs_f = copy(corr_src_pts, corr_src_mask, src_grid, src_feat, src_mask)
+        ct_f = copy(corr_tgt_pts, corr_tgt_mask, tgt_grid, tgt_feat, tgt_mask)
     return src_feat, tgt_feat, cs_f, ct_f
 
 
@@ -229,7 +236,7 @@ def register_pairs_batched(
      corr_src_mask, corr_tgt_pts, corr_tgt_mask) = pair
     with torch.no_grad(), _tf32_off():
         src_feat, tgt_feat, cs_f, ct_f = _feature_stage(
-            model, caps, compute_dtype, *pair)
+            model, caps, compute_dtype, *pair, cfg=cfg)
         res = register_pair_features_batched(  # stages "hypotheses", "icp"
             cfg, src_grid, src_feat, src_mask, tgt_grid, tgt_feat, tgt_mask,
             corr_src_pts, cs_f, corr_src_mask, corr_tgt_pts, ct_f,

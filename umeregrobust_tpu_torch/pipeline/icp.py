@@ -4,9 +4,12 @@ umeregrobust_tpu/pipeline/icp.py).
 Each outer block gathers the 9 (dx, dy) window candidates of every
 source point once and runs `inner` closed-form Umeyama updates against
 that frozen set (correspondences are re-ranked from the moved source in
-every sub-iteration). The JAX while_loop becomes a Python loop with one
-host read per block: the convergence flag (Open3D-style relative
-fitness/rmse criteria, or an RMS block displacement below disp_exit).
+every sub-iteration); at inner=1 (the reference's exact path) every
+iteration gathers its own candidates, which makes each correspondence
+dense_nn_query's. The JAX while_loop becomes a Python loop with one host
+read per block (per iteration at inner=1): the convergence flag
+(Open3D-style relative fitness/rmse criteria, or an RMS block
+displacement below disp_exit).
 Over a leading pair axis the flag is read for the whole batch (all
 converged?), and converged pairs are frozen (JAX's while_loop under vmap).
 """
@@ -42,7 +45,8 @@ def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
              init_T: torch.Tensor, max_corr: float, max_iter: int,
              budget: int, inner: int = 6, disp_exit: float = 1e-4):
     """Refine init_T; returns (T, rmse, fitness, sub-iterations run).
-    max_iter counts sub-iterations; exits land on block boundaries.
+    max_iter counts sub-iterations; exits land on block boundaries (every
+    iteration at inner=1).
 
     With a leading pair axis (src (B, S, 3), init_T (B, 4, 4), B grids)
     every block runs for all pairs at once and the loop runs until every
@@ -51,9 +55,6 @@ def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
     rmse and fitness stop changing, so it ends where it would end alone.
     Returns per-pair (B,) rmse, fitness and sub-iterations (an int for one
     pair)."""
-    if inner < 2:
-        raise NotImplementedError(
-            "icp_inner=1 (per-iteration dense_nn_query) is not ported yet")
     dev = src.device
     f32 = torch.float32
     lead = tuple(src.shape[:-2])
@@ -82,6 +83,8 @@ def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
             w = ok.to(f32)
             dT = umeyama(src_t, torch.where(ok[..., None], q, src_t), w)
             T_c = dT @ T_c
+        if inner == 1:  # the exact path's rmse squares the query's distance
+            bd2 = torch.sqrt(bd2) ** 2
         n_ok = torch.clamp(torch.sum(w, dim=-1), min=1.0)
         rmse = torch.sqrt(torch.sum(torch.where(ok, bd2, torch.zeros_like(
             bd2)), dim=-1) / n_ok)

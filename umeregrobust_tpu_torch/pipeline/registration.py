@@ -1,31 +1,35 @@
 """Per-pair registration from per-voxel features (port of
-umeregrobust_tpu/pipeline/registration.py, round one and the consensus
-gate):
+umeregrobust_tpu/pipeline/registration.py):
 
   1. sample keypoints on each SEM-voxelized cloud,
   2. capped ball-query UME matrices around them,
-  3. argmin subspace-distance matching and the match filter,
+  3. argmin subspace-distance matching and the match filter (or every
+     match, filter_by_ume_dist=False),
   4. one closed-form transform hypothesis per kept match,
-  5. kernel-correlation selection (triage -> coarse -> exact) on the
-     correlator clouds, whose features are copied from the SEM grid by
-     exact 1-NN,
+  5. kernel-correlation selection (radius: triage -> coarse -> exact; or
+     the reference's kNN scores) on the correlator clouds, whose features
+     are copied from the SEM grid by exact 1-NN (copy_features_to_raw) or
+     a dense-grid query (copy_features_to_raw_grid),
   6. the consensus rescue when the winner's match support is fragmented,
+     then the overlap-aware second round when it is weak (sr_kpts),
   7. point-to-point ICP on the dense grid.
 
 Random draws come from a torch.Generator, or are injected through
-`draws` ("src_kp", "tgt_kp", "filter", and the correlator's subsets).
+`draws` ("src_kp", "tgt_kp", "filter", the correlator's subsets, and the
+second round's "sr_src_kp" and "sr_tgt_kp").
 
 Every stage runs over a leading pair axis (register_pair_features_batched:
 B pairs of one shape, one kernel launch a call site for the batch);
 register_pair_features is its one-pair view. Per pair stay only the random
-draws (pair i from generators[i]) and nothing else: the consensus gate and
-ICP's exit are read once for the batch. register_pair_hungarian is the
-reference-parity path with a host-side Hungarian assignment.
+draws (pair i from generators[i]) and nothing else: the consensus and
+second-round gates and ICP's exit are read once for the batch.
+register_pair_hungarian is the reference-parity path with a host-side
+Hungarian assignment.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,7 +39,8 @@ from umeregrobust_tpu_torch.core.ume import (
     estimate_rigid_from_ume, ume_pairwise_distance)
 from umeregrobust_tpu_torch.devices import resolve_device, to_device
 from umeregrobust_tpu_torch.ops.cuda_nn import nn1_argmin
-from umeregrobust_tpu_torch.ops.densegrid import build_dense_grid
+from umeregrobust_tpu_torch.ops.densegrid import (
+    build_dense_grid, dense_nn_query)
 from umeregrobust_tpu_torch.ops.neighbors import (
     gather_padded, take_rows, topk_stable)
 from umeregrobust_tpu_torch.pipeline.consensus import (
@@ -48,11 +53,12 @@ from umeregrobust_tpu_torch.pipeline.icp import icp_loop
 from umeregrobust_tpu_torch.pipeline.matching import (
     argmin_match, hungarian_match, probabilistic_match_filter_batched)
 from umeregrobust_tpu_torch.pipeline.sampling import (
-    injected_batched, weighted_sample_batched)
+    injected_batched, sample_uniforms, weighted_sample_batched)
 from umeregrobust_tpu_torch.pipeline.ume_gen import ume_from_ball_query
 
 __all__ = ["RegistrationConfig", "RegistrationResult", "check_supported",
-           "copy_features_to_raw", "refine_with_icp", "register_pair_features",
+           "copy_features_to_raw", "copy_features_to_raw_grid",
+           "refine_with_icp", "register_pair_features",
            "register_pair_features_batched", "register_pair_hungarian"]
 
 
@@ -60,8 +66,8 @@ __all__ = ["RegistrationConfig", "RegistrationResult", "check_supported",
 class RegistrationConfig:
     """The JAX package's knobs, same names and defaults (see
     umeregrobust_tpu/pipeline/registration.py for each one's rationale),
-    so configs carry over unchanged. Knobs whose paths are not ported yet
-    raise NotImplementedError at run time (`check_supported`)."""
+    so configs carry over unchanged. Every knob's path is ported;
+    `check_supported` only rejects an unknown filter_mode."""
 
     ume_r_nn: float = 5.0
     ume_max_nn: int = 750
@@ -127,27 +133,52 @@ class RegistrationResult(NamedTuple):
 
 
 def check_supported(cfg: RegistrationConfig) -> None:
-    """Raise NotImplementedError for knobs whose paths are not ported."""
-    unported = {
-        "sr_kpts > 0 (second round)": cfg.sr_kpts > 0,
-        "feat_copy_radius (grid feature copy)": cfg.feat_copy_radius is not None,
-        "corr_mode='knn'": cfg.corr_mode != "radius",
-        "filter_by_ume_dist=False": not cfg.filter_by_ume_dist,
-        "icp_inner=1": cfg.icp_inner < 2,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+    """Raise ValueError for an unknown filter_mode; every other knob's
+    path is ported."""
     if cfg.filter_mode not in ("prob", "topk", "mix"):
         raise ValueError(f"unknown filter_mode {cfg.filter_mode!r}")
 
 
+def _overlap_weight(q_pts, q_mask, k_pts, k_mask, radius: float, dims):
+    """Approximate co-observation mask ([B,] Nq) bool: valid q rows whose
+    cell (edge `radius`, box of `dims` cells anchored one cell below the
+    k-cloud's min corner) or one of its 6 face neighbours holds a valid k
+    point (the JAX package's _overlap_weight, per pair with its own
+    occupancy table)."""
+    cell = torch.tensor(radius, dtype=torch.float32, device=q_pts.device)
+    lo = torch.min(torch.where(k_mask[..., None], k_pts,
+                               torch.full_like(k_pts, 1e9)), dim=-2).values \
+        - cell
+    dims_t = torch.tensor(dims, dtype=torch.int32, device=q_pts.device)
+    n_cells = int(np.prod(dims))
+
+    def cell_of(p):
+        c = torch.floor((p - lo[..., None, :]) / cell).to(torch.int32)
+        inb = torch.all((c >= 0) & (c < dims_t), dim=-1)
+        c = torch.minimum(torch.clamp(c, min=0), dims_t - 1).long()
+        return (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2], inb
+
+    k_lin, k_inb = cell_of(k_pts)
+    occ = torch.zeros(k_lin.shape[:-1] + (n_cells + 1,), dtype=torch.bool,
+                      device=q_pts.device)
+    occ.scatter_(-1, torch.where(k_mask & k_inb, k_lin,
+                                 torch.full_like(k_lin, n_cells)), True)
+    q_lin, q_inb = cell_of(q_pts)
+    hit = torch.zeros_like(q_mask)
+    for d in (0, 1, -1, dims[2], -dims[2], dims[1] * dims[2],
+              -dims[1] * dims[2]):
+        hit = hit | torch.gather(occ, -1, torch.clamp(q_lin + d, 0,
+                                                      n_cells - 1))
+    return q_mask & q_inb & hit
+
+
 def _sample_keypoints(pts, mask, n, generators, fixed, struct_boost=0.0,
-                      struct_dz=0.35):
+                      struct_dz=0.35, u=None):
     """n keypoints a pair without replacement, uniform over valid rows (or
     structure-biased by struct_boost): pts (B, N, 3), mask (B, N) ->
     (pts[idx], mask[idx]), (B, n, ..). Surplus slots on small clouds land
-    on padded rows and come back masked. fixed[b] injects pair b's draw."""
+    on padded rows and come back masked. fixed[b] injects pair b's draw;
+    `u` (sampling.sample_uniforms) holds uniforms drawn earlier."""
     if any(f is None for f in fixed):
         p = mask.to(torch.float32)
         if struct_boost > 0.0:
@@ -165,7 +196,7 @@ def _sample_keypoints(pts, mask, n, generators, fixed, struct_boost=0.0,
                 pts, mask, cell[:, None, None], grid_dim) > struct_dz)
             p = p * (1.0 + struct_boost * is_struct.to(torch.float32))
         p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1.0)
-        idx = weighted_sample_batched(p, n, generators, fixed)
+        idx = weighted_sample_batched(p, n, generators, fixed, u=u)
     else:
         idx = torch.stack(fixed)
     return take_rows(pts, idx), take_rows(mask, idx)
@@ -181,6 +212,22 @@ def copy_features_to_raw(raw_pts, raw_mask, sem_pts, sem_feat, sem_mask):
     # zero (= sem_feat[idx] * raw_mask for finite features)
     return gather_padded(sem_feat, torch.where(raw_mask, idx,
                                                torch.full_like(idx, -1)))
+
+
+def copy_features_to_raw_grid(raw_pts, raw_mask, sem_pts, sem_feat,
+                              sem_mask, radius: float, budget: int = 16,
+                              dims=(256, 256, 64)):
+    """Radius-bounded 1-NN feature transfer through a dense grid of the
+    SEM points (cell = radius; the JAX package's
+    copy_features_to_raw_grid, cfg.feat_copy_radius): a correlator point
+    with no SEM point within `radius` (or a masked one) gets a zero
+    feature. Over an optional leading pair axis; the row copy goes through
+    the gather_rows kernel on the card."""
+    grid = build_dense_grid(sem_pts, sem_mask, cell=float(radius),
+                            dims=tuple(dims))
+    _, idx = dense_nn_query(grid, raw_pts, radius=float(radius),
+                            q_mask=raw_mask, budget=int(budget))
+    return gather_padded(sem_feat, idx)
 
 
 def refine_with_icp(cfg: RegistrationConfig, T: torch.Tensor,
@@ -242,6 +289,90 @@ def refine_with_icp(cfg: RegistrationConfig, T: torch.Tensor,
     return T, rmse, fit
 
 
+def _inlier_ratio(T, kp_s, kp_t, pair_ok, radius: float):
+    """(B,) share of the valid matched keypoint pairs that T (B, 4, 4)
+    maps within `radius` of their match: the gates' measure of a winner's
+    match support."""
+    mapped = kp_s @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
+    err2 = torch.sum((mapped - kp_t) ** 2, dim=-1)
+    r2 = torch.tensor(radius ** 2, dtype=torch.float32, device=T.device)
+    n_ok = torch.clamp(torch.sum(pair_ok.to(torch.float32), dim=-1), min=1.0)
+    return torch.sum((pair_ok & (err2 < r2)).to(torch.float32),
+                     dim=-1) / n_ok
+
+
+def _structure_arbiter(cfg: RegistrationConfig, cand, corr_src_pts, fs_w,
+                       corr_src_mask, corr_tgt_pts, ft_w, corr_tgt_mask):
+    """Polish the candidates (B, V, 4, 4) and return the one whose
+    structure-only correlation scores best, (B, 4, 4)."""
+    rows = cfg.consensus_polish_rows
+    pol = polish_candidates(
+        cand, corr_src_pts[:, :rows], corr_src_mask[:, :rows],
+        corr_tgt_pts, corr_tgt_mask, radii=cfg.consensus_polish_radii,
+        inner=cfg.consensus_polish_inner)
+    sp_c, sf_c, sm_c = compact_structure(
+        corr_src_pts, fs_w, corr_src_mask,
+        min(cfg.consensus_struct_cap, corr_src_pts.shape[1]))
+    tp_c, tf_c, tm_c = compact_structure(
+        corr_tgt_pts, ft_w, corr_tgt_mask,
+        min(cfg.consensus_struct_cap, corr_tgt_pts.shape[1]))
+    s_struct = _score(cfg.corr_mode, sp_c, sf_c, sm_c, tp_c, tf_c, tm_c, pol,
+                      knn_k=cfg.corr_knn, sigma=cfg.corr_kernel_sigma)
+    return take_rows(pol, torch.argmax(s_struct, dim=-1)[:, None])[:, 0]
+
+
+def _second_round(cfg: RegistrationConfig, T0, src_pts, src_feat, src_mask,
+                  tgt_pts, tgt_feat, tgt_mask, corr_src_pts, fs_w,
+                  corr_src_mask, corr_tgt_pts, ft_w, corr_tgt_mask,
+                  generators, fixed, uniforms):
+    """The overlap-aware second round from T0 (B, 4, 4) for every pair
+    (the JAX package's run_second_round): keypoints resampled inside the
+    T0-predicted overlap, UME, argmin matches, the best min(sr_hyps,
+    sr_kpts) of them as hypotheses, consensus refit, then the structure
+    arbiter against T0. fixed / uniforms: per side, the injected draws and
+    the uniforms drawn after round one. Returns (B, 4, 4)."""
+    R0, t0 = T0[:, :3, :3], T0[:, :3, 3]
+    fine = float(cfg.icp_max_corr)
+    r_ov = float(cfg.sr_overlap_radius)
+    dims_ov = tuple(int(math.ceil(d * fine / r_ov - 1e-6)) + 2
+                    for d in cfg.icp_dims)
+    w_src = _overlap_weight(src_pts @ R0.transpose(-1, -2) + t0[:, None],
+                            src_mask, tgt_pts, tgt_mask, r_ov, dims_ov)
+    w_tgt = _overlap_weight((tgt_pts - t0[:, None]) @ R0, tgt_mask, src_pts,
+                            src_mask, r_ov, dims_ov)
+    # the full cloud when the predicted overlap is too thin (degenerate T0)
+    w_src = torch.where(torch.sum(w_src, -1, keepdim=True) >= 64, w_src,
+                        src_mask)
+    w_tgt = torch.where(torch.sum(w_tgt, -1, keepdim=True) >= 64, w_tgt,
+                        tgt_mask)
+    skp, sok = _sample_keypoints(src_pts, w_src, cfg.sr_kpts, generators,
+                                 fixed[0], u=uniforms[0])
+    tkp, tok = _sample_keypoints(tgt_pts, w_tgt, cfg.sr_kpts, generators,
+                                 fixed[1], u=uniforms[1])
+    u_s = ume_from_ball_query(src_pts, src_feat, skp, radius=cfg.ume_r_nn,
+                              max_nn=cfg.ume_max_nn, p_mask=src_mask,
+                              k_mask=sok)
+    u_t = ume_from_ball_query(tgt_pts, tgt_feat, tkp, radius=cfg.ume_r_nn,
+                              max_nn=cfg.ume_max_nn, p_mask=tgt_mask,
+                              k_mask=tok)
+    m2, d2 = argmin_match(u_s, u_t, src_mask=sok, tgt_mask=tok)
+    keep2 = topk_stable(-d2, min(cfg.sr_hyps, cfg.sr_kpts))[1]
+    m2k = torch.clamp(torch.gather(m2, -1, keep2), min=0)
+    Ts2, _ = estimate_rigid_from_ume(take_rows(u_s, keep2),
+                                     take_rows(u_t, m2k),
+                                     compute_distance=False,
+                                     sweeps=cfg.estimator_sweeps)
+    ok2 = torch.gather(sok, -1, keep2) & (torch.gather(d2, -1, keep2) < 1e5)
+    cand2 = consensus_refit(
+        Ts2, take_rows(skp, keep2), take_rows(tkp, m2k), ok2,
+        tau=cfg.consensus_tau, n_cand=cfg.sr_cands,
+        nms_rot_deg=cfg.consensus_nms_rot_deg,
+        nms_trans=cfg.consensus_nms_trans)
+    return _structure_arbiter(
+        cfg, torch.cat([cand2, T0[:, None]], dim=1), corr_src_pts, fs_w,
+        corr_src_mask, corr_tgt_pts, ft_w, corr_tgt_mask)
+
+
 def _hypotheses_and_select(cfg: RegistrationConfig,
                            src_pts, src_feat, src_mask,
                            tgt_pts, tgt_feat, tgt_mask,
@@ -250,13 +381,17 @@ def _hypotheses_and_select(cfg: RegistrationConfig,
                            generators: Sequence, draws: Sequence):
     """Round one over B pairs (every input with a leading pair axis):
     keypoints -> UME -> matches -> hypotheses -> cascade, then the
-    consensus rescue behind its gate. The gate is read once for the batch
-    (a Python branch on any(inlier ratio < gate)); when it fires the rescue
-    runs for every pair and only the pairs whose own gate fired take its
-    winner (JAX's lax.cond under vmap). Returns (best_T (B, 4, 4), Ts (B,
-    H, 4, 4), scores (B, H))."""
+    consensus rescue behind its gate and the second round behind its own.
+    Each gate is read once for the batch (a Python branch on any(inlier
+    ratio < gate)); when it fires its stage runs for every pair and only
+    the pairs whose own gate fired take its winner (JAX's lax.cond under
+    vmap). The second round's uniforms are drawn from every pair's
+    generator right after round one whether a gate fires or not, so a
+    pair's draws never depend on its batchmates. Returns (best_T (B, 4,
+    4), Ts (B, H, 4, 4), scores (B, H))."""
     dev = src_pts.device
-    n_init = cfg.num_init_keypoints
+    n_init = (cfg.num_init_keypoints if cfg.filter_by_ume_dist
+              else cfg.ume_n_samples)
     kw = dict(struct_boost=cfg.kp_struct_boost, struct_dz=cfg.kp_struct_dz)
     src_kp, src_kp_ok = _sample_keypoints(
         src_pts, src_mask, n_init, generators,
@@ -275,7 +410,14 @@ def _hypotheses_and_select(cfg: RegistrationConfig,
                         tgt_mask=tgt_kp_ok)
 
     n = cfg.ume_n_samples
-    if cfg.filter_mode == "topk":
+    if not cfg.filter_by_ume_dist:
+        # every slot; slots of invalid keypoints (m = -1 on small clouds)
+        # take the best valid match instead (repeat-best)
+        valid = src_kp_ok & (m >= 0)
+        best = torch.argmin(torch.where(valid, d, torch.full_like(
+            d, float("inf"))), dim=-1, keepdim=True)
+        keep = torch.where(valid, torch.arange(n, device=dev), best)
+    elif cfg.filter_mode == "topk":
         keep = topk_stable(-d, n)[1]
     elif cfg.filter_mode == "mix":
         h = n // 2
@@ -301,62 +443,60 @@ def _hypotheses_and_select(cfg: RegistrationConfig,
         fs_w, ft_w = prepare_weighted_features(
             corr_src_pts, corr_src_feat, corr_src_mask,
             corr_tgt_pts, corr_tgt_feat, corr_tgt_mask,
-            var_knn=cfg.corr_var_knn, var_anchors=cfg.corr_var_anchors)
+            var_knn=cfg.corr_var_knn,
+            var_anchors=(cfg.corr_var_anchors if cfg.corr_mode == "radius"
+                         else None))
     else:
         fs_w, ft_w = corr_src_feat, corr_tgt_feat
     best_T, scores = select_best_transform_batched(
         corr_src_pts, fs_w, corr_src_mask, corr_tgt_pts, ft_w, corr_tgt_mask,
-        Ts, sigma=cfg.corr_kernel_sigma, var_knn=cfg.corr_var_knn,
+        Ts, sigma=cfg.corr_kernel_sigma, knn_k=cfg.corr_knn,
+        var_knn=cfg.corr_var_knn,
         coarse_src=cfg.corr_coarse_src, coarse_tgt=cfg.corr_coarse_tgt,
         rescore_top=cfg.corr_rescore_top, generators=generators,
         mode=cfg.corr_mode, triage_src=cfg.corr_triage_src,
         triage_tgt=cfg.corr_triage_tgt, triage_top=cfg.corr_triage_top,
         prepared=use_cons, var_anchors=cfg.corr_var_anchors, draws=draws)
+    if not use_cons:
+        return best_T, Ts, scores
 
-    if use_cons:
-        pair_ok = (torch.gather(src_kp_ok, -1, keep)
-                   & (torch.gather(d, -1, keep) < 1e5))
-        kp_s = take_rows(src_kp, keep)
-        kp_t = take_rows(tgt_kp, m_keep)
-        fire = None
-        if cfg.consensus_gate_inliers > 0.0:
-            # inlier ratio of the winner over the matched keypoint set:
-            # fragmented support is the regime the rescue stack wins
-            mapped = kp_s @ best_T[:, :3, :3].transpose(-1, -2) \
-                + best_T[:, None, :3, 3]
-            err2 = torch.sum((mapped - kp_t) ** 2, dim=-1)
-            r2 = torch.tensor(cfg.consensus_gate_radius ** 2,
-                              dtype=torch.float32, device=dev)
-            n_ok = torch.clamp(torch.sum(pair_ok.to(torch.float32), dim=-1),
-                               min=1.0)
-            inl = torch.sum((pair_ok & (err2 < r2)).to(torch.float32),
-                            dim=-1) / n_ok
-            fire = inl < cfg.consensus_gate_inliers
-        # the one host read of the gate, for the whole batch
-        if fire is None or bool(torch.any(fire)):
-            cand = consensus_refit(
-                Ts, kp_s, kp_t, pair_ok, tau=cfg.consensus_tau,
-                n_cand=cfg.consensus_cands,
-                nms_rot_deg=cfg.consensus_nms_rot_deg,
-                nms_trans=cfg.consensus_nms_trans)
-            cand = torch.cat([cand, best_T[:, None]], dim=1)
-            rows = cfg.consensus_polish_rows
-            pol = polish_candidates(
-                cand, corr_src_pts[:, :rows], corr_src_mask[:, :rows],
-                corr_tgt_pts, corr_tgt_mask,
-                radii=cfg.consensus_polish_radii,
-                inner=cfg.consensus_polish_inner)
-            sp_c, sf_c, sm_c = compact_structure(
-                corr_src_pts, fs_w, corr_src_mask,
-                min(cfg.consensus_struct_cap, corr_src_pts.shape[1]))
-            tp_c, tf_c, tm_c = compact_structure(
-                corr_tgt_pts, ft_w, corr_tgt_mask,
-                min(cfg.consensus_struct_cap, corr_tgt_pts.shape[1]))
-            s_struct = _score(cfg.corr_mode, sp_c, sf_c, sm_c, tp_c, tf_c,
-                              tm_c, pol, sigma=cfg.corr_kernel_sigma)
-            won = take_rows(pol, torch.argmax(s_struct, dim=-1)[:, None])[:, 0]
-            best_T = won if fire is None else torch.where(
-                fire[:, None, None], won, best_T)
+    if cfg.sr_kpts > 0:  # the second round's draws, fixed here (see above)
+        sr_fixed = [injected_batched(draws, name, cfg.sr_kpts, dev)
+                    for name in ("sr_src_kp", "sr_tgt_kp")]
+        sr_u = [sample_uniforms(x.shape[1], generators, f, dev)
+                for x, f in zip((src_pts, tgt_pts), sr_fixed)]
+    pair_ok = (torch.gather(src_kp_ok, -1, keep)
+               & (torch.gather(d, -1, keep) < 1e5))
+    kp_s = take_rows(src_kp, keep)
+    kp_t = take_rows(tgt_kp, m_keep)
+    arbiter_args = (corr_src_pts, fs_w, corr_src_mask, corr_tgt_pts, ft_w,
+                    corr_tgt_mask)
+    fire = None
+    if cfg.consensus_gate_inliers > 0.0:
+        # fragmented match support is the regime the rescue stack wins
+        fire = _inlier_ratio(best_T, kp_s, kp_t, pair_ok,
+                             cfg.consensus_gate_radius) \
+            < cfg.consensus_gate_inliers
+    # the one host read of the gate, for the whole batch
+    if fire is None or bool(torch.any(fire)):
+        cand = consensus_refit(
+            Ts, kp_s, kp_t, pair_ok, tau=cfg.consensus_tau,
+            n_cand=cfg.consensus_cands,
+            nms_rot_deg=cfg.consensus_nms_rot_deg,
+            nms_trans=cfg.consensus_nms_trans)
+        won = _structure_arbiter(
+            cfg, torch.cat([cand, best_T[:, None]], dim=1), *arbiter_args)
+        best_T = won if fire is None else torch.where(
+            fire[:, None, None], won, best_T)
+
+    if cfg.sr_kpts > 0:
+        fire2 = _inlier_ratio(best_T, kp_s, kp_t, pair_ok,
+                              cfg.consensus_gate_radius) < cfg.sr_gate_inliers
+        if bool(torch.any(fire2)):  # the second gate's one host read
+            won = _second_round(
+                cfg, best_T, src_pts, src_feat, src_mask, tgt_pts, tgt_feat,
+                tgt_mask, *arbiter_args, generators, sr_fixed, sr_u)
+            best_T = torch.where(fire2[:, None, None], won, best_T)
     return best_T, Ts, scores
 
 
@@ -468,7 +608,8 @@ def _select_from_matches(cfg: RegistrationConfig, ume_src, ume_tgt, m_src,
     return select_best_transform(
         corr_src_pts, corr_src_feat, corr_src_mask,
         corr_tgt_pts, corr_tgt_feat, corr_tgt_mask,
-        Ts, sigma=cfg.corr_kernel_sigma, var_knn=cfg.corr_var_knn,
+        Ts, sigma=cfg.corr_kernel_sigma, knn_k=cfg.corr_knn,
+        var_knn=cfg.corr_var_knn,
         coarse_src=cfg.corr_coarse_src, coarse_tgt=cfg.corr_coarse_tgt,
         rescore_top=cfg.corr_rescore_top, generator=generator,
         mode=cfg.corr_mode, triage_src=cfg.corr_triage_src,
@@ -498,7 +639,7 @@ def register_pair_hungarian(
     or tensors; they are moved to `device` (the card unless device="cpu";
     raises without CUDA). Keypoint and correlator draws come from
     `generator` (on `device`, default seed 0) unless `draws` injects them."""
-    check_supported(replace(cfg, filter_by_ume_dist=True))
+    check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

@@ -14,7 +14,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["weighted_sample", "weighted_sample_batched", "uniform_subset",
+__all__ = ["weighted_sample", "weighted_sample_batched", "sample_uniforms",
+           "uniform_subset",
            "subset_batched", "injected", "injected_batched"]
 
 
@@ -25,18 +26,31 @@ def weighted_sample(p: torch.Tensor, n: int,
     return weighted_sample_batched(p[None], n, [generator])[0]
 
 
+def sample_uniforms(N: int, generators: Sequence, fixed: Sequence,
+                    device) -> Optional[torch.Tensor]:
+    """The (B, N) uniforms weighted_sample_batched draws: pair b's from
+    generators[b], ones for a pair whose `fixed` entry injects its draw;
+    None when every pair injects (nothing is drawn)."""
+    if all(f is not None for f in fixed):
+        return None
+    return torch.stack([
+        torch.rand((N,), generator=g, device=device) if f is None
+        else torch.ones((N,), device=device)
+        for g, f in zip(generators, fixed)])
+
+
 def weighted_sample_batched(p: torch.Tensor, n: int, generators: Sequence,
-                            fixed: Optional[Sequence] = None) -> torch.Tensor:
+                            fixed: Optional[Sequence] = None,
+                            u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """weighted_sample over a leading pair axis: p (B, N) -> (B, n) int64,
-    pair b's uniforms from generators[b], one top-k for the batch. A pair
-    whose `fixed` entry is an (n,) draw takes it and draws nothing."""
+    pair b's uniforms from generators[b] (or from `u`, drawn earlier by
+    sample_uniforms), one top-k for the batch. A pair whose `fixed` entry
+    is an (n,) draw takes it and draws nothing."""
     fixed = list(fixed) if fixed is not None else [None] * p.shape[0]
     if all(f is not None for f in fixed):
         return torch.stack(fixed)
-    u = torch.stack([
-        torch.rand(p.shape[1:], generator=g, device=p.device) if f is None
-        else torch.ones(p.shape[1:], device=p.device)
-        for g, f in zip(generators, fixed)])
+    if u is None:
+        u = sample_uniforms(p.shape[1], generators, fixed, p.device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     keys = torch.log(p) - torch.log(-torch.log(u))
     idx = torch.topk(keys, n, dim=-1).indices
