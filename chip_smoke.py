@@ -113,6 +113,22 @@ Phases (any failure ends the run with a non-zero exit):
      per pair the host prep's and the pipeline's seconds, peak device
      memory, the escalations and the kernels launched; fails on a
      non-finite transform or a kernel of the path that never launched;
+  5h. datasets: in a temporary directory, KITTI-layout scans of the
+     first 3 pairs of kitti/test and one nuScenes-layout pair of
+     nuscenes/test (write_dataset_tree: make_pair lidar scenes at HDL-64
+     density, the target moved by the registry's ground truth, nuScenes
+     with ego-vehicle returns and string log names); the SEM preprocessing
+     CLI over --range_idxs 0 3 at 125,000 SEM points a scan, run twice
+     (the second must write nothing); the evaluate CLI's dataset mode at
+     the full kitti_test configuration on the cache (raw scans for the
+     correlator, corr_no_nksr) with the in-repo weights as .pkl and as a
+     MinkowskiEngine .pth (every pair's transform bit-identical); one
+     nuScenes pair preprocessed at test_nuscenes (the ego box dropped);
+     NP / SP, pairs/s, host prep and pipeline seconds, peak memory and
+     kernel launches a pair; then rtume_estimate on pair 0's features
+     (phase_rtume: 512 sample_smart_keypoints keypoints, r 5, cap 750;
+     diagonal, 4096 random triplets, the 512 x 512 grid) on the card
+     against its CPU run, ms a call and ume_moments_fused launches;
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model, the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
@@ -2153,6 +2169,369 @@ def phase_cli(label, argv, expect):
     return res
 
 
+# phase 5h: the evaluate CLI's dataset mode on KITTI- and nuScenes-layout
+# trees at HDL-64 density (64 beams x 1800 azimuth bins over HDL-64E's
+# +2 .. -24.8 deg field of view, dense enough scene surfaces that most
+# beams return), the SEM preprocessing CLI, a MinkowskiEngine .pth of the
+# in-repo weights, and RT-UME on a dataset pair's features
+DATASET_PAIRS = 3
+HDL64 = dict(observe_mode="lidar", ground_points=2_000_000,
+             structure_points=1_500_000, elevation_range=(-24.8, 2.0))
+EGO_POINTS = 400  # returns off the ego vehicle, which the nuScenes reader drops
+
+
+def write_dataset_tree(root, dataset, n_pairs):
+    """Scans of the first n_pairs of {dataset}/test in the reader's layout
+    (KITTI: sequences/{seq:02d}/velodyne/*.bin, labels/*.label; nuScenes:
+    test/sequences/{log}/velodyne/*.bin, no labels, as the exporter writes
+    the test split): each pair one make_pair scene, its target scan moved
+    by the registry's ground truth. Returns the points a scan."""
+    from umeregrobust_tpu_torch.data.registry import load_registry
+    from umeregrobust_tpu_torch.data.synthetic import SceneConfig, make_pair
+
+    reg = load_registry(dataset, "test", skip_invalid_entries=False)
+    rng = np.random.default_rng(7)
+    sizes = []
+    for i in range(n_pairs):
+        seq, f0, f1 = reg.pairs[i]
+        gt = reg.gt_tforms[i]
+        kw = dict(HDL64) if dataset == "kitti" else dict(HDL64,
+                                                         elevation_bins=32)
+        pair = make_pair(SceneConfig(seed=500 + i, **kw), seed=500 + i)
+        R, t = pair["gt_tform"][:3, :3], pair["gt_tform"][:3, 3]
+        tgt = ((pair["tgt_pts"] - t) @ R) @ gt[:3, :3].T + gt[:3, 3]
+        if dataset == "kitti":
+            d = os.path.join(root, "sequences", f"{int(seq):02d}")
+        else:
+            d = os.path.join(root, "test", "sequences", str(seq))
+        os.makedirs(os.path.join(d, "velodyne"), exist_ok=True)
+        for fid, pts, seg in [(int(f0), pair["src_pts"], pair["src_seg"]),
+                              (int(f1), tgt, pair["tgt_seg"])]:
+            pts = np.asarray(pts, np.float32)
+            if dataset != "kitti":
+                ego = rng.uniform([-2.4, -0.9, -1.5], [2.4, 0.9, 0.2],
+                                  (EGO_POINTS, 3)).astype(np.float32)
+                pts = np.concatenate([pts, ego])
+            np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1
+                           ).tofile(os.path.join(d, "velodyne",
+                                                 f"{fid:06d}.bin"))
+            sizes.append(len(pts))
+            if dataset == "kitti":
+                os.makedirs(os.path.join(d, "labels"), exist_ok=True)
+                # raw ids: 9 -> 40 (road), other labels -> 10 (car)
+                np.where(seg == 9, 40, np.where(seg == 0, 0, 10)).astype(
+                    np.uint32).tofile(os.path.join(d, "labels",
+                                                   f"{fid:06d}.label"))
+    return sizes
+
+
+def dataset_eval(label, argv, n_pairs):
+    """The evaluate CLI's dataset mode (parse_args, _datasets,
+    _dataset_pair_iter, evaluate_pairs) over the split's first n_pairs
+    (its own prints go to stderr): NP / SP, pairs/s, per pair host prep and
+    pipeline seconds and the transform, peak device memory and the
+    kernels launched in all and a pair."""
+    import contextlib
+
+    from umeregrobust_tpu_torch.cli import evaluate as ev
+
+    args = ev.parse_args(argv)
+    reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        r = ev.evaluate_pairs(args, *ev._dataset_pair_iter(
+            *ev._datasets(args, dataset_size=n_pairs)))
+    lc = launch_counts()
+    res = dict(
+        run=label, argv=argv, seconds=time.time() - t0, n_pairs=r["n_pairs"],
+        np_recall=r["np_recall"], sp_recall=r["sp_recall"],
+        mean_rre_deg=r["mean_rre"], mean_rte_m=r["mean_rte"],
+        pairs_per_s=r["pairs_per_sec"], per_pair=r["per_pair"],
+        max_memory_allocated_bytes=r.get("max_memory_allocated_bytes"),
+        escalations=r["icp_exactness"]["escalations"], launches=lc,
+        launches_per_pair={k: v / max(r["n_pairs"], 1)
+                           for k, v in lc.items()},
+        missing_kernels=[k for k in MAIN_KERNELS if lc[k] <= 0])
+    res["ok"] = (r["n_pairs"] == n_pairs and not res["missing_kernels"]
+                 and all(p["finite"] for p in r["per_pair"]))
+    return res
+
+
+def horn_gaps(G, H):
+    """Per estimate, the gap between the two largest eigenvalues of Horn's
+    4x4 matrix of the cross-covariance that estimate_rigid_from_ume forms
+    from (G, H) (float64), over the largest |eigenvalue|: the closed-form
+    rotation moves by about (input change) / gap, so a small gap marks an
+    ill-conditioned estimate that two fp32 solvers may resolve apart."""
+    G = np.asarray(G, np.float64)
+    H = np.asarray(H, np.float64)
+    mg, mh, g, h = G[..., 0:1], H[..., 0:1], G[..., 1:], H[..., 1:]
+    mg_sq = (mg * mg).sum(-2, keepdims=True) + 1e-16
+    wlc = (g * mg).sum(-2, keepdims=True) / (mg_sq + 1e-16)
+    wrc = (h * mg).sum(-2, keepdims=True) / (
+        (mg * mh).sum(-2, keepdims=True) + 1e-16)
+    S = np.swapaxes(g - wlc * mg, -1, -2) @ (h - wrc * mh)
+    xx, xy, xz = S[..., 0, 0], S[..., 0, 1], S[..., 0, 2]
+    yx, yy, yz = S[..., 1, 0], S[..., 1, 1], S[..., 1, 2]
+    zx, zy, zz = S[..., 2, 0], S[..., 2, 1], S[..., 2, 2]
+    N = np.stack([
+        np.stack([xx + yy + zz, yz - zy, zx - xz, xy - yx], -1),
+        np.stack([yz - zy, xx - yy - zz, xy + yx, zx + xz], -1),
+        np.stack([zx - xz, xy + yx, -xx + yy - zz, yz + zy], -1),
+        np.stack([xy - yx, zx + xz, yz + zy, -xx - yy + zz], -1)], -2)
+    w = np.linalg.eigvalsh(N)
+    return (w[..., 3] - w[..., 2]) / np.maximum(np.abs(w).max(-1), 1e-30)
+
+
+def ume_f64(kp, pts, feats, mask, radius, cap):
+    """The normalised UME matrices of ume_from_ball_query in float64: the
+    same balls (the plain version's fp32 distance test and cap) with the
+    rows summed in float64, to say how far each fp32 version is from
+    exact sums."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.neighbors import sqdist3
+
+    pts = pts.cpu().to(torch.float32)
+    f = feats.cpu().double() * mask.cpu()[:, None]
+    p64 = pts.double()
+    Z = torch.cat([f, f * p64[:, 0:1], f * p64[:, 1:2], f * p64[:, 2:3]], 1)
+    r2 = torch.tensor(float(radius), dtype=torch.float32) ** 2
+    out = []
+    for s in range(0, kp.shape[0], 128):
+        ok = (sqdist3(kp[s:s + 128].cpu().to(torch.float32), pts) <= r2
+              ) & mask.cpu()[None, :]
+        w = ok & (torch.cumsum(ok.to(torch.int32), -1) <= cap)
+        out.append(w.double() @ Z)
+    C = feats.shape[1]
+    F = torch.cat(out).reshape(-1, 4, C).transpose(-1, -2)
+    return F / (F[..., 0].sum(-1)[:, None, None] + 1e-6)
+
+
+RTUME_N_RAND = 4096
+RTUME_GAP_MIN = 1e-3  # estimates with a smaller relative gap: reported only
+
+
+def phase_rtume(dev, args, dset, raw):
+    """RT-UME on pair 0 of the cached dataset: ResUNetSmall2 features
+    (the in-repo weights) of the padded SEM clouds, num_samples keypoints
+    from sample_smart_keypoints, the target's the same keypoints moved by
+    the ground truth; rtume_estimate at r = rtume_r_nn, cap rtume_nn_max
+    in its diagonal, n_rand and full-grid modes on the card (ms of a call
+    after a warm-up, ume_moments_fused launches a call) and on the CPU
+    (plain versions) with the same inputs and triplets: G,
+    |G|, H and D within 1e-4 x max |value| (the tier-1 tolerance of
+    tests/test_torch_rtume.py), with both G's distance from float64 sums
+    of the same balls (ume_f64); T within 1e-4 x max |T| for every
+    estimate whose Horn gap is at least RTUME_GAP_MIN, the rest counted
+    with their largest error. Also the diagonal estimates' median RRE /
+    RTE against the truth."""
+    import torch
+
+    from umeregrobust_tpu_torch.cli import evaluate as ev
+    from umeregrobust_tpu_torch.core.transforms import relative_rotation_error
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.ops.voxel import quantize_np
+    from umeregrobust_tpu_torch.pipeline.e2e import pair_features_e2e
+    from umeregrobust_tpu_torch.pipeline.keypoint_samplers import (
+        sample_smart_keypoints)
+    from umeregrobust_tpu_torch.pipeline.rtume import rtume_estimate
+
+    item = next(ev._dataset_pair_iter(dset, raw)[0])
+    cap, corr_cap = int(args.max_pc_size), int(args.pc_corr_max_size)
+    caps = tuple(int(-(-int(cap * r) // 128) * 128)
+                 for r in (1.0, 0.75, 0.4, 0.2, 0.08))
+    rng = np.random.default_rng(0)
+    sp, ss, sc, sm = ev._pad_cloud(*item["sem_src"], cap, rng)
+    tp, _, tc, tm = ev._pad_cloud(*item["sem_tgt"], cap, rng)
+    corr = []
+    for pts in (item["raw_src"], item["raw_tgt"]):
+        _, sel = quantize_np(pts, 0.3)
+        p = pts[sel][rng.permutation(len(sel))[:corr_cap]]
+        buf = np.zeros((corr_cap, 3), np.float32)
+        buf[:len(p)] = p
+        corr += [buf, np.arange(corr_cap) < len(p)]
+    model = load_model(CLI_WEIGHTS, ARCHS["ResUNetSmall2"], device=dev)
+    with torch.no_grad():
+        sf, tf, _, _ = pair_features_e2e(model, caps, sc, sp, sm, tc, tp, tm,
+                                         *corr, device=dev)
+    n_kp = int(args.num_samples)
+    kp, km = sample_smart_keypoints(sp, ss, sm, num_samples=n_kp, device=dev)
+    gt = torch.as_tensor(item["gt_tform"], device=dev)
+    tkp = (kp @ gt[:3, :3].T + gt[:3, 3]) * km[:, None]
+    up = {k: torch.as_tensor(v, device=dev)
+          for k, v in dict(sp=sp, tp=tp, sm=sm, tm=tm).items()}
+    inputs = dict(src_pts=up["sp"], src_feat=sf, src_kp=kp, tgt_pts=up["tp"],
+                  tgt_feat=tf, tgt_kp=tkp, src_mask=up["sm"],
+                  tgt_mask=up["tm"],
+                  ume_knn=int(args.rtume_nn_max),
+                  ume_desc_rad=float(args.rtume_r_nn))
+    cpu_inputs = {k: (v.cpu() if torch.is_tensor(v) else v)
+                  for k, v in inputs.items()}
+    modes = {"diag": dict(), "n_rand": dict(n_rand=RTUME_N_RAND),
+             "grid": dict(diag_only=False)}
+    G64 = ume_f64(kp, up["sp"], sf, up["sm"], inputs["ume_desc_rad"],
+                  inputs["ume_knn"])
+    out, launches = {"keypoints": int(km.sum()), "n_kp": n_kp}, 0
+    for mode, kw in modes.items():
+        def card(kw=kw):
+            g = torch.Generator(device=dev).manual_seed(3)
+            return rtume_estimate(**inputs, **kw, generator=g, device=dev)
+
+        card()  # warm-up
+        torch.cuda.synchronize()
+        before = launch_counts()["ume_moments_fused"]
+        t0 = time.perf_counter()
+        T, D, G, H = card()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_launch = launch_counts()["ume_moments_fused"] - before
+        launches += n_launch
+        ckw = dict(kw)
+        if "n_rand" in kw:  # the card generator's draws, replayed
+            ckw["draws"] = torch.randint(
+                0, n_kp, (RTUME_N_RAND, 3), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(3)).cpu()
+        t0 = time.perf_counter()
+        Tc, Dc, Gc, Hc = rtume_estimate(**cpu_inputs, **ckw, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if mode == "diag":
+            gaps = horn_gaps(Gc.numpy(), Hc.numpy())
+        elif mode == "n_rand":
+            tr = ckw["draws"].numpy()
+            gaps = horn_gaps(Gc.numpy()[tr].sum(1), Hc.numpy()[tr].sum(1))
+        else:
+            gaps = horn_gaps(Gc.numpy()[:, None], Hc.numpy()[None, :])
+        err = (T.cpu() - Tc).abs().amax((-2, -1)).numpy()
+        tol_T = 1e-4 * float(Tc.abs().max())
+        well = gaps >= RTUME_GAP_MIN
+        errs = {n_: float((a.cpu() - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+            for n_, a, b in (("G", G, Gc), ("H", H, Hc), ("D", D, Dc))}
+        g_scale = float(G64.abs().max())
+        row = dict(
+            mode=mode, estimates=int(err.size), ms=ms, cpu_s=cpu_s,
+            rel_err_G_card_vs_f64=float((G.cpu().double() - G64).abs().max())
+            / g_scale,
+            rel_err_G_cpu_vs_f64=float((Gc.double() - G64).abs().max())
+            / g_scale,
+            ume_moments_fused_launches=n_launch,
+            max_abs_err_T=float(err.max()), tol_T=tol_T,
+            max_abs_err_T_well=float(err[well].max()) if well.any() else 0.0,
+            ill_conditioned=int((~well).sum()),
+            max_abs_err_T_ill=float(err[~well].max()) if (~well).any()
+            else 0.0,
+            over_1e4_abs=int((err > 1e-4).sum()),
+            rel_err_G=errs["G"], rel_err_H=errs["H"], rel_err_D=errs["D"],
+            finite=bool(torch.isfinite(T).all()))
+        if mode == "diag":
+            ok = km.cpu().numpy()
+            Tn = T.cpu().double()[ok]
+            gt64 = torch.as_tensor(item["gt_tform"], dtype=torch.float64)
+            rre = relative_rotation_error(
+                gt64[:3, :3].expand(len(Tn), 3, 3), Tn[:, :3, :3])
+            row.update(median_rre_deg=float(rre.median()),
+                       median_rte_m=float(torch.linalg.vector_norm(
+                           Tn[:, :3, 3] - gt64[:3, 3], dim=-1).median()))
+        row["ok"] = (row["finite"] and n_launch == 2
+                     and row["max_abs_err_T_well"] <= tol_T
+                     and max(errs.values()) <= 1e-4)
+        out[mode] = row
+        emit({"phase": "rtume", **row})
+    out["ok"] = all(out[m]["ok"] for m in modes)
+    out["launches"] = launches
+    return out
+
+
+def phase_datasets(dev, t_start):
+    """Phase 5h (a)-(e) in a temporary directory; returns (summary, launch
+    counts by path)."""
+    import tempfile
+
+    import torch
+
+    from umeregrobust_tpu_torch.cli import evaluate as ev
+    from umeregrobust_tpu_torch.cli import sem_preprocessing
+    from umeregrobust_tpu_torch.models.convert import to_me_state_dict
+    from umeregrobust_tpu_torch.models.weights import load_checkpoint
+
+    out, paths = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as work:
+        kitti, nusc = os.path.join(work, "kitti"), os.path.join(work, "nusc")
+        cache = os.path.join(work, "kitti_sem_cache")
+        # (a) the trees
+        t0 = time.time()
+        sizes = write_dataset_tree(kitti, "kitti", DATASET_PAIRS)
+        nu_sizes = write_dataset_tree(nusc, "nuscenes", 1)
+        out["trees"] = dict(seconds=time.time() - t0, kitti_scan_points=sizes,
+                            nuscenes_scan_points=nu_sizes)
+        emit({"phase": "dataset_trees", **out["trees"]})
+        # (b) SEM preprocessing (125,000 SEM points a scan), then again
+        sem_argv = ["--dataset_mode", "kitti", "--split", "test",
+                    "--data_path", os.path.join(kitti, "sequences"),
+                    "--output_path", cache, "--range_idxs", "0",
+                    str(DATASET_PAIRS)]
+        t0 = time.time()
+        written = sem_preprocessing.main(sem_argv)
+        sem_s = time.time() - t0
+        t0 = time.time()
+        again = sem_preprocessing.main(sem_argv)
+        out["sem"] = dict(written=written, written_again=again,
+                          seconds=sem_s, host_s_per_pair=sem_s / DATASET_PAIRS,
+                          seconds_again=time.time() - t0)
+        out["sem"]["ok"] = written == DATASET_PAIRS and again == 0
+        emit({"phase": "sem_preprocessing", **out["sem"]})
+        # (c) dataset mode at kitti_test: the .pkl, then a .pth of the same
+        # weights (MinkowskiEngine naming, x-fastest taps)
+        blob = load_checkpoint(CLI_WEIGHTS)
+        pth = os.path.join(work, "kitti_coloring_best_checkpoint.pth")
+        torch.save({"model_state_dict": {
+            k: torch.from_numpy(v) for k, v in to_me_state_dict(
+                blob["params"], blob["bn_state"]).items()}}, pth)
+        base = ["--set", f"data_path={os.path.join(kitti, 'sequences')}",
+                "--set", f"cache_data_path={cache}",
+                "--set", "corr_no_nksr=true"]
+        runs = [dataset_eval(
+            label, base + ["--set", f"model_checkpoint_path={ckpt}"],
+            DATASET_PAIRS) for label, ckpt in (("kitti_test_pkl", CLI_WEIGHTS),
+                                               ("kitti_test_pth", pth))]
+        same = [a["T"] == b["T"] for a, b in zip(runs[0]["per_pair"],
+                                                 runs[1]["per_pair"])]
+        for r in runs:
+            r["T_bit_identical_pkl_pth"] = same
+            emit({"phase": "dataset_cli", **r,
+                  "seconds_total": time.time() - t_start})
+            paths[f"dataset_{r['run']}"] = r["launches"]
+        out["kitti"] = runs
+        # (d) one nuScenes pair in preprocess mode
+        from umeregrobust_tpu_torch.data.datasets import NuscenesDataset
+
+        nu_args = ["--benchmark", "nuscenes_test",
+                   "--set", f"data_path={nusc}", "--set", "cache_data_path=",
+                   "--set", f"model_checkpoint_path={CLI_WEIGHTS}"]
+        nd = NuscenesDataset(nusc, "test", dataset_size=1)
+        seq, f0, _ = nd._pair_key(0)
+        pts, seg = nd._load_frame(seq, f0)
+        ego_dropped = len(pts) - len(nd._post_load_filter(pts, seg)[0])
+        nu = dataset_eval("nuscenes_test_preprocess", nu_args, 1)
+        nu.update(sequence=seq, ego_points_dropped=ego_dropped)
+        nu["ok"] = nu["ok"] and ego_dropped >= EGO_POINTS
+        emit({"phase": "dataset_cli", **nu,
+              "seconds_total": time.time() - t_start})
+        paths["dataset_nuscenes"] = nu["launches"]
+        out["nuscenes"] = nu
+        # (e) RT-UME on pair 0's features
+        args = ev.parse_args(base)
+        reset_launch_counts()
+        rt = phase_rtume(dev, args, *ev._datasets(args, dataset_size=1))
+        paths["rtume"] = launch_counts()
+        out["rtume"] = rt
+    out["ok"] = (out["sem"]["ok"] and all(r["ok"] for r in runs)
+                 and all(same) and nu["ok"] and rt["ok"])
+    return out, paths
+
+
 def phase_reference(dev, model_gpu, model_cpu, cfg_small):
     """The small pair on the card and on the CPU with the same draws."""
     import torch
@@ -2511,12 +2890,22 @@ def main() -> int:
     for res in cli_runs:
         emit({"phase": "cli", **res, "seconds_total": time.time() - t_start})
 
+    # --- 5h. the CLI's dataset mode (KITTI SEM cache, .pkl and .pth; one
+    # nuScenes pair preprocessed), the SEM CLI and RT-UME
+    emit({"phase": "datasets_start", "seconds_total": time.time() - t_start})
+    data_res, data_paths = phase_datasets(dev, t_start)
+    emit({"phase": "datasets", "ok": data_res["ok"],
+          "rtume_launches": data_res["rtume"]["launches"],
+          "rtume_keypoints_kept": data_res["rtume"]["keypoints"],
+          "seconds_total": time.time() - t_start})
+
     paths = {"e2e": e2e_launches, "family": fam["launches"],
              "scan": scan_launches, "batched": batch_res["regimes"][1],
              "batched_resunet": res_b["launches"],
              "hungarian": hung["launches"],
              **{f"config_{k}": v for k, v in cfg_launches.items()},
-             **{f"cli_{r['run']}": r["launches"] for r in cli_runs}}
+             **{f"cli_{r['run']}": r["launches"] for r in cli_runs},
+             **data_paths}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
@@ -2596,12 +2985,27 @@ def main() -> int:
         if not res["ok"]:
             failures.append(f"cli {res['run']}: non-finite transform or "
                             f"kernels {res['missing_kernels']} never launched")
+    if not data_res["sem"]["ok"]:
+        failures.append(f"SEM preprocessing: wrote {data_res['sem']['written']}"
+                        f" then {data_res['sem']['written_again']} pairs")
+    for res in data_res["kitti"] + [data_res["nuscenes"]]:
+        if not res["ok"]:
+            failures.append(f"dataset mode {res['run']}: pairs, transforms, "
+                            f"ego filter or kernels {res['missing_kernels']}")
+    if not all(data_res["kitti"][0]["T_bit_identical_pkl_pth"]):
+        failures.append("dataset mode: .pth and .pkl transforms differ")
+    for mode in ("diag", "n_rand", "grid"):
+        if not data_res["rtume"][mode]["ok"]:
+            failures.append(f"rtume {mode}: card and CPU differ, or "
+                            "launches other than 2 a call")
     # a kernel of a path must have launched in that path's counted run
     on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
                "batched_resunet": ("nn1_argmin", "gather_rows",
                                    "sparse_conv_rowtile",
                                    "sparse_conv_tapsplit"),
                "hungarian": MAIN_KERNELS,
+               **{p_: MAIN_KERNELS for p_ in data_paths if p_ != "rtume"},
+               "rtume": ("ume_moments_fused",),
                "family": tuple(KERNELS),
                "scan": ("nn1_argmin", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",

@@ -1,12 +1,16 @@
 """The port's evaluate CLI and config layer against the JAX package's: the
 YAML reader against yaml.safe_load, the port's own YAML copies, the
 RegistrationConfig an argv gives, the --set key check, the cloud padding
-and the synthetic pairs bit for bit, and main() end to end on the CPU on
-one small synthetic pair (default and reference-parity profiles, and the
-Hungarian switch)."""
+and the synthetic pairs bit for bit, the dataset pairs (SEM cache or raw
+scans) bit for bit on a small KITTI tree the tests write, and main() end
+to end on the CPU on one small pair: synthetic (default and
+reference-parity profiles, the Hungarian switch, a MinkowskiEngine .pth
+checkpoint) and from the dataset tree."""
 import argparse
 import dataclasses
+import itertools
 import pathlib
+import pickle
 
 import numpy as np
 import pytest
@@ -14,9 +18,14 @@ import torch
 import yaml
 
 import _torch_parity  # noqa: F401  (single-threaded torch)
+from test_torch_data import write_kitti_tree
 from umeregrobust_tpu.cli import evaluate as jev
 from umeregrobust_tpu.utils import config as jconfig
 from umeregrobust_tpu_torch.cli import evaluate as ev
+from umeregrobust_tpu_torch.cli import sem_preprocessing
+from umeregrobust_tpu_torch.data import registry
+from umeregrobust_tpu_torch.models.convert import to_me_state_dict
+from umeregrobust_tpu_torch.ops.voxel import quantize_np
 from umeregrobust_tpu_torch.utils import config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -136,6 +145,7 @@ def test_synthetic_pair_iter_matches_jax():
             np.testing.assert_array_equal(a, b, err_msg=k)
 
 
+WEIGHTS_PKL = "weights/synthetic_pretrain.pkl"
 SMALL = ["--synthetic", "1", "--device", "cpu",
          "--set", "model_checkpoint_path=weights/synthetic_pretrain.pkl",
          "--set", "max_pc_size=4096", "--set", "pc_corr_max_size=2048",
@@ -169,17 +179,106 @@ def test_main_refuses_to_fall_back_to_the_cpu():
         ev.main(["--synthetic", "1"])
 
 
-def test_dataset_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ev.main(["--device", "cpu"])
+@pytest.fixture(scope="module")
+def kitti_cache(tmp_path_factory):
+    """A KITTI tree of kitti/test's first two pairs and its SEM cache
+    (the port's SEM CLI)."""
+    root = tmp_path_factory.mktemp("kitti")
+    tree = write_kitti_tree(root / "sequences", n_pairs=2)
+    cache = str(root / "sem_cache")
+    assert sem_preprocessing.main([
+        "--dataset_mode", "kitti", "--split", "test", "--data_path", tree,
+        "--output_path", cache, "--range_idxs", "0", "2"]) == 2
+    return tree, cache
 
 
-def test_pth_checkpoint_is_not_ported(tmp_path):
-    path = tmp_path / "coloring.pth"
-    path.write_bytes(b"")
-    args = argparse.Namespace(model_checkpoint_path=str(path), out_ch=32)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ev._load_model(args, "cpu")
+def _dataset_args(pkg_ev, pkg_config, tree, cache, sets):
+    return _args(pkg_ev, pkg_config, "kitti_test",
+                 [f"data_path={tree}", f"cache_data_path={cache}"] + sets)
+
+
+@pytest.mark.parametrize("sets,cached", [
+    ([], True), (["corr_no_nksr=true"], True),
+    (["corr_no_nksr=true", "skip_invalid_entries_flag=false"], False)],
+    ids=["cache", "cache_and_raw_scans", "preprocess"])
+def test_dataset_pair_iter_matches_jax(kitti_cache, sets, cached):
+    tree, cache = kitti_cache
+    cache = cache if cached else ""
+    args = _dataset_args(ev, config, tree, cache, sets)
+    jargs = _dataset_args(jev, jconfig, tree, cache, sets)
+    it, n = ev._dataset_pair_iter(*ev._datasets(args))
+    jit, jn = jev._dataset_pair_iter(jargs)
+    assert n == jn == (1475 if cached else 1476)
+    for got, want in itertools.islice(zip(it, jit), 2):
+        assert got.keys() == want.keys()
+        for k in ("sem_src", "sem_tgt"):
+            # the JAX CLI keeps every row beside fewer coords (its
+            # _pad_cloud then fails); the port keeps the row of each
+            # coord's first occurrence, which is all rows where the
+            # re-quantization is one to one
+            pts, seg, coords = want[k]
+            assert len(coords) < len(pts)
+            _, first = quantize_np(pts, 0.3)
+            want[k] = (pts[first], seg[first], coords)
+        for k in got:
+            g, w = got[k], want[k]
+            for a, b in zip(g if isinstance(g, tuple) else (g,),
+                            w if isinstance(w, tuple) else (w,)):
+                assert a.dtype == b.dtype, k
+                np.testing.assert_array_equal(a, b, err_msg=k)
+        assert all(len(x) == len(got[k][0]) for k in ("sem_src", "sem_tgt")
+                   for x in got[k])
+    raw_from_cache = cached and "corr_no_nksr=true" not in sets
+    sem_pts = ev._datasets(args)[0][1][0]  # pair 1's evaluated cloud
+    assert np.array_equal(got["raw_src"], sem_pts) == raw_from_cache
+
+
+def test_datasets_keep_the_first_pairs(kitti_cache):
+    tree, cache = kitti_cache
+    args = _dataset_args(ev, config, tree, cache, ["corr_no_nksr=true"])
+    dset, raw = ev._datasets(args, dataset_size=2)
+    assert (len(dset), len(raw)) == (2, 2)
+    assert dset.cache_data_path == cache and raw.cache_data_path == ""
+
+
+@pytest.fixture
+def two_pair_registry(tmp_path, monkeypatch):
+    """The registry's kitti/test cut to its first two pairs."""
+    meta = tmp_path / "metadata"
+    (meta / "kitti").mkdir(parents=True)
+    for name in ("test_metadata", "test_gt_tforms"):
+        arr = np.load(pathlib.Path(registry._META_DIR) / "kitti"
+                      / f"{name}.npy", allow_pickle=True)
+        np.save(meta / "kitti" / f"{name}.npy", arr[:2])
+    monkeypatch.setattr(registry, "_META_DIR", str(meta))
+
+
+def test_main_runs_dataset_mode_on_the_cpu(kitti_cache, two_pair_registry,
+                                           capsys):
+    tree, cache = kitti_cache
+    res = ev.main(["--device", "cpu"] + SMALL[4:] + [
+        "--set", f"data_path={tree}", "--set", f"cache_data_path={cache}",
+        "--set", "corr_no_nksr=true"])
+    out = capsys.readouterr().out
+    assert "Evaluate kitti benchmark: kitti_test" in out
+    assert res["n_pairs"] == 2 and all(r["finite"] for r in res["per_pair"])
+    assert "N.P: " in out
+
+
+def test_main_runs_with_a_pth_checkpoint(tmp_path, capsys):
+    with open(WEIGHTS_PKL, "rb") as f:
+        blob = pickle.load(f)
+    path = tmp_path / "kitti_coloring_best_checkpoint.pth"
+    torch.save({"model_state_dict": {
+        k: torch.from_numpy(np.array(v)) for k, v in
+        to_me_state_dict(blob["params"], blob["bn_state"]).items()}}, path)
+    argv = list(SMALL)
+    argv[argv.index("model_checkpoint_path=weights/synthetic_pretrain.pkl")] \
+        = f"model_checkpoint_path={path}"
+    res = ev.main(argv)
+    out = capsys.readouterr().out
+    assert f"loaded checkpoint: {path}" in out
+    assert res["n_pairs"] == 1 and all(r["finite"] for r in res["per_pair"])
 
 
 def test_missing_checkpoint_gives_seeded_random_parameters(capsys):

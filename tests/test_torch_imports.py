@@ -39,10 +39,47 @@ def test_importing_every_module_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert len(MODULES) >= 27
+    assert len(MODULES) >= 40
     for new in ("ops.cuda_gather", "ops.cuda_conv", "devices",
                 "cli.evaluate", "utils.config", "utils.prefetch"):
         assert f"umeregrobust_tpu_torch.{new}" in MODULES
+
+
+# the modules of the data layer, the SEM CLI and the exporter run on the
+# host with numpy and scipy, as in the JAX package
+HOST_ONLY = ["data.laserscan", "data.registry", "data.matching_host",
+             "data.sem", "data.datasets", "data.collate",
+             "data.sem_preprocess", "data.nuscenes_export",
+             "cli.sem_preprocessing"]
+
+
+@pytest.mark.parametrize("mod", HOST_ONLY + [
+    "models.convert", "pipeline.rtume", "pipeline.keypoint_samplers"])
+def test_every_ported_module_is_there(mod):
+    assert f"umeregrobust_tpu_torch.{mod}" in MODULES
+
+
+def test_host_only_modules_leave_torch_out():
+    code = ("import importlib, sys\n"
+            "before = set(sys.modules)\n"
+            f"for m in {HOST_ONLY!r}: "
+            "importlib.import_module('umeregrobust_tpu_torch.' + m)\n"
+            "bad = [m for m in set(sys.modules) - before if m == 'torch' or "
+            "m.startswith(('torch.', 'jax', 'umeregrobust_tpu.'))]\n"
+            "assert not bad, sorted(bad)[:20]\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
+def test_the_port_reads_no_file_of_the_jax_package():
+    # its metadata and configs are its own copies
+    from umeregrobust_tpu_torch.data import registry
+
+    assert pathlib.Path(registry._META_DIR).resolve() == \
+        PKG / "data" / "metadata"
+    for p in PKG.rglob("*.py"):
+        assert "umeregrobust_tpu/data/metadata" not in p.read_text(), p
 
 
 _FORBIDDEN = re.compile(

@@ -22,9 +22,15 @@ prep uses np.random.default_rng(seed * 100003 + i), as in the JAX CLI;
 its device draws (keypoints, match filter, correlator subsets, second
 round) come from torch.Generator(device).manual_seed(seed * 100003 + i);
 the Hungarian path's host filter from np.random.default_rng(seed * 9176 +
-i). The KITTI / nuScenes dataset readers and MinkowskiEngine .pth
-checkpoints are not ported (ROADMAP Queue 1 items 15 and 17): they raise
-NotImplementedError.
+i).
+
+Without --synthetic the CLI reads the benchmark's dataset: the YAML's
+`dataset` (kitti / nuscenes), `split`, `data_path` (raw scans) and
+`cache_data_path` (the SEM cache that cli/sem_preprocessing.py writes;
+empty: preprocess the raw scans), each settable with --set. A
+`model_checkpoint_path` ending in .pth / .pt is a MinkowskiEngine
+checkpoint of the reference (models/convert.py); any other existing path
+is a .pkl checkpoint of this project.
 """
 from __future__ import annotations
 
@@ -38,11 +44,15 @@ from typing import Dict
 import numpy as np
 import torch
 
+from umeregrobust_tpu_torch.data.datasets import (
+    NuscenesDataset, SemanticKITTIDataset)
 from umeregrobust_tpu_torch.data.sem import SEMConfig, equalize_sampling
 from umeregrobust_tpu_torch.data.synthetic import SceneConfig, make_pair
 from umeregrobust_tpu_torch.devices import resolve_device
 from umeregrobust_tpu_torch.models.resunet import ARCHS, init_resunet
-from umeregrobust_tpu_torch.models.weights import load_model
+from umeregrobust_tpu_torch.models.convert import load_torch_checkpoint
+from umeregrobust_tpu_torch.models.weights import (
+    load_checkpoint, model_from_params)
 from umeregrobust_tpu_torch.ops.voxel import coords_to_grid_pts_np, quantize_np
 from umeregrobust_tpu_torch.pipeline.e2e import (
     pair_features_e2e, register_pair_e2e)
@@ -177,21 +187,22 @@ def _known_set_keys(yaml_keys) -> set:
 
 
 def _load_model(args, device):
-    """(arch, ResUNetSmall2 on `device`): the weights of a .pkl checkpoint
-    (models/weights.load_model); a missing path gives seeded random
-    parameters ("smoke mode", init_resunet from a generator seeded 0: not
-    the JAX CLI's PRNGKey(0) parameters, which torch cannot draw); a .pth
-    checkpoint raises NotImplementedError."""
+    """(arch, ResUNetSmall2 on `device`): the weights of a MinkowskiEngine
+    .pth / .pt checkpoint (models/convert.load_torch_checkpoint, taps in
+    ME's x-fastest order) or of a .pkl checkpoint; a missing path gives
+    seeded random parameters ("smoke mode", init_resunet from a generator
+    seeded 0: not the JAX CLI's PRNGKey(0) parameters, which torch cannot
+    draw)."""
     arch = ARCHS["ResUNetSmall2"]
     path = getattr(args, "model_checkpoint_path", "")
     if path and os.path.exists(path):
         if path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{path}: MinkowskiEngine .pth checkpoints need "
-                "models/convert.py, not ported yet (ROADMAP Queue 1 item "
-                "17); convert with the JAX package and pass the .pkl")
-        model = load_model(path, arch, device=device,
-                           out_channels=int(args.out_ch))
+            params, state = load_torch_checkpoint(path)
+        else:
+            blob = load_checkpoint(path)
+            params, state = blob["params"], blob["bn_state"]
+        model = model_from_params(params, state, arch, device=device,
+                                  out_channels=int(args.out_ch))
         print(f"loaded checkpoint: {path}")
     else:
         print(f"checkpoint {path!r} not found -> random init (smoke mode)")
@@ -212,8 +223,8 @@ def evaluate_pairs(args, pair_iter, n_pairs: int) -> Dict[str, float]:
     (pipeline/exactness.py). Returns recall, mean errors, pairs/s (pair 0
     excluded), per-pair seconds split into host prep (making or reading
     the scans, voxelizing, padding: worker threads) and pipeline (the
-    main thread's call and the read of its transform), the escalations
-    and, on the card, the peak device memory."""
+    main thread's call and the read of its transform) with the transform
+    itself, the escalations and, on the card, the peak device memory."""
     dev = resolve_device(getattr(args, "device", "cuda"))
     _, model = _load_model(args, dev)
     reg_cfg = _registration_cfg(args)
@@ -297,7 +308,8 @@ def evaluate_pairs(args, pair_iter, n_pairs: int) -> Dict[str, float]:
         rte = float(np.linalg.norm(T[:3, 3] - gt[:3, 3]))
         rre_list.append(rre)
         rte_list.append(rte)
-        rec.update(rre_deg=rre, rte_m=rte, finite=bool(np.isfinite(T).all()))
+        rec.update(rre_deg=rre, rte_m=rte, finite=bool(np.isfinite(T).all()),
+                   T=T.tolist())
         if (idx + 1) % 10 == 0 or idx == n_pairs - 1:
             rr = np.asarray(rre_list)
             tt = np.asarray(rte_list)
@@ -416,11 +428,43 @@ def evaluate_pairs(args, pair_iter, n_pairs: int) -> Dict[str, float]:
     return out
 
 
-def _dataset_pair_iter(args):
-    raise NotImplementedError(
-        f"dataset mode ({getattr(args, 'dataset', '?')}): the KITTI / "
-        "nuScenes readers (data/datasets.py) are not ported yet (ROADMAP "
-        "Queue 1 item 15); use --synthetic N")
+def _datasets(args, dataset_size: int = -1):
+    """(the evaluated dataset, the raw one) of the benchmark: the first
+    reads the SEM cache (or preprocesses the raw scans when
+    cache_data_path is empty); the second gives the correlator's clouds,
+    from the raw scans when corr_no_nksr is set, without the grid-point
+    mapping. dataset_size > 0 keeps the split's first pairs."""
+    cls = SemanticKITTIDataset if args.dataset == "kitti" else NuscenesDataset
+    kw = dict(data_path=args.data_path, split=args.split,
+              cache_data_path=args.cache_data_path,
+              skip_invalid_entries=args.skip_invalid_entries_flag,
+              dataset_size=dataset_size)
+    return (cls(**kw),
+            cls(**kw, convert_points_to_grid=False,
+                override_cache=bool(args.corr_no_nksr)))
+
+
+def _dataset_pair_iter(dset, dset_raw):
+    """(iterator, count) of the two datasets' pairs in the dict schema of
+    _synthetic_pair_iter. Each evaluated cloud's grid points are quantized
+    again at 0.3 m, and a row whose voxel an earlier row holds is dropped,
+    so points, labels and coords stay row for row (the JAX CLI keeps every
+    row beside the fewer coords, and its _pad_cloud then indexes past
+    them)."""
+
+    def it():
+        for i in range(len(dset)):
+            (sp, ss, _, tp, ts_, _, _, gt, _) = dset[i]
+            (rsp, _, _, rtp, _, _, _, _, _) = dset_raw[i]
+            sc, si = quantize_np(sp, 0.3)
+            tc, ti = quantize_np(tp, 0.3)
+            yield {
+                "sem_src": (sp[si], ss[si], sc),
+                "sem_tgt": (tp[ti], ts_[ti], tc),
+                "raw_src": rsp, "raw_tgt": rtp, "gt_tform": gt,
+            }
+
+    return it(), len(dset)
 
 
 def _synthetic_pair_iter(args, n: int):
@@ -453,7 +497,8 @@ def _synthetic_pair_iter(args, n: int):
     return it(), n
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line merged over the benchmark's YAML (then --set)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--benchmark", choices=sorted(BENCHMARK_CONFIGS),
                         default="kitti_test")
@@ -476,7 +521,11 @@ def main(argv=None):
             f"and: parity, icp_raw_max_size, model_checkpoint_path, "
             f"corr_no_nksr")
     args = update_namespace_from_yaml(args, cfg_path)
-    args = apply_overrides(args, args.set)
+    return apply_overrides(args, args.set)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     np.random.seed(int(args.seed))
     print(f"Evaluate {args.dataset} benchmark: {args.benchmark}")
     if getattr(args, "parity", False):
@@ -489,7 +538,7 @@ def main(argv=None):
     if args.synthetic:
         pair_iter, n = _synthetic_pair_iter(args, args.synthetic)
     else:
-        pair_iter, n = _dataset_pair_iter(args)
+        pair_iter, n = _dataset_pair_iter(*_datasets(args))
     results = evaluate_pairs(args, pair_iter, n)
     print(f"Evaluate {args.dataset} Benchmark: {args.benchmark} Results:")
     print(f"N.P: {100 * results['np_recall']:.03f} | "

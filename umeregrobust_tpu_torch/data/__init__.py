@@ -1,2 +1,4 @@
-"""Synthetic scenes, SEM resampling and the benchmark-suite pair builder
-(numpy + scipy)."""
+"""The data layer (numpy + scipy): synthetic scenes, SEM resampling, the
+pairs of the benchmark suite, the KITTI / nuScenes readers, pair
+registries and datasets, collation, SEM preprocessing and the nuScenes
+exporter."""

@@ -1,1 +1,2 @@
-"""The sparse ResUNet backbone (nn.Module) and weight loading."""
+"""The sparse ResUNet backbone (nn.Module), weight loading and the
+MinkowskiEngine checkpoint converter."""

@@ -18,7 +18,8 @@ import torch
 from umeregrobust_tpu_torch.devices import resolve_device
 from umeregrobust_tpu_torch.models.resunet import ArchSpec, ResUNet
 
-__all__ = ["load_checkpoint", "params_from_jax", "load_model"]
+__all__ = ["load_checkpoint", "params_from_jax", "model_from_params",
+           "load_model"]
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -48,14 +49,23 @@ def params_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any]
             for k, v in flat.items()}
 
 
+def model_from_params(params: Dict[str, Any], bn_state: Dict[str, Any],
+                      arch: ArchSpec, device="cuda", in_channels: int = 1,
+                      out_channels: int = 32,
+                      conv_impl: str = "grouped") -> ResUNet:
+    """A ResUNet in eval mode with the (params, bn_state) pytrees' weights
+    (every entry of the state dict, strictly), on `device` (the card
+    unless `device="cpu"`; raises without CUDA) (`conv_impl`: see
+    models.resunet.ResUNet)."""
+    device = resolve_device(device)
+    model = ResUNet(arch, in_channels, out_channels, conv_impl)
+    model.load_state_dict(params_from_jax(params, bn_state), strict=True)
+    return model.to(device).eval()
+
+
 def load_model(path: str, arch: ArchSpec, device="cuda", in_channels: int = 1,
                out_channels: int = 32, conv_impl: str = "grouped") -> ResUNet:
-    """A ResUNet in eval mode with the checkpoint's weights, on `device`
-    (the card unless `device="cpu"`; raises without CUDA) (`conv_impl`:
-    see models.resunet.ResUNet)."""
-    device = resolve_device(device)
+    """model_from_params with a .pkl checkpoint's weights."""
     blob = load_checkpoint(path)
-    model = ResUNet(arch, in_channels, out_channels, conv_impl)
-    model.load_state_dict(params_from_jax(blob["params"], blob["bn_state"]),
-                          strict=True)
-    return model.to(device).eval()
+    return model_from_params(blob["params"], blob["bn_state"], arch, device,
+                             in_channels, out_channels, conv_impl)

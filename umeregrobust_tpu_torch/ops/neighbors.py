@@ -1,5 +1,6 @@
 """Fixed-shape neighbor search (port of umeregrobust_tpu/ops/neighbors.py):
-pairwise squared distances, kNN and the -1-padded gather."""
+pairwise squared distances, the padded ball query, kNN and the -1-padded
+gather."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -9,7 +10,7 @@ import torch
 from umeregrobust_tpu_torch.ops.cuda_gather import (
     gather_rows, gather_rows_plain)
 
-__all__ = ["pairwise_sqdist", "sqdist3", "knn", "gather_padded", "topk_stable",
+__all__ = ["pairwise_sqdist", "sqdist3", "ball_query", "knn", "gather_padded", "topk_stable",
            "take_rows"]
 
 _BIG = 1e30
@@ -57,6 +58,41 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     (jax.lax.top_k's order; torch.topk promises no order among ties)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def ball_query(
+    query: torch.Tensor,
+    points: torch.Tensor,
+    radius: float,
+    K: int,
+    q_mask: Optional[torch.Tensor] = None,
+    p_mask: Optional[torch.Tensor] = None,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """(M, K) int64 indices into points (N, 3) of the FIRST K points, in
+    index order, whose squared distance (pairwise_sqdist) to the query is
+    <= radius^2 (fp32), -1 padded (PyTorch3D's ball_query semantics).
+    Invalid points (p_mask False) never match; invalid queries (q_mask
+    False) get a row of -1. Queries go `chunk` at a time; K <= N."""
+    N = points.shape[0]
+    r2 = torch.tensor(float(radius), dtype=torch.float32) ** 2
+    col = torch.arange(N, dtype=torch.int32, device=points.device)
+    out = []
+    for s in range(0, query.shape[0], chunk):
+        ok = pairwise_sqdist(query[s:s + chunk], points) <= r2.to(points.device)
+        if p_mask is not None:
+            ok = ok & p_mask[None, :]
+        # the K smallest scores are the first K in-radius indices; scores
+        # are distinct but for the out-of-radius sentinel
+        score = torch.where(ok, col, torch.full_like(col, N + 1))
+        idx = -torch.topk(-score, K, dim=-1, sorted=True).values
+        out.append(torch.where(idx > N, torch.full_like(idx, -1), idx))
+    if not out:
+        return torch.empty((0, K), dtype=torch.int64, device=points.device)
+    idx = torch.cat(out).to(torch.int64)
+    if q_mask is not None:
+        idx = torch.where(q_mask[:, None], idx, torch.full_like(idx, -1))
+    return idx
 
 
 def knn(
