@@ -55,7 +55,11 @@ Phases (any failure ends the run with a non-zero exit):
      shapes) with a leading pair axis, and gather_rows over the flattened
      table, each pair bit-identical to its B = 1 call, the batch against
      the plain version, kernel_ms (CUDA graph) at B = 1 and B = 4 and the
-     bound at B = 4;
+     bound at B = 4; then both kernels at feature widths C = 8, 16, 64
+     (width_cases: ume_moments_fused at 2048 keypoints of the nominal
+     pair's SEM grid, r 5, cap 750, within 1e-5 x max |out|;
+     corr_scores_fused at the arbiter's 17 x 2048 x 2048, within 1e-4 x
+     max |score|; two launches bit-identical);
   4. reference: the small pair through the whole path on the card and on
      the CPU (plain versions) with the same injected draws: the same
      transforms;
@@ -86,7 +90,10 @@ Phases (any failure ends the run with a non-zero exit):
      on a verdict that differs, |dT_init| > 1e-4, or a main-path kernel
      launched other than once a call site for the batch; both batches
      once more through BlockMatmulProbe (the forward's per-pair dense
-     products against one torch.bmm, bit for bit); ResUNet (seeded random
+     products against one torch.bmm, bit for bit); the grouped k3 conv
+     against the parent tree's form (phase_grouped_ab: parent, change,
+     change, parent, twice; pairs/s one at a time and as one batch, feature
+     stage ms, features compared bit for bit); ResUNet (seeded random
      parameters, full widths) on the nominal and rotheavy pairs through
      pair_features_batched: each pair's features within 1e-4 of its own
      call (level 1 fills), the run's launches counted as their own path
@@ -129,6 +136,30 @@ Phases (any failure ends the run with a non-zero exit):
      (phase_rtume: 512 sample_smart_keypoints keypoints, r 5, cap 750;
      diagonal, 4096 random triplets, the 512 x 512 grid) on the card
      against its CPU run, ms a call and ume_moments_fused launches;
+  5i. widths: register_pair_e2e and rtume_estimate with a seeded random
+     ResUNetSmall2 at out_channels 16 and 64 on the nominal pair: finite
+     transforms, the moments and scorer kernels launched;
+  5j. train (phase_train): (a) gather_rows_backward (forced cases and
+     the training UMEs' gathers of a B = 8 batch, bit for bit against the
+     plain version on the CPU, two launches identical), gather_rows and
+     its backward at the grouped convs' window gathers of a B = 8
+     training forward (window_gathers: the conv with the most table rows
+     and the widest, bit for bit) and
+     sparse_conv_wgrad (forced maps at fp32 / bf16; each of ResUNet's 11
+     conv layers on its real map at bf16, with dX through the inverted
+     map against the plain version's), device times beside index_add_
+     and per-tap index_select + torch.mm; (b) ResUNetSmall2 (in-repo
+     weights) at train_kitti_config's widths (B = 8, 16384 voxels a
+     cloud, 512 matches, 256 UME keypoints, max_nn 750, min_nn 300, r 5,
+     bf16) on HDL-64 density pairs: step ms, peak memory, losses,
+     nonfinite_grad and launches a step, then one step under
+     torch.profiler (device busy ms, idle share, the top ops); one pair
+     card vs CPU at fp32 (losses 1e-3 relative, every gradient leaf
+     elementwise within 1e-4 of its max |grad|); (c)
+     ResUNet (seeded random parameters, k7 stem, k5 layers) at B = 2, the
+     three conv kernels forward and backward; (d) the train CLI on a
+     KITTI-layout tree (2 train, 2 val pairs, batch 2, 1 epoch) and its
+     last_epoch_checkpoint.pkl in the evaluate CLI;
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model, the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
@@ -171,7 +202,15 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                              "tools/exp_pallas_gather.py:74"),
     "sparse_conv_rowtile": ("umeregrobust_tpu_torch/csrc/sparse_conv_taps.cu",
                             "tools/exp_pallas_gather.py:107"),
+    # the backward kernels (training): the TPU kernels they stand beside
+    # had theirs from JAX's autodiff of the gather (a scatter-add)
+    "gather_rows_backward": ("umeregrobust_tpu_torch/csrc/gather_rows.cu",
+                             "tools/exp_gather2.py:107"),
+    "sparse_conv_wgrad": ("umeregrobust_tpu_torch/csrc/sparse_conv_taps.cu",
+                          "tools/exp_pallas_gather.py:74"),
 }
+FORWARD_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
+                   "gather_rows", "sparse_conv_tapsplit", "sparse_conv_rowtile")
 
 
 def log(*a):
@@ -380,7 +419,9 @@ def launch_counts():
     return {"nn1_argmin": cuda_nn.LAUNCHES,
             "ume_moments_fused": cuda_ume.LAUNCHES,
             "corr_scores_fused": cuda_corr.LAUNCHES,
-            "gather_rows": cuda_gather.LAUNCHES, **cuda_conv.LAUNCHES}
+            "gather_rows": cuda_gather.LAUNCHES,
+            "gather_rows_backward": cuda_gather.LAUNCHES_BACKWARD,
+            **cuda_conv.LAUNCHES}
 
 
 def reset_launch_counts():
@@ -389,6 +430,7 @@ def reset_launch_counts():
 
     for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather):
         m.LAUNCHES = 0
+    cuda_gather.LAUNCHES_BACKWARD = 0
     for k in cuda_conv.LAUNCHES:
         cuda_conv.LAUNCHES[k] = 0
 
@@ -1630,7 +1672,7 @@ def phase_family(dev, pair, cfg):
         res["finite"] and res["unit_norm"] and res["small_cloud_unit_norm"]
         and res["small_cloud_card_vs_cpu_max_abs"] <= res["small_cloud_limit"]
         and res["resunet5"]["unit_norm"] and len(trace5) > 0
-        and all(lc[k] > 0 for k in KERNELS))
+        and all(lc[k] > 0 for k in FORWARD_KERNELS))
     return res
 
 
@@ -2591,6 +2633,144 @@ class OldConvKernels:
         self.mod.sparse_conv = self.conv
 
 
+
+class ParentGroupedConv:
+    """Within the block the backbone's grouped k3 convs run as the tree
+    before the training slice ran them: the window rows gathered by tensor
+    indexing with "no candidate" centres clamped onto the all-zero row,
+    each pair-sized row block's product written in place (torch.mm out=).
+    A measurement aid for an A/B in one call; the port never runs so."""
+
+    def __enter__(self):
+        import torch
+
+        import umeregrobust_tpu_torch.models.resunet as resunet
+        from umeregrobust_tpu_torch.ops.sparse import round_to
+
+        self.mod, self.conv = resunet, resunet.sparse_conv_grouped
+
+        def by_pair(x, w, pairs):
+            if pairs == 1:
+                return x @ w
+            out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
+                              device=x.device)
+            for xb, ob in zip(x.chunk(pairs), out.chunk(pairs)):
+                torch.mm(xb, w, out=ob)
+            return out
+
+        def parent(feats, weights, gmap, bias=None,
+                   compute_dtype=torch.float32, pairs=1):
+            _, Cin, Cout = weights.shape
+            G, _, N_out = gmap.masks.shape
+            N_in = feats.shape[0]
+            f = round_to(feats, compute_dtype)
+            z = torch.zeros((1, Cin), dtype=f.dtype, device=f.device)
+            F3c = torch.cat([torch.cat([z, z, f, z]), torch.cat([z, f, z, z]),
+                             torch.cat([f, z, z, z])], dim=1)
+            w3 = round_to(weights, compute_dtype).reshape(G, 3, Cin, Cout)[
+                :, gmap.worder]
+            center = torch.clamp(gmap.center, max=N_in + 2)
+            out = torch.zeros((N_out, Cout), dtype=torch.float32,
+                              device=f.device)
+            for g in range(G):
+                wide = F3c[center[g]].reshape(N_out, 3, Cin)
+                masked = wide * gmap.masks[g].T[:, :, None].to(f.dtype)
+                mid = masked[:, 2] + wide[:, 1] * gmap.patho[g][:, None].to(
+                    f.dtype)
+                x3 = torch.cat([masked[:, 0], masked[:, 1], mid], dim=1)
+                out = out + by_pair(x3, w3[g].reshape(3 * Cin, Cout), pairs)
+            if bias is not None:
+                out = out + bias.to(torch.float32)[None, :]
+            return out
+
+        resunet.sparse_conv_grouped = parent
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sparse_conv_grouped = self.conv
+
+
+def phase_grouped_ab(dev, model, caps, cfg, pairs):
+    """This tree's grouped k3 conv (window gathers through gather_padded,
+    so the gather_rows kernel; per-pair products concatenated) against
+    the parent tree's (ParentGroupedConv), alternated in one call in the
+    order parent, change, change, parent, twice, after a warm-up of each. A
+    round: the pairs one at a time through register_pair_e2e (pair i
+    seeded i; pairs/s), each pair's feature stage alone
+    (pair_features_e2e; ms, host clock round a synchronize), then the
+    pairs as one batch through register_pairs_batched (pairs/s); with
+    the gather launches of the round. The two forms' features (the first
+    pair alone, and the batch) are compared bit for bit."""
+    import contextlib
+
+    import torch
+
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        pair_features_batched, pair_features_e2e, register_pair_e2e,
+        register_pairs_batched)
+
+    bargs = stacked_args(pairs)
+
+    def form(kind):
+        return ParentGroupedConv() if kind == "parent" else \
+            contextlib.nullcontext()
+
+    def features():
+        one = pair_features_e2e(model, caps, *pair_args(pairs[0]), device=dev)
+        many = pair_features_batched(model, caps, *bargs, device=dev)
+        return [t.cpu() for t in one + many]
+
+    def one_round():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        for i, p in enumerate(pairs):
+            register_pair_e2e(model, caps, cfg, *pair_args(p), device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        seq = len(pairs) / (time.time() - t0)
+        launches = launch_counts()["gather_rows"]
+        feat_ms = []
+        for p in pairs:
+            t0 = time.time()
+            pair_features_e2e(model, caps, *pair_args(p), device=dev)
+            torch.cuda.synchronize()
+            feat_ms.append((time.time() - t0) * 1e3)
+        t0 = time.time()
+        register_pairs_batched(model, caps, cfg, *bargs, device=dev,
+                               generators=[torch.Generator(
+                                   device=dev).manual_seed(i)
+                                   for i in range(len(pairs))])
+        torch.cuda.synchronize()
+        return dict(pairs_per_s=seq,
+                    pairs_per_s_batched=len(pairs) / (time.time() - t0),
+                    features_ms=feat_ms, gather_rows_launches_e2e=launches)
+
+    feats, rounds = {}, []
+    for kind in ("parent", "change"):
+        with form(kind):
+            feats[kind] = features()  # also the warm-up
+            one_round()
+    for kind in ("parent", "change", "change", "parent") * 2:
+        with form(kind):
+            rounds.append(dict(form=kind, **one_round()))
+    same = [bool(torch.equal(a, b))
+            for a, b in zip(feats["parent"], feats["change"])]
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(feats["parent"], feats["change"]))
+
+    def mean(kind, key):
+        v = [r[key] for r in rounds if r["form"] == kind]
+        return float(np.mean([np.median(x) if isinstance(x, list) else x
+                              for x in v]))
+
+    return dict(
+        pairs=len(pairs), rounds=rounds, features_bit_identical=all(same),
+        features_bit_identical_each=same, features_max_abs_diff=diff,
+        **{f"{k}_{kind}": mean(kind, k) for kind in ("parent", "change")
+           for k in ("pairs_per_s", "pairs_per_s_batched", "features_ms")})
+
 def phase_profile(run, pairs, cfg, unprofiled_wall_s, model, run_all=None):
     """The e2e pairs again under torch.profiler (same seeds and config);
     `model` tags the lines ("grouped", "scan", "resunet" or "batched"; a
@@ -2650,6 +2830,673 @@ def phase_profile(run, pairs, cfg, unprofiled_wall_s, model, run_all=None):
         emit({"phase": "profile_op", "model": model, "op": a.key[:80],
               "count_per_pair": a.count / n,
               "device_ms_per_pair": a.self_device_time_total / 1e3 / n})
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (widths): the moments and scorer kernels at feature widths other
+# than 32, and the registration path and RT-UME at out_channels 16 / 64
+WIDTHS = (8, 16, 64)
+
+
+def width_cases(dev, pair):
+    """ume_moments_fused (2048 keypoints of the nominal pair's SEM grid, r
+    5, cap 750) and corr_scores_fused (the arbiter's shape: 17 hypotheses
+    x 2048 source x 2048 target rows of its correlator clouds) at C = 8,
+    16, 64 with random features, each against its plain version on the
+    card (ume within 1e-5 x max |out|, corr within 1e-4 x max |score|),
+    two launches bit-identical."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.cuda_corr import (
+        corr_scores_fused, corr_scores_plain)
+    from umeregrobust_tpu_torch.ops.cuda_ume import (
+        ume_moments_fused, ume_moments_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    s = pair["src"]
+    pts = torch.as_tensor(s["grid"][s["mask"]], dtype=torch.float32)
+    kp = pts[torch.randperm(len(pts), generator=g)[:2048]]
+    cp = torch.as_tensor(pair["tgt"]["corr_pts"][:2048], dtype=torch.float32)
+    pts4 = torch.cat([cp, torch.zeros(len(cp), 1)], 1)
+    H = 17
+    noise = torch.randn(H, len(cp), 3, generator=g) * 0.3
+    pts_t = torch.cat([cp[None] + noise, torch.zeros(H, len(cp), 1)], -1)
+    out = {}
+    for C in WIDTHS:
+        Z = torch.randn(len(pts), 4 * C, generator=g)
+        mask = torch.ones(len(pts), dtype=torch.bool)
+        a = [x.to(dev) for x in (kp, pts, Z, mask)]
+        got = ume_moments_fused(*a, 5.0, 750)
+        again = ume_moments_fused(*a, 5.0, 750)
+        want = ume_moments_plain(*a, 5.0, 750)
+        e_ume = float((got - want).abs().max() / want.abs().max())
+        f = torch.randn(len(cp), C, generator=g)
+        gg = torch.randn(len(cp), C, generator=g)
+        b = [x.to(dev) for x in (pts_t, f, pts4, gg)]
+        sc = corr_scores_fused(*b)
+        sc2 = corr_scores_fused(*b)
+        scp = corr_scores_plain(*b)
+        e_corr = float((sc - scp).abs().max() / scp.abs().max())
+        out[f"C{C}"] = dict(
+            ume_shape=list(got.shape), ume_rel_err=e_ume,
+            ume_bit_identical=bool(torch.equal(got, again)),
+            corr_rel_err=e_corr,
+            corr_bit_identical=bool(torch.equal(sc, sc2)),
+            ume_ms=time_ms(lambda: ume_moments_fused(*a, 5.0, 750)),
+            corr_ms=time_ms(lambda: corr_scores_fused(*b)))
+        out[f"C{C}"]["ok"] = (e_ume <= 1e-5 and e_corr <= 1e-4
+                              and out[f"C{C}"]["ume_bit_identical"]
+                              and out[f"C{C}"]["corr_bit_identical"])
+    return out
+
+
+def phase_widths(dev, pair, cfg):
+    """register_pair_e2e and rtume_estimate on the card with a seeded
+    random-weight ResUNetSmall2 at out_channels 16 and 64 (the nominal
+    pair, reduced point; RT-UME on 512 of its SEM points, r 5, cap 750):
+    finite transforms, the kernels each launched."""
+    import torch
+
+    from umeregrobust_tpu_torch.data.suite import REDUCED
+    from umeregrobust_tpu_torch.models.resunet import ARCHS, init_resunet
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        pair_features_e2e, register_pair_e2e)
+    from umeregrobust_tpu_torch.pipeline.rtume import rtume_estimate
+
+    out = {}
+    for C in (16, 64):
+        model = init_resunet(ARCHS["ResUNetSmall2"], 1, C, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(C))
+        reset_launch_counts()
+        t0 = time.time()
+        T_init, T = register_pair_e2e(
+            model, REDUCED["caps"], cfg, *pair_args(pair), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        sf, tf, _, _ = pair_features_e2e(model, REDUCED["caps"],
+                                         *pair_args(pair), device=dev)
+        s, tg = pair["src"], pair["tgt"]
+        kp = torch.as_tensor(s["grid"][s["mask"]][:512])
+        Tr, D, G, _ = rtume_estimate(
+            s["grid"], sf, kp, tg["grid"], tf, kp, src_mask=s["mask"],
+            tgt_mask=tg["mask"], device=dev)
+        torch.cuda.synchronize()
+        lc = launch_counts()
+        out[f"out_channels_{C}"] = dict(
+            seconds=sec, features=list(sf.shape),
+            T_finite=bool(torch.isfinite(T).all() and torch.isfinite(
+                T_init).all()),
+            rtume_finite=bool(torch.isfinite(Tr).all()),
+            ume_shape=list(G.shape), launches=lc,
+            ok=bool(torch.isfinite(T).all() and torch.isfinite(Tr).all()
+                    and lc["ume_moments_fused"] >= 3
+                    and lc["corr_scores_fused"] >= 3))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5i: training on the card (train/, losses/, the backward kernels)
+TRAIN_B = 8
+TRAIN_STEPS = 3
+GRAD_LEAF_TOL = 1e-4  # card vs CPU, a gradient leaf, of its max |grad|
+RESUNET_TRAIN_RATIOS = (1.0, 0.1328125, 0.046875, 0.0234375, 0.0078125,
+                        0.0078125)  # default_level_capacities(16384, ResUNet)
+
+
+def train_batch(n_pairs, seed):
+    """n_pairs lidar pairs at HDL-64 density (phase 5h's scenes), collated
+    at train_kitti_config's widths: 16384 voxels a cloud, 512 matches."""
+    from umeregrobust_tpu_torch.data.synthetic import (
+        SceneConfig, make_collated_batch)
+
+    return make_collated_batch(SceneConfig(seed=seed, **HDL64), n_pairs,
+                               max_pc_size=16384, num_matches=512, seed=seed)
+
+
+def ume_gather_indices(batch, dev, num_samples=256, max_nn=750, min_nn=300,
+                       r=5.0):
+    """The flattened row indices of the training UMEs' feature gathers of
+    a batch (both clouds, every keypoint's ball, pair b's rows offset by b
+    N, as gather_padded makes them): the gather kernels' main-path input."""
+    import torch
+
+    from umeregrobust_tpu_torch.pipeline.train_keypoints import _select
+    from umeregrobust_tpu_torch.train.trainer import batch_to_device
+
+    bt = batch_to_device(batch, dev)
+    B, N = bt["src_mask"].shape
+    out = []
+    for b in range(B):
+        _, _, nbr, tnbr, _, _ = _select(
+            bt["src_pts"][b], bt["src_seg"][b], bt["src_mask"][b],
+            bt["tgt_pts"][b], bt["tgt_mask"][b], bt["gt_tform"][b],
+            num_samples, max_nn, min_nn, r, 0.6, (9,))
+        for idx in (nbr, tnbr):
+            out.append(torch.where(idx >= 0, idx + b * N, -1).reshape(-1))
+    return torch.cat(out), B * N
+
+
+def gather_backward_row(dev, batch):
+    """gather_rows_backward: forced cases (random indices with -1 and
+    rows hit many times, N = 1, C = 3 / 64, int32 indices, nothing valid)
+    and the main path's shape (the training UMEs' gathers of a B = 8 batch
+    at train_kitti_config: 2 x 8 x 256 x 750 rows of an (8 x 16384, 32)
+    table) against the plain version (index_add_) run on the CPU, bit for
+    bit, two launches bit-identical; device times (CUDA graph): the
+    wrapper (stable sort, segment starts, kernel) and the kernel alone,
+    beside the plain version and index_add_ on the card, and the bound."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import _build, cuda_gather
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    cases = []
+    for M, N, C, it in ((40000, 3000, 32, torch.int64),
+                        (1000, 50, 64, torch.int64), (7, 3, 3, torch.int64),
+                        (5000, 1, 32, torch.int32),
+                        (300000, 20000, 32, torch.int32),
+                        (64, 100, 32, None)):
+        idx = (torch.full((M,), -1, dtype=torch.int64) if it is None else
+               torch.randint(-1, N, (M,), generator=g).to(it))
+        d = torch.randn(M, C, generator=g)
+        want = cuda_gather.gather_rows_backward_plain(d, idx, N)
+        got = cuda_gather.gather_rows_backward(d.to(dev), idx.to(dev), N)
+        again = cuda_gather.gather_rows_backward(d.to(dev), idx.to(dev), N)
+        cases.append(dict(M=M, N=N, C=C, bit_equal_cpu_plain=bool(
+            torch.equal(got.cpu(), want)), two_launches_identical=bool(
+            torch.equal(got, again)),
+            max_abs_err=float((got.cpu() - want).abs().max())))
+    idx, N = ume_gather_indices(batch, dev)
+    M, C = idx.shape[0], 32
+    d = torch.randn(M, C, generator=g).to(dev)
+    want = cuda_gather.gather_rows_backward_plain(d.cpu(), idx.cpu(), N)
+    got = cuda_gather.gather_rows_backward(d, idx, N)
+    again = cuda_gather.gather_rows_backward(d, idx, N)
+    err = float((got.cpu() - want).abs().max())
+    lib = _build.load_library()
+    key = torch.where(idx >= 0, idx, N)
+    skey, perm = torch.sort(key, stable=True)
+    starts = torch.searchsorted(skey, torch.arange(N + 1, device=dev))
+    out = torch.empty(N, C, device=dev)
+
+    def kernel():
+        lib.umr_gather_rows_backward(d.data_ptr(), perm.data_ptr(),
+                                     starts.data_ptr(), out.data_ptr(), N, C,
+                                     _build.stream_of(dev))
+
+    ok_rows = idx >= 0
+    vi, vd = idx[ok_rows], d[ok_rows]
+
+    def library():
+        return torch.zeros(N, C, device=dev).index_add_(0, vi, vd)
+
+    # bytes: the indices, the cotangent rows of valid indices (index -1
+    # adds nothing and is never read), the table written once
+    n_valid = int(ok_rows.sum())
+    bb, by = bound_ms(n_valid * C * 4 + M * idx.element_size() + N * C * 4,
+                      n_valid * C)
+    row = dict(
+        shape=f"UME feature gathers of a B = 8 training batch: {M} rows "
+              f"({n_valid} valid) into a ({N}, {C}) fp32 table",
+        cases=cases, bit_equal_cpu_plain=bool(torch.equal(got.cpu(), want)),
+        two_launches_identical=bool(torch.equal(got, again)),
+        max_abs_err=max([err] + [c["max_abs_err"] for c in cases]),
+        ms=graph_ms(lambda: cuda_gather.gather_rows_backward(d, idx, N)),
+        kernel_ms=graph_ms(kernel),
+        plain_ms=time_ms(lambda: cuda_gather.gather_rows_backward_plain(
+            d, idx, N)),
+        library_ms=graph_ms(library), bound_ms=bb, bound_by=by)
+    row["ok"] = (row["bit_equal_cpu_plain"] and row["two_launches_identical"]
+                 and all(c["bit_equal_cpu_plain"]
+                         and c["two_launches_identical"] for c in cases))
+    return row
+
+
+
+def window_gathers(dev, batch, weights):
+    """The grouped k3 convs' window gathers of one ResUNetSmall2 training
+    forward at train_kitti_config (B = 8, bf16 operands; tables of 3 Cin
+    columns, fp32): every gather of the conv with the most table rows and
+    of the conv with the widest table, `gather_rows` against its plain
+    version on the CPU and `gather_rows_backward` (a seeded cotangent)
+    against its plain version on the CPU, bit for bit, two launches of
+    each identical; device times (CUDA graph) of the first gather of
+    each, both directions, the backward with its sort."""
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.ops import cuda_gather, sparse
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, _capacities, batch_to_device, cloud_features)
+
+    model = load_model(weights, ARCHS["ResUNetSmall2"], device=dev)
+    got, orig = [], sparse.gather_padded
+
+    def record(x, idx, fill=0.0):
+        got.append((x.detach(), idx.reshape(-1)))
+        return orig(x, idx, fill)
+
+    sparse.gather_padded = record
+    try:
+        with torch.no_grad():
+            cloud_features(model, batch_to_device(batch, dev),
+                           _capacities(TrainConfig(), model.arch),
+                           torch.bfloat16, train=True)
+    finally:
+        sparse.gather_padded = orig
+    tables = {}  # the recorded tables stay alive: no pointer is reused
+    for x, idx in got:
+        tables.setdefault(x.data_ptr(), (x, []))[1].append(idx)
+    picks = {"most_rows": max(tables.values(), key=lambda t: t[0].shape),
+             "widest": max(tables.values(),
+                           key=lambda t: t[0].shape[::-1])}
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rows = {}
+    for label, (x, idxs) in picks.items():
+        xc, N, C = x.cpu(), x.shape[0], x.shape[1]
+        fwd = bwd = twice = True
+        for idx in idxs:
+            a, b = (cuda_gather.gather_rows(x, idx) for _ in range(2))
+            fwd &= bool(torch.equal(a.cpu(), cuda_gather.gather_rows_plain(
+                xc, idx.cpu())))
+            d = torch.randn(idx.shape[0], C, generator=g)
+            dd = d.to(dev)
+            p, q = (cuda_gather.gather_rows_backward(dd, idx, N)
+                    for _ in range(2))
+            want = cuda_gather.gather_rows_backward_plain(d, idx.cpu(), N)
+            bwd &= bool(torch.equal(p.cpu(), want))
+            twice &= bool(torch.equal(a, b) and torch.equal(p, q))
+        idx = idxs[0]
+        rows[label] = dict(
+            table=[N, C], gathers=len(idxs), rows=idx.shape[0],
+            valid=int((idx >= 0).sum()), forward_bit_equal=fwd,
+            backward_bit_equal=bwd, two_launches_identical=twice,
+            kernel_ms=graph_ms(lambda: cuda_gather.gather_rows(x, idx)),
+            backward_ms=graph_ms(lambda: cuda_gather.gather_rows_backward(
+                dd, idx, N)))
+    return dict(gathers=len(got), tables=len(tables), **rows,
+                ok=all(r["forward_bit_equal"] and r["backward_bit_equal"]
+                       and r["two_launches_identical"]
+                       for r in rows.values()))
+
+def wgrad_layer_row(name, f, w, nbr, pairs, g):
+    """One real conv layer's weight gradient at bf16 operands against the
+    plain version (<= 1e-4 x max |dW|), two launches bit-identical; dX
+    (the forward kernels over the inverted map) against the plain
+    version's dX; device times (CUDA graph) of the kernel, times of the
+    plain version and of the library route (per tap index_select of the
+    valid entries' rows and one fp32 torch.mm of the bf16-rounded
+    operands), and the bound."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv
+    from umeregrobust_tpu_torch.ops.sparse import (
+        PerTapConv, invert_map_batch, round_to)
+
+    bf = torch.bfloat16
+    K, Cin, Cout = w.shape
+    dy = torch.randn(nbr.shape[1], Cout, generator=g, device=f.device)
+    got = cuda_conv.sparse_conv_wgrad(f, dy, nbr, bf)
+    again = cuda_conv.sparse_conv_wgrad(f, dy, nbr, bf)
+    want = cuda_conv.sparse_conv_wgrad_plain(f, dy, nbr, bf)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    x = f.clone().requires_grad_()
+    PerTapConv.apply(x, w, nbr, bf, pairs).backward(dy)
+    ok = (nbr >= 0) & (nbr < f.shape[0])
+    inv = invert_map_batch(torch.where(ok, nbr, -1), f.shape[0])
+    dx_plain = cuda_conv.sparse_conv_plain(dy, w.transpose(1, 2), inv, bf)
+    dx_err = float((x.grad - dx_plain).abs().max())
+    dx_scale = float(dx_plain.abs().max())
+    kk, oo = torch.nonzero(ok, as_tuple=True)
+    taps = [(k, nbr[k][oo[kk == k]], oo[kk == k]) for k in
+            torch.unique(kk).tolist()]
+    fr, gr = round_to(f, bf), round_to(dy, bf)
+
+    def library():
+        return [torch.mm(fr.index_select(0, i).T, gr.index_select(0, o))
+                for _, i, o in taps]
+
+    # bytes: the map, the X rows and dY rows that some valid entry names
+    # (as conv_bound counts the forward's), dW written once
+    valid = int(ok.sum())
+    x_rows = int(torch.unique(nbr[ok]).numel())
+    dy_rows = int(ok.any(0).sum())
+    n_bytes = (nbr.numel() * nbr.element_size() + x_rows * Cin * 4
+               + dy_rows * Cout * 4 + K * Cin * Cout * 4)
+    bb, by = bound_ms(n_bytes, 2 * valid * Cin * Cout, BF16_PEAK)
+    return dict(
+        layer=name, K=K, cin=Cin, cout=Cout, rows_in=f.shape[0],
+        rows_out=nbr.shape[1], valid=valid, x_rows_read=x_rows,
+        dy_rows_read=dy_rows,
+        S=cuda_conv.wgrad_split(nbr.shape[1], Cin, Cout, K),
+        max_abs_err=err, rel_err=err / max(scale, 1e-30),
+        bit_identical=bool(torch.equal(got, again)),
+        dx_rel_err=dx_err / max(dx_scale, 1e-30),
+        kernel_ms=graph_ms(lambda: cuda_conv.sparse_conv_wgrad(
+            f, dy, nbr, bf), reps=5, inner=5),
+        plain_ms=time_ms(lambda: cuda_conv.sparse_conv_wgrad_plain(
+            f, dy, nbr, bf), reps=3, warmup=1),
+        library_ms=time_ms(library, reps=5, warmup=1),
+        bound_ms=bb, bound_by=by,
+        ok=bool(err <= 1e-4 * scale and torch.equal(got, again)
+                and dx_err <= 1e-4 * dx_scale))
+
+
+def wgrad_forced_cases(dev):
+    """sparse_conv_wgrad on forced maps (injective per tap, ~40% valid;
+    K 27 / 125 / 343, Cin 1 / 32 / 64 / 512, Cout 32 / 128 / 1024, entry
+    segments 1-10, int32 and int64), fp32 and bf16, against the plain
+    version (<= 2e-5 / 1e-4 x max |dW|), two launches bit-identical; and
+    the fp32 dX of the conv's autograd on the card against autograd
+    through the plain version on the CPU (<= 2e-5 x max |dX|)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv
+    from umeregrobust_tpu_torch.ops.sparse import sparse_conv
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    rows = []
+    for n_in, n_out, K, cin, cout, it in (
+            (3000, 2500, 27, 32, 32, torch.int64),
+            (500, 300, 125, 64, 128, torch.int32),
+            (20000, 20000, 27, 32, 32, torch.int64),
+            (200, 100, 343, 1, 32, torch.int64),
+            (300, 200, 125, 512, 1024, torch.int32)):
+        nbr = torch.stack([torch.where(
+            torch.rand(n_out, generator=g) < 0.4,
+            torch.randperm(max(n_in, n_out), generator=g)[:n_out],
+            torch.tensor(-1)) for _ in range(K)])
+        nbr = torch.where(nbr < n_in, nbr, torch.tensor(-1)).to(it)
+        X = torch.randn(n_in, cin, generator=g)
+        G = torch.randn(n_out, cout, generator=g)
+        W = torch.randn(K, cin, cout, generator=g) * 0.1
+        for cd, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-4)):
+            a = [X.to(dev), G.to(dev), nbr.to(dev)]
+            got = cuda_conv.sparse_conv_wgrad(*a, cd)
+            again = cuda_conv.sparse_conv_wgrad(*a, cd)
+            want = cuda_conv.sparse_conv_wgrad_plain(X, G, nbr, cd)
+            e = float((got.cpu() - want).abs().max() / want.abs().max())
+            row = dict(shape=[n_in, n_out, K, cin, cout, str(it)[6:]],
+                       dtype=str(cd)[6:], rel_err=e,
+                       bit_identical=bool(torch.equal(got, again)))
+            if cd == torch.float32:
+                x = X.to(dev).requires_grad_()
+                (sparse_conv(x, W.to(dev), nbr.to(dev)) * G.to(dev)).sum(
+                ).backward()
+                xc = X.clone().requires_grad_()
+                (cuda_conv.sparse_conv_plain(xc, W, nbr.long())
+                 * G).sum().backward()
+                row["dx_rel_err"] = float((x.grad.cpu() - xc.grad).abs().max()
+                                          / xc.grad.abs().max())
+            row["ok"] = (e <= tol and row["bit_identical"]
+                         and row.get("dx_rel_err", 0.0) <= 2e-5)
+            rows.append(row)
+    return rows
+
+
+def train_steps(trainer, batch, steps):
+    """One warm-up step, then `steps` counted ones (launch counts set to 0
+    just before them): per step ms (host clock round a synchronize),
+    losses and metrics; peak device memory; launches a step."""
+    import torch
+
+    from umeregrobust_tpu_torch.train.trainer import batch_to_device
+
+    bt = batch_to_device(batch, trainer.device)
+    warm = trainer.train_step(bt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rows = []
+    for _ in range(steps):
+        t0 = time.time()
+        m = trainer.train_step(bt)
+        torch.cuda.synchronize()
+        rows.append(dict(ms=(time.time() - t0) * 1e3, **m))
+    lc = launch_counts()
+    return dict(warmup=warm, steps=rows,
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                launches=lc, launches_per_step={k: v / steps
+                                                for k, v in lc.items()})
+
+
+def profile_step(trainer, batch, top=8):
+    """One train step under torch.profiler: its wall ms (host clock round
+    a synchronize), the device's busy ms (the sum of its kernels'
+    times), the CUDA kernels launched, and the `top` ops by self device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from umeregrobust_tpu_torch.train.trainer import batch_to_device
+
+    bt = batch_to_device(batch, trainer.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.train_step(bt)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(k.time_range.elapsed_us() for k in ks) / 1e3
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    return dict(wall_ms=wall, device_busy_ms=busy, kernels=len(ks),
+                device_idle_share=max(0.0, 1.0 - busy / wall),
+                top_device_ops=[dict(op=a.key[:80], count=a.count,
+                                     device_ms=a.self_device_time_total / 1e3)
+                                for a in ops[:top]])
+
+
+def card_vs_cpu(dev, batch, weights):
+    """One pair at train_kitti_config's widths, fp32 (the in-repo weights):
+    the step's loss, metrics and gradients on the card and on the CPU
+    (plain versions); each loss within 1e-3 relative, and every leaf's
+    gradient elementwise within GRAD_LEAF_TOL x that leaf's max |grad|
+    on the CPU."""
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.pipeline.e2e import _tf32_off
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, _capacities, batch_losses, batch_to_device)
+
+    cfg = TrainConfig(compute_dtype="float32", batch_size=1)
+    one = {k: v[:1] for k, v in batch.items()}
+    res, grads = {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = load_model(weights, ARCHS["ResUNetSmall2"], device=d)
+        t0 = time.time()
+        with _tf32_off():
+            loss, m, _ = batch_losses(model, batch_to_device(one, d), cfg,
+                                      _capacities(cfg, model.arch), True)
+            loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        res[name] = dict(seconds=time.time() - t0,
+                         metrics={k: float(v) for k, v in m.items()},
+                         grad_norms={k: float(p.grad.norm()) for k, p in
+                                     model.named_parameters()})
+        grads[name] = {k: p.grad.detach().cpu() for k, p in
+                       model.named_parameters()}
+    a, b = res["card"], res["cpu"]
+    loss_err = {k: abs(a["metrics"][k] - v) / max(abs(v), 1e-30)
+                for k, v in b["metrics"].items()
+                if k.endswith("_loss")}
+    leaf_err = {}
+    for k, gc in grads["cpu"].items():
+        scale = float(gc.abs().max())
+        e = float((grads["card"][k] - gc).abs().max())
+        leaf_err[k] = e / scale if scale > 0 else (0.0 if e == 0 else 1.0)
+    worst = sorted(leaf_err, key=leaf_err.get, reverse=True)
+    return dict(card=a, cpu=b, loss_rel_err=loss_err,
+                grad_leaf_rel_err_max=leaf_err[worst[0]],
+                grad_leaf_rel_err_worst={k: leaf_err[k] for k in worst[:5]},
+                grad_leaves=len(leaf_err), grad_leaf_tol=GRAD_LEAF_TOL,
+                ok=max(loss_err.values()) <= 1e-3
+                and leaf_err[worst[0]] <= GRAD_LEAF_TOL)
+
+
+def write_train_tree(root, n_train, n_val):
+    """KITTI-layout scans (HDL-64 density, phase 5h's scenes) of the first
+    pairs of kitti/train and kitti/val."""
+    from umeregrobust_tpu_torch.data.registry import load_registry
+    from umeregrobust_tpu_torch.data.synthetic import SceneConfig, make_pair
+
+    for split, n, seed0 in (("train", n_train, 700), ("val", n_val, 800)):
+        reg = load_registry("kitti", split, skip_invalid_entries=False)
+        for i in range(n):
+            seq, f0, f1 = (int(x) for x in reg.pairs[i])
+            gt = reg.gt_tforms[i]
+            pair = make_pair(SceneConfig(seed=seed0 + i, **HDL64),
+                             seed=seed0 + i)
+            R, t = pair["gt_tform"][:3, :3], pair["gt_tform"][:3, 3]
+            tgt = ((pair["tgt_pts"] - t) @ R) @ gt[:3, :3].T + gt[:3, 3]
+            d = os.path.join(root, "sequences", f"{seq:02d}")
+            for sub in ("velodyne", "labels"):
+                os.makedirs(os.path.join(d, sub), exist_ok=True)
+            for fid, pts, seg in [(f0, pair["src_pts"], pair["src_seg"]),
+                                  (f1, tgt, pair["tgt_seg"])]:
+                pts = np.asarray(pts, np.float32)
+                np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1
+                               ).tofile(os.path.join(d, "velodyne",
+                                                     f"{fid:06d}.bin"))
+                np.where(seg == 9, 40, np.where(seg == 0, 0, 10)).astype(
+                    np.uint32).tofile(os.path.join(d, "labels",
+                                                   f"{fid:06d}.label"))
+    return os.path.join(root, "sequences")
+
+
+def phase_train(dev, t_start):
+    """Phase 5i: (a) the backward kernels' checks and times; (b)
+    ResUNetSmall2 (the in-repo weights) at train_kitti_config's widths:
+    B = 8, 16384 voxels a cloud, 512 matches, 256 UME keypoints, max_nn
+    750, min_nn 300, r 5, bf16 operands, TRAIN_STEPS steps on HDL-64
+    density pairs, and one pair card vs CPU at fp32; (c) ResUNet (seeded
+    random parameters, published widths, k7 stem, k5 layers) at B = 2,
+    TRAIN_STEPS steps; (d) the train CLI on a KITTI-layout tree (2 train
+    and 2 val pairs, batch 2, 1 epoch), its checkpoint loaded by the
+    evaluate CLI. Returns (summary, kernel rows, launch counts by path)."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import ARCHS, init_resunet
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, _capacities, cloud_features, batch_to_device)
+
+    weights = os.path.join(ROOT, "weights", "synthetic_pretrain.pkl")
+    out, paths, kern = {}, {}, {}
+    t0 = time.time()
+    batch = train_batch(TRAIN_B, 900)
+    out["batch"] = dict(seconds=time.time() - t0, pairs=TRAIN_B,
+                        valid_voxels=batch["src_mask"].sum(1).tolist(),
+                        matches=batch["match_mask"].sum(1).tolist())
+    emit({"phase": "train_batch", **out["batch"],
+          "seconds_total": time.time() - t_start})
+
+    # (a) the backward kernels
+    kern["gather_rows_backward"] = gather_backward_row(dev, batch)
+    out["windows"] = window_gathers(dev, batch, weights)
+    kern["gather_rows_backward"].update(
+        windows=out["windows"],
+        ok=kern["gather_rows_backward"]["ok"] and out["windows"]["ok"])
+    emit({"phase": "train_kernel", "kernel": "gather_rows_backward",
+          **kern["gather_rows_backward"]})
+    forced = wgrad_forced_cases(dev)
+    emit({"phase": "wgrad_forced", "cases": forced})
+    cfg_r = TrainConfig(arch="ResUNet", batch_size=2,
+                        level_capacity_ratios=RESUNET_TRAIN_RATIOS)
+    res_model = init_resunet(ARCHS["ResUNet"], 1, 32, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(0))
+    two = {k: v[:2] for k, v in batch.items()}
+    layers = capture_conv_layers(res_model, lambda: cloud_features(
+        res_model, batch_to_device(two, dev), _capacities(cfg_r, res_model.arch),
+        torch.bfloat16, train=False))
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for name, f, w, nbr, pairs in layers:
+        rows.append(wgrad_layer_row(name, f, w, nbr, pairs, g))
+        emit({"phase": "wgrad_layer", "model": "ResUNet", **rows[-1]})
+    del layers
+    kern["sparse_conv_wgrad"] = dict(
+        shape="ResUNet's 11 conv layers at B = 2 (train pyramid, bf16): "
+              + "; ".join(f"{r['layer']} K{r['K']} {r['cin']}->{r['cout']}"
+                          f" {r['valid']} entries" for r in rows),
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=sum(r["kernel_ms"] for r in rows),
+        kernel_ms=sum(r["kernel_ms"] for r in rows),
+        plain_ms=sum(r["plain_ms"] for r in rows),
+        library_ms=sum(r["library_ms"] for r in rows),
+        bound_ms=sum(r["bound_ms"] for r in rows),
+        bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+        forced=forced,
+        ok=all(r["ok"] for r in rows) and all(c["ok"] for c in forced))
+
+    # (b) ResUNetSmall2 at full width
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        cfg = TrainConfig()
+        tr = Trainer(cfg, os.path.join(work, "small2"), device=dev,
+                     model=load_model(weights, ARCHS["ResUNetSmall2"],
+                                      device=dev))
+        out["small2"] = train_steps(tr, batch, TRAIN_STEPS)
+        paths["train_small2"] = out["small2"]["launches"]
+        out["small2"]["profile"] = profile_step(tr, batch)
+        del tr
+        emit({"phase": "train_small2", "B": TRAIN_B, **out["small2"],
+              "seconds_total": time.time() - t_start})
+        out["card_vs_cpu"] = card_vs_cpu(dev, batch, weights)
+        emit({"phase": "train_card_vs_cpu", **out["card_vs_cpu"],
+              "seconds_total": time.time() - t_start})
+
+        # (c) ResUNet at B = 2
+        tr = Trainer(cfg_r, os.path.join(work, "resunet"), device=dev,
+                     model=res_model)
+        out["resunet"] = train_steps(tr, two, TRAIN_STEPS)
+        paths["train_resunet"] = out["resunet"]["launches"]
+        del tr, res_model
+        emit({"phase": "train_resunet", "B": 2, **out["resunet"],
+              "seconds_total": time.time() - t_start})
+
+        # (d) the train CLI, then its checkpoint in the evaluate CLI
+        from umeregrobust_tpu_torch.cli import evaluate as ev
+        from umeregrobust_tpu_torch.cli import train_coloring
+
+        t0 = time.time()
+        tree = write_train_tree(os.path.join(work, "kitti"), 2, 2)
+        sets = [f"data_path={tree}", "cache_data_path=", "batch_size=2",
+                "num_epochs=1", "train_size=2", "val_size=2",
+                f"output_path={os.path.join(work, 'runs')}"]
+        reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer = train_coloring.main(
+                [a for s in sets for a in ("--set", s)])
+        paths["train_cli"] = launch_counts()
+        ckpt = os.path.join(trainer.out_dir, "last_epoch_checkpoint.pkl")
+        cli = dict(seconds=time.time() - t0, epoch=trainer.epoch,
+                   checkpoint=os.path.isfile(ckpt),
+                   checkpoints=sorted(os.listdir(trainer.out_dir)),
+                   launches=paths["train_cli"])
+        with contextlib.redirect_stdout(sys.stderr):
+            r = ev.main(["--synthetic", "1", "--set",
+                         f"model_checkpoint_path={ckpt}"])
+        cli.update(evaluate_n_pairs=r["n_pairs"],
+                   evaluate_finite=all(p["finite"] for p in r["per_pair"]))
+        cli["ok"] = (cli["checkpoint"] and trainer.epoch == 1
+                     and cli["evaluate_finite"] and r["n_pairs"] == 1)
+        out["cli"] = cli
+        emit({"phase": "train_cli", **cli,
+              "seconds_total": time.time() - t_start})
+    return out, kern, paths
 
 
 def main() -> int:
@@ -2738,6 +3585,13 @@ def main() -> int:
             bit_identical_to_b1=res["bit_identical_to_b1"],
             ok=kern[name]["ok"] and res["ok"],
             max_abs_err=max(kern[name]["max_abs_err"], res["max_abs_err"]))
+    widths = width_cases(dev, pairs[0])
+    emit({"phase": "widths_forced", **widths})
+    for name, key in (("ume_moments_fused", "ume_rel_err"),
+                      ("corr_scores_fused", "corr_rel_err")):
+        kern[name].update(
+            widths={c: w[key] for c, w in widths.items()},
+            ok=kern[name]["ok"] and all(w["ok"] for w in widths.values()))
     for name, res in kern.items():
         emit({"kernel": name, **res})
 
@@ -2856,6 +3710,9 @@ def main() -> int:
                     device=dev).manual_seed(i) for i in range(len(batch))])
     block_mm = bmp.summary()
     emit({"phase": "block_matmul", "model": "ResUNetSmall2", **block_mm})
+    grouped_ab = phase_grouped_ab(dev, model, REDUCED["caps"], cfg_b, pairs)
+    emit({"phase": "grouped_ab", **grouped_ab,
+          "seconds_total": time.time() - t_start})
     res_b = phase_resunet_batched(dev, pairs[:2])
     emit({"phase": "batched_resunet", **res_b})
     for name in ("sparse_conv_rowtile", "sparse_conv_tapsplit"):
@@ -2899,13 +3756,28 @@ def main() -> int:
           "rtume_keypoints_kept": data_res["rtume"]["keypoints"],
           "seconds_total": time.time() - t_start})
 
+    # --- 5i. feature widths 16 and 64 through the registration path and
+    # RT-UME
+    wide = phase_widths(dev, pairs[0], cfg)
+    for k, v in wide.items():
+        emit({"phase": "widths", "model": k, **v,
+              "seconds_total": time.time() - t_start})
+
+    # --- 5j. training on the card
+    emit({"phase": "train_start", "seconds_total": time.time() - t_start})
+    train_res, train_kern, train_paths = phase_train(dev, t_start)
+    kern.update(train_kern)
+    kern["gather_rows"]["ok"] = (kern["gather_rows"]["ok"]
+                                 and train_res["windows"]["ok"])
+
     paths = {"e2e": e2e_launches, "family": fam["launches"],
              "scan": scan_launches, "batched": batch_res["regimes"][1],
              "batched_resunet": res_b["launches"],
              "hungarian": hung["launches"],
              **{f"config_{k}": v for k, v in cfg_launches.items()},
              **{f"cli_{r['run']}": r["launches"] for r in cli_runs},
-             **data_paths}
+             **data_paths, **train_paths,
+             **{f"widths_{k}": v["launches"] for k, v in wide.items()}}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
@@ -2998,6 +3870,20 @@ def main() -> int:
         if not data_res["rtume"][mode]["ok"]:
             failures.append(f"rtume {mode}: card and CPU differ, or "
                             "launches other than 2 a call")
+    for k, v in wide.items():
+        if not v["ok"]:
+            failures.append(f"widths {k}: non-finite transform or kernels "
+                            "not launched")
+    for k in ("small2", "resunet"):
+        if not all(np.isfinite(st["total_loss"])
+                   for st in train_res[k]["steps"]):
+            failures.append(f"train {k}: a non-finite loss")
+    if not train_res["card_vs_cpu"]["ok"]:
+        failures.append("train: card and CPU losses differ beyond 1e-3, or "
+                        f"a gradient leaf beyond {GRAD_LEAF_TOL} of its max")
+    if not train_res["cli"]["ok"]:
+        failures.append("train CLI: no checkpoint, or the evaluate CLI "
+                        "could not use it")
     # a kernel of a path must have launched in that path's counted run
     on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
                "batched_resunet": ("nn1_argmin", "gather_rows",
@@ -3006,7 +3892,14 @@ def main() -> int:
                "hungarian": MAIN_KERNELS,
                **{p_: MAIN_KERNELS for p_ in data_paths if p_ != "rtume"},
                "rtume": ("ume_moments_fused",),
-               "family": tuple(KERNELS),
+               "family": FORWARD_KERNELS,
+               "train_small2": ("gather_rows", "gather_rows_backward"),
+               "train_resunet": ("gather_rows", "gather_rows_backward",
+                                 "sparse_conv_rowtile", "sparse_conv_tapsplit",
+                                 "sparse_conv_wgrad"),
+               "train_cli": ("gather_rows", "gather_rows_backward"),
+               **{f"widths_{k}": ("ume_moments_fused", "corr_scores_fused",
+                                  "gather_rows") for k in wide},
                "scan": ("nn1_argmin", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",
                         "sparse_conv_rowtile", "sparse_conv_tapsplit")}

@@ -45,6 +45,34 @@ def test_importing_every_module_leaves_jax_out():
         assert f"umeregrobust_tpu_torch.{new}" in MODULES
 
 
+# the JAX package's modules the port has no counterpart of yet (ROADMAP
+# Queue 1): the parallel layer and the small host modules
+UNPORTED = ["native", "ops.gridnn", "ops.hashing", "ops.precision",
+            "parallel", "parallel.mesh", "parallel.points_sharded",
+            "utils.cache", "utils.profiling"]
+# the Pallas kernels' modules are the CUDA kernels' wrappers in the port
+PORTED_AS = {"ops.pallas_corr": "ops.cuda_corr", "ops.pallas_nn": "ops.cuda_nn",
+             "ops.pallas_ume": "ops.cuda_ume"}
+
+
+def test_only_the_listed_modules_are_still_unported():
+    jax_pkg = ROOT / "umeregrobust_tpu"
+    jax_mods = {".".join(p.relative_to(jax_pkg).with_suffix("").parts
+                         ).removesuffix(".__init__")
+                for p in jax_pkg.rglob("*.py")} - {"__init__"}
+    port = {m.removeprefix("umeregrobust_tpu_torch.") for m in MODULES}
+    missing = {m for m in jax_mods - port if PORTED_AS.get(m) not in port}
+    assert sorted(missing) == UNPORTED
+
+
+@pytest.mark.parametrize("mod", [
+    "losses", "losses.losses", "pipeline.train_keypoints",
+    "pipeline.eval_metrics", "train", "train.trainer", "train.checkpoint",
+    "train.optim", "cli.train_coloring"])
+def test_the_training_modules_are_ported(mod):
+    assert f"umeregrobust_tpu_torch.{mod}" in MODULES
+
+
 # the modules of the data layer, the SEM CLI and the exporter run on the
 # host with numpy and scipy, as in the JAX package
 HOST_ONLY = ["data.laserscan", "data.registry", "data.matching_host",
@@ -201,9 +229,16 @@ def test_load_library_raises_without_nvcc(no_nvcc):
         compute_dtype=torch.bfloat16),
     lambda d: cuda_conv.conv_entries(
         torch.zeros((27, 8), dtype=torch.int64, device=d), 8).cnt,
+    lambda d: cuda_gather.gather_rows_backward(
+        torch.zeros(5, 4, device=d), torch.zeros(5, dtype=torch.int64,
+                                                 device=d), 8),
+    lambda d: cuda_conv.sparse_conv_wgrad(
+        torch.zeros(8, 4, device=d), torch.zeros(8, 6, device=d),
+        torch.zeros((27, 8), dtype=torch.int64, device=d)),
 ], ids=["nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
         "gather_padded", "sparse_conv_rowtile", "sparse_conv_tapsplit",
-        "sparse_conv", "conv_entries"])
+        "sparse_conv", "conv_entries", "gather_rows_backward",
+        "sparse_conv_wgrad"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
@@ -254,7 +289,8 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
     kernels = _chip_smoke_kernels()
     assert sorted(kernels) == sorted([
         "nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
-        "sparse_conv_rowtile", "sparse_conv_tapsplit"])
+        "sparse_conv_rowtile", "sparse_conv_tapsplit",
+        "gather_rows_backward", "sparse_conv_wgrad"])
     entry = {"ume_moments_fused": "umr_ume_moments",
              "corr_scores_fused": "umr_corr_scores"}
     for name, (source, replaces) in kernels.items():

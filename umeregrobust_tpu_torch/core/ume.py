@@ -1,18 +1,42 @@
 """Universal Manifold Embedding (UME) core (port of
-umeregrobust_tpu/core/ume.py): subspace projections, subspace distances
-and the closed-form rigid estimator from matched UME pairs."""
+umeregrobust_tpu/core/ume.py): moment matrices from padded
+neighbourhoods, subspace projections, subspace distances and the
+closed-form rigid estimator from matched UME pairs."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from umeregrobust_tpu_torch.core.so3 import gram_schmidt, kabsch_rotation
 
-__all__ = ["subspace_projection", "projection_packed", "ume_distance",
-           "ume_pairwise_distance", "estimate_rigid_from_ume",
+__all__ = ["moment_matrix", "subspace_projection", "projection_packed",
+           "ume_distance", "ume_pairwise_distance", "estimate_rigid_from_ume",
            "ume_validity_mask"]
+
+
+def moment_matrix(nn_pts: torch.Tensor, nn_feat: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  normalize: bool = False, eps: float = 1e-6) -> torch.Tensor:
+    """UME moment matrices F = [F0 | F1] (..., C, 4) fp32 of padded
+    neighbourhoods: F0 = sum_k f_k, F1 = sum_k f_k x_k^T over nn_pts
+    (..., K, 3) and nn_feat (..., K, C) (padded rows zero). mask (..., K)
+    zeroes rows first; normalize divides by the total feature mass
+    sum(F0) + eps. The products run in full fp32 (callers keep TF32 off)."""
+    nn_pts = nn_pts.to(torch.float32)
+    nn_feat = nn_feat.to(torch.float32)
+    if mask is not None:
+        m = mask.to(torch.float32)[..., None]
+        nn_pts = nn_pts * m
+        nn_feat = nn_feat * m
+    ftr = nn_feat.transpose(-1, -2)  # (..., C, K)
+    F1 = ftr @ nn_pts  # (..., C, 3)
+    F0 = torch.sum(ftr, dim=-1, keepdim=True)  # (..., C, 1)
+    F = torch.cat([F0, F1], dim=-1)
+    if normalize:
+        F = F / (torch.sum(F0, dim=-2, keepdim=True) + eps)
+    return F
 
 
 def subspace_projection(F: torch.Tensor) -> torch.Tensor:
@@ -90,6 +114,11 @@ def estimate_rigid_from_ume(
 
 
 def ume_validity_mask(F: torch.Tensor, svd_thr: float = 1e-5) -> torch.Tensor:
-    """Full-rank check: all 4 singular values above threshold."""
-    s = torch.linalg.svdvals(F.to(torch.float32))
-    return torch.sum(s > svd_thr, dim=-1) == 4
+    """Full-rank check: all 4 singular values above threshold. A matrix
+    with a non-finite entry is invalid (JAX's SVD gives NaN singular
+    values for it; torch's raises, so it sees zeros instead)."""
+    F = F.to(torch.float32)
+    finite = torch.isfinite(F).all(dim=-1).all(dim=-1)
+    s = torch.linalg.svdvals(torch.where(finite[..., None, None], F,
+                                         torch.zeros_like(F)))
+    return (torch.sum(s > svd_thr, dim=-1) == 4) & finite

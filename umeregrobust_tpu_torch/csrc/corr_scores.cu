@@ -40,6 +40,14 @@
 // hypothesis block) with per-pair pointer offsets, and each pair keeps the
 // grid and partial layout of its B = 1 call, so its scores have the same
 // bits.
+// Widths: the first 32 features of a row are the register and shared
+// memory slice above. A row of C > 32 (the wrapper zero-pads C to a
+// multiple of 32; C < 32 to 32, which adds only zero products) carries
+// its further 32-wide slices in device memory, read only in the steps a
+// vote asks for (through L1 / L2, as those steps are rare). The product
+// of a pair stays one sum: each slice's four partial sums are added as
+// ((G0 + G1) + (G2 + G3)), and the slices one after another in column
+// order, so <f_i, g_j> = ((S_0 + S_1) + S_2) + ...
 // Distance and weight are fp32 with explicitly rounded operations (never
 // below fp32: rounding coordinates flips radius membership) and an exact
 // divide. Each block writes one partial sum per (hypothesis, source tile,
@@ -53,7 +61,7 @@
 
 namespace {
 
-constexpr int kC = 32;        // feature width on the main path
+constexpr int kC = 32;        // features of a slice (the main path's C)
 constexpr int kC4 = kC / 4;   // float4 pieces of a feature row
 constexpr int kHB = 8;        // hypotheses per block
 constexpr int kThreads = 256; // source rows per block (one per thread)
@@ -67,23 +75,47 @@ struct Shared {
   float red[kWarps][kHB];
 };
 
-// The step a warp's vote asked for: G = <f_i, g_j>, then the weights of
-// this thread's triples in radius.
-template <int NH>
-__device__ __forceinline__ void add_in_radius(const float4* __restrict__ g,
-                                              const float4* f, const float* d2,
-                                              float inv_s2, float r2,
-                                              float* acc) {
+// <f, g> over one 32-wide slice: four partial sums, then
+// (G0 + G1) + (G2 + G3)
+template <typename LoadF, typename LoadG>
+__device__ __forceinline__ float slice_dot(LoadF f, LoadG g) {
   float G0 = 0.f, G1 = 0.f, G2 = 0.f, G3 = 0.f;
 #pragma unroll
   for (int c = 0; c < kC4; ++c) {
-    const float4 gc = g[c];
-    G0 = fmaf(f[c].x, gc.x, G0);
-    G1 = fmaf(f[c].y, gc.y, G1);
-    G2 = fmaf(f[c].z, gc.z, G2);
-    G3 = fmaf(f[c].w, gc.w, G3);
+    const float4 fc = f(c);
+    const float4 gc = g(c);
+    G0 = fmaf(fc.x, gc.x, G0);
+    G1 = fmaf(fc.y, gc.y, G1);
+    G2 = fmaf(fc.z, gc.z, G2);
+    G3 = fmaf(fc.w, gc.w, G3);
   }
-  const float G = (G0 + G1) + (G2 + G3);
+  return (G0 + G1) + (G2 + G3);
+}
+
+// The step a warp's vote asked for: G = <f_i, g_j>, then the weights of
+// this thread's triples in radius. g: the target's first slice in shared
+// memory; f: the source row's first slice in registers; fx / gx: the two
+// rows' further slices in device memory (ns slices in all; fx is null for
+// a thread past the source rows, whose features are zero).
+template <int NH>
+__device__ __forceinline__ void add_in_radius(const float4* __restrict__ g,
+                                              const float4* f,
+                                              const float4* __restrict__ fx,
+                                              const float4* __restrict__ gx,
+                                              int ns, const float* d2,
+                                              float inv_s2, float r2,
+                                              float* acc) {
+  float G = slice_dot([&](int c) { return f[c]; },
+                      [&](int c) { return g[c]; });
+  for (int sl = 1; sl < ns; ++sl) {
+    const float4* fs = fx + (sl - 1) * kC4;
+    const float4* gs = gx + (sl - 1) * kC4;
+    G += slice_dot(
+        [&](int c) {
+          return fx != nullptr ? __ldg(fs + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        },
+        [&](int c) { return __ldg(gs + c); });
+  }
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
     if (d2[h] <= r2) {
@@ -102,14 +134,16 @@ __device__ __forceinline__ void sweep(Shared& sm,
                                       const float4* __restrict__ fs,
                                       const float4* __restrict__ tp,
                                       const float4* __restrict__ ft,
-                                      int h0, int S, int T, int tile0,
-                                      int tile1, float inv_s2, float r2,
-                                      float* acc_out) {
+                                      int ld4, int h0, int S, int T,
+                                      int tile0, int tile1, float inv_s2,
+                                      float r2, float* acc_out) {
+  const int ns = ld4 / kC4;  // 32-wide slices of a feature row
   const int tid = threadIdx.x;
   const int i = blockIdx.x * kThreads + tid;
   // a thread past the end holds a source row that is in no radius
   float px[NH], py[NH], pz[NH];
   float4 f[kC4];
+  const float4* fx = i < S ? fs + (int64_t)i * ld4 + kC4 : nullptr;
   if (i < S) {
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
@@ -117,7 +151,7 @@ __device__ __forceinline__ void sweep(Shared& sm,
       px[h] = p.x, py[h] = p.y, pz[h] = p.z;
     }
 #pragma unroll
-    for (int c = 0; c < kC4; ++c) f[c] = fs[(int64_t)i * kC4 + c];
+    for (int c = 0; c < kC4; ++c) f[c] = fs[(int64_t)i * ld4 + c];
   } else {
 #pragma unroll
     for (int h = 0; h < NH; ++h) px[h] = py[h] = pz[h] = INFINITY;
@@ -134,7 +168,7 @@ __device__ __forceinline__ void sweep(Shared& sm,
     __syncthreads();  // the previous tile is read to its end
     if (tid < nt) sm.tq[tid] = tp[j0 + tid];
     for (int e = tid; e < nt * kC4; e += kThreads)
-      (&sm.tg[0][0])[e] = ft[(int64_t)j0 * kC4 + e];
+      (&sm.tg[0][0])[e] = ft[(int64_t)(j0 + e / kC4) * ld4 + e % kC4];
     __syncthreads();
     // two targets a turn: their distance tests overlap, each has its vote
     int j = 0;
@@ -151,8 +185,12 @@ __device__ __forceinline__ void sweep(Shared& sm,
       }
       const bool any_a = __any_sync(kFull, hit_a);
       const bool any_b = __any_sync(kFull, hit_b);
-      if (any_a) add_in_radius<NH>(sm.tg[j], f, da, inv_s2, r2, acc);
-      if (any_b) add_in_radius<NH>(sm.tg[j + 1], f, db, inv_s2, r2, acc);
+      const float4* gxa = ft + (int64_t)(j0 + j) * ld4 + kC4;
+      if (any_a)
+        add_in_radius<NH>(sm.tg[j], f, fx, gxa, ns, da, inv_s2, r2, acc);
+      if (any_b)
+        add_in_radius<NH>(sm.tg[j + 1], f, fx, gxa + ld4, ns, db, inv_s2, r2,
+                          acc);
     }
     if (j < nt) {
       const float4 qa = sm.tq[j];
@@ -164,7 +202,8 @@ __device__ __forceinline__ void sweep(Shared& sm,
         hit_a = hit_a || (da[h] <= r2);
       }
       if (__any_sync(kFull, hit_a))
-        add_in_radius<NH>(sm.tg[j], f, da, inv_s2, r2, acc);
+        add_in_radius<NH>(sm.tg[j], f, fx, ft + (int64_t)(j0 + j) * ld4 + kC4,
+                          ns, da, inv_s2, r2, acc);
     }
   }
 #pragma unroll
@@ -177,15 +216,15 @@ corr_partial_kernel(const float4* __restrict__ pts_t,
                     const float4* __restrict__ tp,
                     const float4* __restrict__ ft,
                     float* __restrict__ partial, int H, int S, int T,
-                    float inv_s2, float r2) {
+                    int ld4, float inv_s2, float r2) {
   __shared__ Shared sm;
   const int tid = threadIdx.x;
   const int hblocks = (H + kHB - 1) / kHB;
   const int64_t pair = blockIdx.y / hblocks;
   pts_t += pair * H * S;
-  fs += pair * S * kC4;
+  fs += pair * S * ld4;
   tp += pair * T;
-  ft += pair * T * kC4;
+  ft += pair * T * ld4;
   partial += pair * H * gridDim.x * gridDim.z;
   const int h0 = (blockIdx.y % hblocks) * kHB;
   const int nh = min(kHB, H - h0);
@@ -198,7 +237,7 @@ corr_partial_kernel(const float4* __restrict__ pts_t,
   switch (nh) {
 #define UMR_CASE(N)                                                          \
   case N:                                                                    \
-    sweep<N>(sm, pts_t, fs, tp, ft, h0, S, T, tile0, tile1, inv_s2, r2,      \
+    sweep<N>(sm, pts_t, fs, tp, ft, ld4, h0, S, T, tile0, tile1, inv_s2, r2, \
              acc);                                                           \
     break;
     UMR_CASE(1) UMR_CASE(2) UMR_CASE(3) UMR_CASE(4)
@@ -244,13 +283,13 @@ __global__ void corr_sum_kernel(const float* __restrict__ partial,
 // 16-byte aligned -> out (B,H) f32. split: 0 = a block sweeps every
 // target, else one block per tile of 128 targets. partial (B, H,
 // ceil(S/256), split ? ceil(T/128) : 1) f32 is caller-allocated scratch.
-// C must be 32; B, H, S, T >= 1.
+// C must be a positive multiple of 32 (the wrapper pads); B, H, S, T >= 1.
 UMR_EXPORT int umr_corr_scores(const float* pts_t, const float* fs,
                                const float* tp, const float* ft,
                                float* partial, float* out, int B, int H,
                                int S, int T, int C, int split, float inv_s2,
                                float r2, void* stream) {
-  if (C != kC || B < 1 || H < 1 || S < 1 || T < 1)
+  if (C < kC || C % kC != 0 || B < 1 || H < 1 || S < 1 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_src = (S + kThreads - 1) / kThreads;
@@ -263,7 +302,8 @@ UMR_EXPORT int umr_corr_scores(const float* pts_t, const float* fs,
   corr_partial_kernel<<<grid, kThreads, 0, st>>>(
       reinterpret_cast<const float4*>(pts_t),
       reinterpret_cast<const float4*>(fs), reinterpret_cast<const float4*>(tp),
-      reinterpret_cast<const float4*>(ft), partial, H, S, T, inv_s2, r2);
+      reinterpret_cast<const float4*>(ft), partial, H, S, T, C / 4, inv_s2,
+      r2);
   constexpr int kSumThreads = 128;  // 4 hypotheses a block
   const int64_t sum_blocks = ((int64_t)B * H * 32 + kSumThreads - 1) /
                              kSumThreads;

@@ -1,4 +1,5 @@
-// Row gather: out[i] = table[idx[i]], a zero row where idx[i] < 0.
+// Row gather: out[i] = table[idx[i]], a zero row where idx[i] < 0, and
+// its backward, the scatter-add of the output's cotangent into the table.
 //
 // Replaces: tools/exp_gather2.py, pg (body kern): the Pallas probe of
 // Mosaic's dynamic gather, the row gather inside
@@ -13,6 +14,16 @@
 // lines), one thread per element otherwise. A row index is read by every
 // thread of its row (served from L1). An index outside [0, N) yields a
 // zero row, so nothing is read out of bounds.
+//
+// Backward (gather_rows_backward): dtable[r] = the sum, over the positions
+// i with idx[i] == r in ascending i, of dout[i]. Bound: bytes (each
+// cotangent row read once, each table row written once, the sorted
+// positions read once). Design: the wrapper sorts the indices once
+// (torch.sort, stable) and finds each row's segment of the sorted
+// positions (searchsorted); a warp owns a destination row, its lanes the
+// columns, and adds the row's cotangents in ascending position, 8 loads in
+// flight before the adds. No float atomics: two launches give the same
+// bits, and they are the bits of a sequential index_add_ on the CPU.
 #include "common.cuh"
 
 namespace {
@@ -73,6 +84,32 @@ void launch(const void* table, const void* idx, void* out, int64_t M,
   }
 }
 
+constexpr int kLoads = 8;  // cotangent rows in flight a lane
+
+__global__ void gather_rows_backward_kernel(const float* __restrict__ dout,
+                                            const int64_t* __restrict__ perm,
+                                            const int64_t* __restrict__ starts,
+                                            float* __restrict__ dtable,
+                                            int64_t N, int C) {
+  const int64_t r = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= N) return;  // whole warps leave together
+  const int64_t s0 = starts[r], s1 = starts[r + 1];
+  for (int c = lane; c < C; c += 32) {
+    float acc = 0.f;
+    int64_t e = s0;
+    for (; e + kLoads <= s1; e += kLoads) {
+      float v[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) v[j] = dout[perm[e + j] * C + c];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) acc += v[j];
+    }
+    for (; e < s1; ++e) acc += dout[perm[e] * C + c];
+    dtable[r * C + c] = acc;
+  }
+}
+
 }  // namespace
 
 // table (N, C) of 4-byte (fp32) or 2-byte (bf16) elements, idx (M,) int32
@@ -88,5 +125,20 @@ UMR_EXPORT int umr_gather_rows(const void* table, const void* idx, void* out,
   } else {
     launch<int32_t>(table, idx, out, M, N, C, elem_bytes, vec16, st);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dout (M, C) f32; perm (M,) int64: positions in stable order of their
+// index (rows outside [0, N) last); starts (N + 1,) int64: row r's
+// positions are perm[starts[r] .. starts[r + 1]) -> dtable (N, C) f32,
+// every row written.
+UMR_EXPORT int umr_gather_rows_backward(const float* dout, const int64_t* perm,
+                                        const int64_t* starts, float* dtable,
+                                        int N, int C, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = ((int64_t)N * 32 + kThreads - 1) / kThreads;
+  gather_rows_backward_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+      dout, perm, starts, dtable, N, C);
   return static_cast<int>(cudaGetLastError());
 }

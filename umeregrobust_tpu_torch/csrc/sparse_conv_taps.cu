@@ -1068,6 +1068,85 @@ int set_smem(Kern kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// ---------------------------------------------------------------------
+// Weight gradient (the backward of both conv paths; their input gradient
+// is the forward conv over the inverted map, ops/cuda_conv.py):
+//   dW[k] = sum over tap k's valid entries (o, i) of X[i]^T dY[o]
+// (K, Cin, Cout) fp32; operands rounded to bf16 when the forward's were.
+// Bound on the H100: bytes at the main path's widths (each entry reads
+// one row of X and one of dY, and makes Cin x Cout products: 64-1024 a
+// byte at 32-512 channels in fp32 FMAs, ~20 needed to reach the 67
+// TFLOP/s fp32 line only at the widest layers). Simple design: a block
+// owns one (tap, 32 input channels, 32 output channels) tile and walks
+// its tap's entries (the forward's entry lists, row order) 64 at a time
+// through shared memory, 4 sums a thread. With few taps and channel tiles
+// for the card (the k3 layers of level 0) the entries of a tap are split
+// into S contiguous segments over grid z, and a second kernel adds the
+// segments' partial tiles in segment order: no atomics, so two launches
+// give the same bits.
+constexpr int kWT = 32;        // input and output channels of a tile
+constexpr int kWE = 64;        // entries staged a step
+constexpr int kWThreads = 256; // 8 x 32: 4 input channels x 1 output each
+
+__global__ void __launch_bounds__(kWThreads)
+wgrad_kernel(const float* __restrict__ X, const float* __restrict__ G,
+             const int2* __restrict__ ent, const int* __restrict__ cnt,
+             float* __restrict__ dst, int N_out, int Cin, int Cout, int K,
+             int S, bool bf16) {
+  __shared__ float xs[kWE][kWT + 1];
+  __shared__ float gs[kWE][kWT + 1];
+  const int k = blockIdx.x;
+  const int ci0 = blockIdx.y * kWT;
+  const int tiles_o = (Cout + kWT - 1) / kWT;
+  const int co0 = (blockIdx.z % tiles_o) * kWT;
+  const int seg = blockIdx.z / tiles_o;
+  const int tid = threadIdx.x;
+  const int tx = tid % kWT, ty = tid / kWT;  // ty: 0..7
+  const int n = cnt[k];
+  const int chunk = (n + S - 1) / S;
+  const int e0 = min(n, seg * chunk), e1 = min(n, e0 + chunk);
+  const int2* te = ent + (int64_t)k * N_out;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int base = e0; base < e1; base += kWE) {
+    const int rows = min(kWE, e1 - base);
+    __syncthreads();  // the previous step's tiles are read
+    for (int idx = tid; idx < kWE * kWT; idx += kWThreads) {
+      const int r = idx / kWT, c = idx % kWT;
+      float xv = 0.f, gv = 0.f;
+      if (r < rows) {
+        const int2 oe = te[base + r];  // (out_row, in_row)
+        if (ci0 + c < Cin) xv = X[(int64_t)oe.y * Cin + ci0 + c];
+        if (co0 + c < Cout) gv = G[(int64_t)oe.x * Cout + co0 + c];
+      }
+      xs[r][c] = round_operand(xv, bf16);
+      gs[r][c] = round_operand(gv, bf16);
+    }
+    __syncthreads();
+    for (int r = 0; r < rows; ++r) {
+      const float g = gs[r][tx];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = fmaf(xs[r][ty + 8 * j], g, acc[j]);
+    }
+  }
+  if (co0 + tx >= Cout) return;
+  float* d = dst + (int64_t)(S > 1 ? seg * K + k : k) * Cin * Cout;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int ci = ci0 + ty + 8 * j;
+    if (ci < Cin) d[(int64_t)ci * Cout + co0 + tx] = acc[j];
+  }
+}
+
+// out[e] = sum over s in order of partial[s][e], e < n
+__global__ void wgrad_sum_kernel(const float* __restrict__ partial,
+                                 float* __restrict__ out, int64_t n, int S) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int q = 0; q < S; ++q) s += partial[(int64_t)q * n + e];
+  out[e] = s;
+}
+
 }  // namespace
 
 // The per-tap entry lists alone (see entries_kernel): ent (K, N_out, 2),
@@ -1184,6 +1263,41 @@ UMR_EXPORT int umr_sparse_conv_rowtile_mma(const float* feats, const float* w,
   } else {
     launch_entries<int32_t>(nbr, N_in, N_out, K, kRTM, chunk_cnt, ent, cnt, tile_start, nullptr, st);
     rowtile_mma_kernel<int32_t><<<grid, 256, 0, st>>>(feats, w, static_cast<const int32_t*>(nbr), tile_start, out, N_in, N_out, Cin, Cout, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Weight gradient of the per-tap conv: X (N_in, Cin) and G = dY (N_out,
+// Cout) f32, nbr (K, N_out) -> out (K, Cin, Cout) f32. ints (2 K N_out + K
+// + K ceil(N_out / 2048)) int32 scratch for the entry lists; partial (S,
+// K, Cin, Cout) f32 scratch when S > 1 (else null). bf16: round X and G to
+// bf16 (the forward's operands); sums are fp32 either way.
+UMR_EXPORT int umr_sparse_conv_wgrad(const float* X, const float* G,
+                                     const void* nbr, int* ints,
+                                     float* partial, float* out, int N_in,
+                                     int N_out, int Cin, int Cout, int K,
+                                     int S, int bf16, int idx64,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_o = (Cout + kWT - 1) / kWT;
+  if (bad_shape(N_in, N_out, Cin, Cout, K) || !entries_ok(N_out, K) ||
+      S < 1 || (S > 1 && partial == nullptr) || K > 65535 ||
+      (Cin + kWT - 1) / kWT > 65535 || (int64_t)tiles_o * S > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int64_t KN = (int64_t)K * N_out;
+  int2* ent = reinterpret_cast<int2*>(ints);
+  int* cnt = ints + 2 * KN;
+  int* chunk_cnt = cnt + K;
+  if (idx64) launch_entries<int64_t>(nbr, N_in, N_out, K, 32, chunk_cnt, ent, cnt, nullptr, nullptr, st);
+  else launch_entries<int32_t>(nbr, N_in, N_out, K, 32, chunk_cnt, ent, cnt, nullptr, nullptr, st);
+  dim3 grid(K, (Cin + kWT - 1) / kWT, tiles_o * S);
+  wgrad_kernel<<<grid, kWThreads, 0, st>>>(X, G, ent, cnt,
+                                           S > 1 ? partial : out, N_out, Cin,
+                                           Cout, K, S, bf16 != 0);
+  if (S > 1) {
+    const int64_t n = KN / N_out * Cin * Cout;
+    wgrad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        partial, out, n, S);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,11 @@
 // both kernels, per-pair pointer offsets, a packed copy per pair). A
 // keypoint's warp does what it does at B = 1, so each pair's rows are
 // added in the same order and its output has the bits of the B = 1 call.
+// Widths: Z has C4 columns, a multiple of 128 (the wrapper zero-pads 4C up
+// to one); grid z runs over the 128-column slices, each warp of a slice
+// sweeping the same points and adding its own 128 columns of the same rows
+// in the same order. Columns are independent, so a column's bits do not
+// depend on the slice it falls in or on the padding.
 // Candidates that were measured on the card and not kept: point tiles
 // shared by the block with no row read between its barriers (the block
 // first fills an in-radius bitmap for its 8 keypoints, then each warp
@@ -65,7 +70,7 @@
 namespace {
 
 constexpr int kWarps = 4;    // warps a block; they share nothing
-constexpr int kCols = 128;   // 4C at C = 32: 4 columns per lane
+constexpr int kCols = 128;   // columns a slice (4C at C = 32): 4 a lane
 constexpr int kQueue = 128;  // ring slots per warp (power of two)
 constexpr int kBatch = 16;   // row reads in flight per warp in a drain
 constexpr int kUnroll = 4;   // steps whose points are loaded ahead
@@ -102,17 +107,18 @@ __global__ void ume_pack_points_kernel(const float* __restrict__ pts,
 
 // adds the rows queued at ring positions head .. head + n - 1 (n <= kBatch,
 // uniform over the warp) to acc, in that order; all n reads are started
-// before the first add
+// before the first add. Z4 points at this lane's float4 of the slice; ld4
+// is a row's float4 count.
 template <bool kFull>
 __device__ __forceinline__ void drain(const int* __restrict__ q,
-                                      const float4* __restrict__ Z4, int lane,
+                                      const float4* __restrict__ Z4, int ld4,
                                       int head, int n, float4& acc) {
   float4 z[kBatch];
 #pragma unroll
   for (int j = 0; j < kBatch; ++j) {
     if (kFull || j < n) {
       const int row = q[(head + j) & (kQueue - 1)];
-      z[j] = __ldcg(Z4 + (int64_t)row * (kCols / 4) + lane);
+      z[j] = __ldcg(Z4 + (int64_t)row * ld4);
     }
   }
 #pragma unroll
@@ -130,7 +136,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 ume_moments_kernel(const float* __restrict__ kpts,
                    const float* __restrict__ packed,
                    const float* __restrict__ Z, float* __restrict__ out,
-                   int M, int N, int P, float r2, int max_nn) {
+                   int M, int N, int P, int C4, float r2, int max_nn) {
   __shared__ int queue[kWarps][kQueue];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -139,8 +145,10 @@ ume_moments_kernel(const float* __restrict__ kpts,
   const int64_t pair = blockIdx.y;
   kpts += pair * M * 3;
   packed += pair * 3 * P;
-  Z += pair * N * kCols;
-  out += pair * M * kCols;
+  Z += pair * N * C4;
+  out += pair * M * C4;
+  const int ld4 = C4 / 4;
+  const int col4 = blockIdx.z * (kCols / 4) + lane;  // this lane's float4
   int* q = queue[warp];
   const float kx = kpts[3 * (int64_t)k];
   const float ky = kpts[3 * (int64_t)k + 1];
@@ -148,7 +156,7 @@ ume_moments_kernel(const float* __restrict__ kpts,
   const float* px = packed + lane;
   const float* py = px + P;
   const float* pz = py + P;
-  const float4* Z4 = reinterpret_cast<const float4*>(Z);
+  const float4* Z4 = reinterpret_cast<const float4*>(Z) + col4;
   const unsigned below = (1u << lane) - 1u;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   int count = 0;  // indices queued so far, <= max_nn (uniform over the warp)
@@ -187,7 +195,7 @@ ume_moments_kernel(const float* __restrict__ kpts,
         count = min(count + __popc(bits[u]), max_nn);
         __syncwarp();
         while (count - head >= kBatch) {
-          drain<true>(q, Z4, lane, head, kBatch, acc);
+          drain<true>(q, Z4, ld4, head, kBatch, acc);
           head += kBatch;
         }
         // the ring's next writes land ahead of every slot still unread
@@ -201,8 +209,8 @@ ume_moments_kernel(const float* __restrict__ kpts,
       cz[u] = nz[u];
     }
   }
-  if (count > head) drain<false>(q, Z4, lane, head, count - head, acc);
-  reinterpret_cast<float4*>(out)[(int64_t)k * (kCols / 4) + lane] = acc;
+  if (count > head) drain<false>(q, Z4, ld4, head, count - head, acc);
+  reinterpret_cast<float4*>(out)[(int64_t)k * ld4 + col4] = acc;
 }
 
 }  // namespace
@@ -211,23 +219,23 @@ ume_moments_kernel(const float* __restrict__ kpts,
 // points
 UMR_EXPORT int umr_ume_moments_scratch(int N) { return 3 * packed_points(N); }
 
-// B pairs: kpts (B,M,3), pts (B,N,3), Z (B,N,128) f32, mask (B,N) bool ->
-// out (B,M,128) f32; scratch: B x umr_ume_moments_scratch(N) floats,
-// overwritten. C4 must be 128 (checked by the wrapper; passed for the
-// record).
+// B pairs: kpts (B,M,3), pts (B,N,3), Z (B,N,C4) f32, mask (B,N) bool ->
+// out (B,M,C4) f32; scratch: B x umr_ume_moments_scratch(N) floats,
+// overwritten. C4 must be a positive multiple of 128 (the wrapper pads).
 UMR_EXPORT int umr_ume_moments(const float* kpts, const float* pts,
                                const float* Z, const uint8_t* mask,
                                float* out, float* scratch, int B, int M,
                                int N, int C4, float r2, int max_nn,
                                void* stream) {
-  if (C4 != kCols || B < 1 || B > 65535)
+  if (C4 < kCols || C4 % kCols != 0 || C4 / kCols > 65535 || B < 1 ||
+      B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int P = packed_points(N);
   ume_pack_points_kernel<<<dim3((P + 255) / 256, B), 256, 0, st>>>(
       pts, mask, scratch, N, P);
   const int blocks = (M + kWarps - 1) / kWarps;
-  ume_moments_kernel<<<dim3(blocks, B), kWarps * 32, 0, st>>>(
-      kpts, scratch, Z, out, M, N, P, r2, max_nn);
+  ume_moments_kernel<<<dim3(blocks, B, C4 / kCols), kWarps * 32, 0, st>>>(
+      kpts, scratch, Z, out, M, N, P, C4, r2, max_nn);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,47 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["SceneConfig", "make_scene", "make_pair"]
+__all__ = ["SceneConfig", "make_scene", "make_pair", "make_collated_batch"]
+
+
+def make_collated_batch(
+    scene_cfg: "SceneConfig",
+    n_pairs: int,
+    max_pc_size: int,
+    num_matches: int,
+    voxel_size: float = 0.3,
+    seed: int = 0,
+    max_rotation_deg: float = 180.0,
+    max_translation: float = 10.0,
+    min_rotation_deg: float = 0.0,
+    sector_deg: float = 360.0,
+) -> dict:
+    """Synthetic pairs (seeds seed + i), voxelized and collated into the
+    trainer's fixed-shape batch (data/collate.collate_fixed): the training
+    substrate of the tests and chip_smoke.py."""
+    from umeregrobust_tpu_torch.data.collate import collate_fixed
+    from umeregrobust_tpu_torch.data.matching_host import mutual_matches
+    from umeregrobust_tpu_torch.ops.voxel import (
+        coords_to_grid_pts_np, quantize_np)
+
+    samples = []
+    for i in range(n_pairs):
+        pair = make_pair(scene_cfg, max_rotation_deg=max_rotation_deg,
+                         max_translation=max_translation, seed=seed + i,
+                         min_rotation_deg=min_rotation_deg,
+                         sector_deg=sector_deg)
+        src_c, si = quantize_np(pair["src_pts"], voxel_size)
+        tgt_c, ti = quantize_np(pair["tgt_pts"], voxel_size)
+        src_g = coords_to_grid_pts_np(pair["src_pts"], src_c, voxel_size)
+        tgt_g = coords_to_grid_pts_np(pair["tgt_pts"], tgt_c, voxel_size)
+        gt = pair["gt_tform"]
+        m = mutual_matches(src_g, tgt_g, gt, voxel_size / 2)
+        tf = (src_g @ gt[:3, :3].T + gt[:3, 3]).astype(np.float32)
+        samples.append((src_g, pair["src_seg"][si], src_c, tgt_g,
+                        pair["tgt_seg"][ti], tgt_c, tf, gt, m))
+    return collate_fixed(samples, max_pc_size=max_pc_size,
+                         num_matches=num_matches,
+                         rng=np.random.default_rng(seed))
 
 
 @dataclass

@@ -1,6 +1,7 @@
 """The sparse ResUNet "coloring" backbone family (port of
-umeregrobust_tpu/models/resunet.py, eval mode): ResUNet, ResUNet2..5 (6
-levels) and ResUNetSmall, ResUNetSmall2 (5 levels).
+umeregrobust_tpu/models/resunet.py): ResUNet, ResUNet2..5 (6 levels) and
+ResUNetSmall, ResUNetSmall2 (5 levels), in eval mode and, for training,
+with batch statistics and gradients (`forward(..., train=True)`).
 
 Architecture: encoder level i = conv (k_i, stride s_i) -> BN -> residual
 block -> skip -> relu; decoder level = transposed conv -> BN -> block ->
@@ -353,6 +354,18 @@ class _Dense(nn.Module):
             self.b = nn.Parameter(torch.zeros(cout))
 
 
+class _BN(NamedTuple):
+    """What a forward's BN layers need: train mode, the cloud of each row
+    of every level (None in eval), the clouds' count, and the dict that
+    collects each layer's new running state ("block1.norm1" -> (mean,
+    var))."""
+
+    train: bool
+    clouds: Optional[List[torch.Tensor]]
+    n_clouds: int
+    new_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
 class _Norm(nn.Module):
     """Masked BatchNorm parameters (scale, bias) and running stats."""
 
@@ -362,10 +375,16 @@ class _Norm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
+        self.key = ""  # the module's path, set by ResUNet
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return masked_batch_norm(x, mask, self.scale, self.bias, self.mean,
-                                 self.var)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, bn: _BN,
+                level: int) -> torch.Tensor:
+        out, nm, nv = masked_batch_norm(
+            x, mask, self.scale, self.bias, self.mean, self.var,
+            train=bn.train, cloud=bn.clouds[level] if bn.train else None,
+            n_clouds=bn.n_clouds)
+        bn.new_state[self.key] = (nm, nv)
+        return out
 
 
 class _Block(nn.Module):
@@ -380,20 +399,20 @@ class _Block(nn.Module):
             self.conv2 = _Conv(27, c, c)
             self.norm2 = _Norm(c)
 
-    def forward(self, x, mask, nbr, compute_dtype, pairs=1):
+    def forward(self, x, mask, nbr, compute_dtype, pairs, bn, level):
         out = self.norm1(_conv(x, self.conv1.w, nbr, compute_dtype, pairs),
-                         mask)
+                         mask, bn, level)
         if hasattr(self, "conv2"):
             out = self.norm2(_conv(torch.relu(out), self.conv2.w, nbr,
-                                   compute_dtype, pairs), mask)
+                                   compute_dtype, pairs), mask, bn, level)
         return torch.relu(out + x) * mask.to(torch.float32)[:, None]
 
 
 class ResUNet(nn.Module):
-    """The sparse ResUNet in eval mode. Parameter names mirror the JAX
-    package's pytree (`conv1.w`, `block1.norm1.scale`, `norm1_tr.mean`,
-    ...), so `models.weights.params_from_jax` maps checkpoints one to
-    one. conv_impl: 'grouped' (default: grouped-window conv on k=3 layers,
+    """The sparse ResUNet. Parameter names mirror the JAX package's pytree
+    (`conv1.w`, `block1.norm1.scale`, `norm1_tr.mean`, ...), so
+    `models.weights.params_from_jax` maps checkpoints one to one.
+    conv_impl: 'grouped' (default: grouped-window conv on k=3 layers,
     per-tap conv on k5/k7 layers) or 'scan' (per-tap conv on every layer,
     the same function)."""
 
@@ -427,15 +446,50 @@ class ResUNet(nn.Module):
             prev = cout + C[lvl]
         self.mlp1 = _Dense(prev, TR[0])
         self.final = _Dense(TR[0], out_channels, bias=True)
+        for name, mod in self.named_modules():
+            if isinstance(mod, _Norm):
+                mod.key = name
 
-    @torch.no_grad()
     def forward(self, geom: Dict[str, Any], in_feats: torch.Tensor,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32,
+                train: bool = False):
         """in_feats (N0, Cin), invalid rows zero -> (N0, out) fp32 unit-
         norm features in the caller's row order (zero on invalid rows).
         A geometry of B pairs (build_unet_geometry pairs=B) runs as one
         forward whose every dense product is made as for one pair's level,
-        so each pair gets the features its own forward gives it."""
+        so each pair gets the features its own forward gives it.
+
+        train=False: the eval forward, with no graph and running BN
+        statistics. train=True: the graph is kept and each block of the
+        pyramid (a pair of build_unet_geometry, the block of batch indices
+        2b and 2b + 1) takes its own BN statistics; returns (features,
+        new_bn_state), the state a dict of buffer name -> tensor (the
+        average of the blocks' new running estimates) that the caller
+        commits, or not (`load_bn_state`)."""
+        if not train:
+            with torch.no_grad():
+                return self._forward(geom, in_feats, compute_dtype,
+                                     _BN(False, None, 1, {}))
+        pairs = geom.get("pairs", 1)
+        clouds = [torch.div(lv.coords[:, 0].to(torch.int64), 2,
+                            rounding_mode="floor") for lv in geom["levels"]]
+        bn = _BN(True, clouds, pairs, {})
+        out = self._forward(geom, in_feats, compute_dtype, bn)
+        state = {}
+        for key, (m, v) in bn.new_state.items():
+            state[f"{key}.mean"] = m.detach()
+            state[f"{key}.var"] = v.detach()
+        return out, state
+
+    @torch.no_grad()
+    def load_bn_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Write running BN statistics (as forward(train=True) returns
+        them) into the buffers."""
+        bufs = dict(self.named_buffers())
+        for k, v in state.items():
+            bufs[k].copy_(v)
+
+    def _forward(self, geom, in_feats, compute_dtype, bn: _BN):
         L = len(self.arch.channels)
         levels = geom["levels"]
         pairs = geom.get("pairs", 1)
@@ -451,9 +505,9 @@ class ResUNet(nn.Module):
             mask = levels[i].mask
             out = _conv(out, getattr(self, f"conv{i+1}").w, enc_m[i],
                         compute_dtype, pairs)
-            out = getattr(self, f"norm{i+1}")(out, mask)
+            out = getattr(self, f"norm{i+1}")(out, mask, bn, i)
             out = getattr(self, f"block{i+1}")(out, mask, block_m[i],
-                                               compute_dtype, pairs)
+                                               compute_dtype, pairs, bn, i)
             skips.append(out)
             out = torch.relu(out)
         for d in range(L - 1):
@@ -461,9 +515,10 @@ class ResUNet(nn.Module):
             mask = levels[lvl].mask
             out = _conv(out, getattr(self, f"conv{lvl+1}_tr").w, dec_m[d],
                         compute_dtype, pairs)
-            out = getattr(self, f"norm{lvl+1}_tr")(out, mask)
+            out = getattr(self, f"norm{lvl+1}_tr")(out, mask, bn, lvl)
             out = getattr(self, f"block{lvl+1}_tr")(out, mask, block_m[lvl],
-                                                    compute_dtype, pairs)
+                                                    compute_dtype, pairs, bn,
+                                                    lvl)
             out = torch.cat([torch.relu(out), skips[lvl]], dim=-1)
         mask0 = levels[0].mask.to(torch.float32)[:, None]
         out = matmul_by_pair(round_to(out, compute_dtype),

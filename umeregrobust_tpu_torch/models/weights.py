@@ -4,13 +4,17 @@ The repository's checkpoints (weights/*.pkl) are pickles of plain numpy
 pytrees written by the JAX package's trainer: {"params": ..., "bn_state":
 ...} with conv weights (k^3, Cin, Cout) for k in 3, 5, 7, taps in
 lexicographic (dx, dy, dz) order, dz fastest; 'BN' blocks carry `conv2` /
-`norm2` entries beside `conv1` / `norm1`. They load with `pickle` alone. Only unpickle
-checkpoints this project wrote: unpickling can run arbitrary code.
+`norm2` entries beside `conv1` / `norm1`. They load with `pickle` alone,
+through an unpickler that builds numpy arrays and plain Python values
+only: any other class (the optax states in the opt_state of the JAX
+package's training checkpoints) becomes a `ForeignObject` stand-in, and
+no module outside numpy is imported. `params_to_jax` writes a ResUNet
+back in the JAX package's layout.
 """
 from __future__ import annotations
 
 import pickle
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -18,14 +22,48 @@ import torch
 from umeregrobust_tpu_torch.devices import resolve_device
 from umeregrobust_tpu_torch.models.resunet import ArchSpec, ResUNet
 
-__all__ = ["load_checkpoint", "params_from_jax", "model_from_params",
-           "load_model"]
+__all__ = ["load_checkpoint", "params_from_jax", "params_to_jax",
+           "model_from_params", "load_model", "ForeignObject"]
+
+_SAFE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int",
+                  "float", "complex", "bool", "str", "bytes", "bytearray",
+                  "slice", "range"}
+
+
+class ForeignObject:
+    """What the checkpoint reader builds for a class of another library
+    (`qualname` names it); its state and arguments are kept."""
+
+    qualname = "?"
+
+    def __new__(cls, *args, **kwargs):
+        obj = object.__new__(cls)
+        obj.args = args
+        return obj
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module == "numpy" or module.startswith("numpy."):
+            return super().find_class(module, name)
+        if module in ("builtins", "__builtin__") and name in _SAFE_BUILTINS:
+            return super().find_class(module, name)
+        if module == "collections" and name == "OrderedDict":
+            return super().find_class(module, name)
+        return type(name, (ForeignObject,), {"qualname": f"{module}.{name}"})
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The checkpoint dict with numpy leaves (params, bn_state, ...)."""
+    """The checkpoint dict with numpy leaves (params, bn_state, ...), read
+    without importing anything beyond numpy."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _Unpickler(f).load()
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -47,6 +85,23 @@ def params_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any]
     flat.update(_flatten(bn_state))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in flat.items()}
+
+
+def params_to_jax(model: ResUNet) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, bn_state) of a ResUNet as the JAX package's nested numpy
+    pytrees (float32): parameters by their dotted names, BN running
+    statistics (buffers) by theirs."""
+    params: Dict[str, Any] = {}
+    bn_state: Dict[str, Any] = {}
+    for tree, items in ((params, model.named_parameters()),
+                        (bn_state, model.named_buffers())):
+        for name, t in items:
+            node = tree
+            *path, leaf = name.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t.detach().to("cpu", torch.float32).numpy().copy()
+    return params, bn_state
 
 
 def model_from_params(params: Dict[str, Any], bn_state: Dict[str, Any],

@@ -56,6 +56,9 @@ _SIGNATURES = {
                                     _INT, _INT, _INT, _INT, _VP],
     "umr_sparse_conv_cin1": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                              _INT, _VP],
+    "umr_gather_rows_backward": [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "umr_sparse_conv_wgrad": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                              _INT, _INT, _INT, _INT, _INT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

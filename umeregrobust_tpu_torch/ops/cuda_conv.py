@@ -16,9 +16,13 @@ then added per output row in tap order), `sparse_conv_rowtile` is
 output-stationary (a 128 x 64 output tile walks the taps that have an
 entry in it), and with one input channel it is a map-streaming kernel.
 fp32 operands take the FMA tile of the first port (`sparse_conv_fma`).
-`choose_kernel` picks the wrapper from the shapes alone. On a CPU tensor
-the wrappers run the plain version; on a CUDA tensor they launch their
-kernels or raise.
+`choose_kernel` picks the wrapper from the shapes alone. The backward:
+`sparse_conv_wgrad` (kernel in the same source) gives the weights'
+gradient, dW[k] = sum over tap k's entries (o, i) of X[i]^T dY[o]; the
+input's gradient is the forward conv of dY over the inverted map with
+the weights transposed, so it launches the two forward kernels again
+(ops/sparse.py `sparse_conv`). On a CPU tensor the wrappers run the
+plain version; on a CUDA tensor they launch their kernels or raise.
 """
 from __future__ import annotations
 
@@ -31,11 +35,13 @@ from umeregrobust_tpu_torch.ops.cuda_gather import gather_rows_plain
 
 __all__ = ["sparse_conv_rowtile", "sparse_conv_tapsplit", "sparse_conv_plain",
            "sparse_conv_fma", "choose_kernel", "conv_entries",
-           "conv_entries_plain", "ConvEntries", "round_to", "LAUNCHES",
-           "TRACE"]
+           "conv_entries_plain", "ConvEntries", "round_to",
+           "sparse_conv_wgrad", "sparse_conv_wgrad_plain", "wgrad_split",
+           "LAUNCHES", "TRACE"]
 
 # kernel launches by each wrapper (not by the plain version)
-LAUNCHES = {"sparse_conv_rowtile": 0, "sparse_conv_tapsplit": 0}
+LAUNCHES = {"sparse_conv_rowtile": 0, "sparse_conv_tapsplit": 0,
+            "sparse_conv_wgrad": 0}
 # when a list: one (kernel, N_in, N_out, Cin, Cout, K, S) per launch
 TRACE: Optional[List[tuple]] = None
 
@@ -349,4 +355,82 @@ def sparse_conv_tapsplit(feats: torch.Tensor, weights: torch.Tensor,
             _build.stream_of(dev))
         _build.check(lib, code, "sparse_conv_tapsplit")
     _note("sparse_conv_tapsplit", dims, S)
+    return out
+
+
+def sparse_conv_wgrad_plain(feats: torch.Tensor, dout: torch.Tensor,
+                            nbr_map: torch.Tensor,
+                            compute_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """The weights' gradient (K, Cin, Cout) fp32 of the per-tap conv: per
+    tap, the rows of feats it gathers (zero where absent) transposed times
+    dout, one fp32 matmul over operands rounded to compute_dtype."""
+    f = round_to(feats, compute_dtype)
+    g = round_to(dout, compute_dtype)
+    return torch.stack([gather_rows_plain(f, nbr_map[k]).T @ g
+                        for k in range(nbr_map.shape[0])])
+
+
+_WGRAD_TILE = 32  # channels of a tile of the wgrad kernel (csrc kWT)
+_WGRAD_SEGMENT = 2048  # rows of N_out a segment covers at most
+_WGRAD_SCRATCH = 64 << 20  # bytes of partial tiles at most
+
+
+def wgrad_split(n_out: int, cin: int, cout: int, k_vol: int) -> int:
+    """Entry segments a tap of the wgrad kernel: one per 2048 rows of
+    N_out (a tap has at most N_out entries, so a block walks at most 2048
+    of them), as far as the (S, K, Cin, Cout) partial tiles stay within
+    64 MB and grid z within its limit."""
+    scratch = _WGRAD_SCRATCH // (4 * k_vol * cin * cout)
+    return max(1, min(-(-n_out // _WGRAD_SEGMENT), scratch,
+                      65535 // -(-cout // _WGRAD_TILE)))
+
+
+def sparse_conv_wgrad(feats: torch.Tensor, dout: torch.Tensor,
+                      nbr_map: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """feats (N_in, Cin) f32, dout (N_out, Cout) f32, nbr_map (K, N_out)
+    int32/int64 (-1 absent) -> (K, Cin, Cout) f32 weight gradient. On the
+    card: the map's entry lists, then a block a (tap, 32 x 32 channel
+    tile, entry segment) that adds its tap's entries in row order, and
+    the segments' tiles added in segment order (no atomics)."""
+    if feats.device.type == "cpu":
+        return sparse_conv_wgrad_plain(feats, dout, nbr_map, compute_dtype)
+    dev = feats.device
+    lib = _build.load_library()  # raises if it cannot be built
+    if dev.type != "cuda":
+        raise ValueError(f"sparse_conv_wgrad runs on CUDA or CPU tensors, "
+                         f"not {dev}")
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"sparse_conv_wgrad: compute_dtype fp32 or bf16, "
+                         f"got {compute_dtype}")
+    if nbr_map.dtype not in (torch.int32, torch.int64) or nbr_map.dim() != 2:
+        raise ValueError("nbr_map: expected a (K, N_out) int32/int64 map")
+    K, N_out = nbr_map.shape
+    _build.require(nbr_map, "nbr_map", nbr_map.dtype, (K, N_out), dev)
+    _build.require(feats, "feats", torch.float32, (None, None), dev)
+    _build.require(dout, "dout", torch.float32, (N_out, None), dev)
+    N_in, Cin = feats.shape
+    Cout = dout.shape[1]
+    if min(K, Cin, Cout) < 1 or K > 65535 or 2 * K * N_out >= 2 ** 31 - 64 \
+            or max(N_in, N_out) >= 2 ** 31 - 64:
+        raise ValueError(f"sparse_conv_wgrad: unsupported shape K={K} "
+                         f"Cin={Cin} Cout={Cout} N_in={N_in} N_out={N_out}")
+    out = torch.empty((K, Cin, Cout), dtype=torch.float32, device=dev)
+    if N_out == 0:
+        return out.zero_()
+    S = wgrad_split(N_out, Cin, Cout, K)
+    ints = torch.empty(2 * K * N_out + K + K * _ent_chunks(N_out),
+                       dtype=torch.int32, device=dev)
+    partial = (torch.empty((S, K, Cin, Cout), dtype=torch.float32,
+                           device=dev) if S > 1 else None)
+    code = lib.umr_sparse_conv_wgrad(
+        feats.data_ptr(), dout.data_ptr(), nbr_map.data_ptr(),
+        ints.data_ptr(), 0 if partial is None else partial.data_ptr(),
+        out.data_ptr(), N_in, N_out, Cin, Cout, K, S,
+        int(compute_dtype == torch.bfloat16),
+        int(nbr_map.dtype == torch.int64), _build.stream_of(dev))
+    _build.check(lib, code, "sparse_conv_wgrad")
+    LAUNCHES["sparse_conv_wgrad"] += 1
     return out

@@ -4,7 +4,11 @@ umeregrobust_tpu/ops/pallas_corr.py, same Python signature).
 
 score_h = sum_i sum_j 1[d2 <= (rf sigma)^2] / (1 + d2 / sigma^2) <f_i, g_j>,
 d2 = |pts_t[h, i] - q_j|^2 from direct differences in fp32. Invalid rows
-must carry zero features. A leading pair axis (B pairs of one shape) is
+must carry zero features. Any feature width C: the kernel takes 32-wide
+slices, so the wrapper zero-pads C up to a multiple of 32 (zero products
+add nothing) and the kernel adds a pair's slices in column order (its
+summation order is stated in csrc/corr_scores.cu; the plain version's
+matmul sums in its own order, so the two agree to a tolerance). A leading pair axis (B pairs of one shape) is
 optional and costs no extra launch; each pair keeps its B = 1 plan
 (`launch_plan`), so its scores have the same bits. On a CPU tensor the wrapper runs the plain
 version; on a CUDA tensor it launches the kernel or raises.
@@ -31,8 +35,9 @@ __all__ = ["corr_scores_fused", "corr_scores_plain", "launch_plan",
 
 LAUNCHES = 0  # kernel launches by corr_scores_fused
 
-# tile sizes of csrc/corr_scores.cu (kThreads, kHB, kTT)
-_TS, _HB, _TT = 256, 8, 128
+# tile sizes of csrc/corr_scores.cu (kThreads, kHB, kTT) and its feature
+# slice (kC)
+_TS, _HB, _TT, _SLICE = 256, 8, 128, 32
 # a grid of fewer (source tile, hypothesis block) pairs than two blocks
 # for each of the H100's 132 SMs also splits the target sweep over grid z,
 # one tile of 128 targets a block
@@ -86,8 +91,8 @@ def corr_scores_fused(pts_t: torch.Tensor, src_featw: torch.Tensor,
                       ts: int = 256, tt: int = 512) -> torch.Tensor:
     """Radius-capped Cauchy correlation scores ([B,] H). pts_t ([B,] H,
     S, 4) transformed source points (4th column ignored), src_featw ([B,]
-    S, C), tgt_pts4 ([B,] T, 4), tgt_featw ([B,] T, C) f32, C = 32 on
-    CUDA; coordinates finite. With a leading pair axis B, pair b's
+    S, C), tgt_pts4 ([B,] T, 4), tgt_featw ([B,] T, C) f32, any C;
+    coordinates finite. With a leading pair axis B, pair b's
     hypotheses are scored against pair b's targets, all pairs in one
     launch. `ts`/`tt` are the TPU kernel's tile sizes, kept for signature
     parity: the CUDA kernel tiles on its own and takes any S and T."""
@@ -107,9 +112,15 @@ def corr_scores_fused(pts_t: torch.Tensor, src_featw: torch.Tensor,
     H, S = pts_t.shape[-3:-1]
     T = tgt_pts4.shape[-2]
     _build.require(pts_t, "pts_t", torch.float32, lead + (None, None, 4), dev)
-    _build.require(src_featw, "src_featw", torch.float32, lead + (S, 32), dev)
+    _build.require(src_featw, "src_featw", torch.float32, lead + (S, None),
+                   dev)
     _build.require(tgt_pts4, "tgt_pts4", torch.float32, lead + (None, 4), dev)
-    _build.require(tgt_featw, "tgt_featw", torch.float32, lead + (T, 32), dev)
+    C = src_featw.shape[-1]
+    _build.require(tgt_featw, "tgt_featw", torch.float32, lead + (T, C), dev)
+    Cp = max(1, -(-C // _SLICE)) * _SLICE
+    if Cp != C:
+        src_featw = torch.nn.functional.pad(src_featw, (0, Cp - C))
+        tgt_featw = torch.nn.functional.pad(tgt_featw, (0, Cp - C))
     for name, x in (("pts_t", pts_t), ("src_featw", src_featw),
                     ("tgt_pts4", tgt_pts4), ("tgt_featw", tgt_featw)):
         if x.data_ptr() % 16:
@@ -124,7 +135,8 @@ def corr_scores_fused(pts_t: torch.Tensor, src_featw: torch.Tensor,
     code = lib.umr_corr_scores(
         pts_t.data_ptr(), src_featw.data_ptr(), tgt_pts4.data_ptr(),
         tgt_featw.data_ptr(), partial.data_ptr(), out.data_ptr(), B, H, S,
-        T, 32, int(n_seg > 1), float(inv_s2), float(r2), _build.stream_of(dev))
+        T, Cp, int(n_seg > 1), float(inv_s2), float(r2),
+        _build.stream_of(dev))
     _build.check(lib, code, "corr_scores_fused")
     LAUNCHES += 1
     return out

@@ -7,7 +7,10 @@ within `radius` of keypoint k (direct-difference distance), and is among
 the first `max_nn` such points in index order. On a CPU tensor the
 wrapper runs the plain version; on a CUDA tensor it launches the kernel
 (which first packs the coordinates into a scratch buffer that the wrapper
-allocates) or raises.
+allocates) or raises. The kernel works on slices of 128 columns (4C at C
+= 32); other widths are zero-padded to a multiple of 128 and the slices
+run as one grid. Columns are independent, so every real column keeps the
+bits it has at any width.
 """
 from __future__ import annotations
 
@@ -16,9 +19,17 @@ import torch
 from umeregrobust_tpu_torch.ops import _build
 from umeregrobust_tpu_torch.ops.neighbors import sqdist3
 
-__all__ = ["ume_moments_fused", "ume_moments_plain", "LAUNCHES"]
+__all__ = ["ume_moments_fused", "ume_moments_plain", "padded_width",
+           "LAUNCHES"]
 
 LAUNCHES = 0  # kernel launches by ume_moments_fused
+_SLICE = 128  # columns of a slice of the kernel (csrc kCols)
+
+
+def padded_width(width: int) -> int:
+    """The kernel's column count for Z of `width` columns: the next
+    multiple of 128 (at least one slice)."""
+    return max(1, -(-int(width) // _SLICE)) * _SLICE
 
 
 def _r2(radius: float) -> torch.Tensor:
@@ -48,10 +59,10 @@ def ume_moments_plain(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
 def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
                       p_mask: torch.Tensor, radius: float,
                       max_nn: int) -> torch.Tensor:
-    """Capped UME moments ([B,] M, 4C) f32 with 4C = 128. kpts ([B,] M, 3)
-    f32, pts ([B,] N, 3) f32, Z ([B,] N, 4C) f32, p_mask ([B,] N) bool;
-    with a leading pair axis B, pair b's keypoints see pair b's points, all
-    pairs in one launch."""
+    """Capped UME moments ([B,] M, W) f32 for any width W (4C). kpts
+    ([B,] M, 3) f32, pts ([B,] N, 3) f32, Z ([B,] N, W) f32, p_mask ([B,]
+    N) bool; with a leading pair axis B, pair b's keypoints see pair b's
+    points, all pairs and column slices in one launch."""
     global LAUNCHES
     if kpts.device.type == "cpu":
         return ume_moments_plain(kpts, pts, Z, p_mask, radius, max_nn)
@@ -67,18 +78,22 @@ def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
     M, N = kpts.shape[-2], pts.shape[-2]
     _build.require(kpts, "kpts", torch.float32, lead + (None, 3), dev)
     _build.require(pts, "pts", torch.float32, lead + (None, 3), dev)
-    _build.require(Z, "Z", torch.float32, lead + (N, 128), dev)
+    _build.require(Z, "Z", torch.float32, lead + (N, None), dev)
     _build.require(p_mask, "p_mask", torch.bool, lead + (N,), dev)
-    out = torch.empty(lead + (M, 128), dtype=torch.float32, device=dev)
-    if M == 0 or B == 0:
-        return out
+    W = Z.shape[-1]
+    Wp = padded_width(W)
+    if M == 0 or B == 0 or W == 0:
+        return torch.zeros(lead + (M, W), dtype=torch.float32, device=dev)
+    if Wp != W:
+        Z = torch.nn.functional.pad(Z, (0, Wp - W))
+    out = torch.empty(lead + (M, Wp), dtype=torch.float32, device=dev)
     scratch = torch.empty((B * lib.umr_ume_moments_scratch(N),),
                           dtype=torch.float32, device=dev)
     code = lib.umr_ume_moments(
         kpts.data_ptr(), pts.data_ptr(), Z.data_ptr(), p_mask.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), B, M, N, 128,
+        out.data_ptr(), scratch.data_ptr(), B, M, N, Wp,
         float(radius) ** 2,  # rounded to fp32 in the call, as _r2 rounds it
         int(max_nn), _build.stream_of(dev))
     _build.check(lib, code, "ume_moments_fused")
     LAUNCHES += 1
-    return out
+    return out if Wp == W else out[..., :W].contiguous()

@@ -8,7 +8,7 @@ from typing import Optional, Tuple
 import torch
 
 from umeregrobust_tpu_torch.ops.cuda_gather import (
-    gather_rows, gather_rows_plain)
+    GatherRows, gather_rows_plain)
 
 __all__ = ["pairwise_sqdist", "sqdist3", "ball_query", "knn", "gather_padded", "topk_stable",
            "take_rows"]
@@ -125,8 +125,10 @@ def gather_padded(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0) -> torc
     """Rows of x (N, C) by idx (..., K); idx == -1 yields fill rows. With a
     leading pair axis, x (B, N, C) and idx (B, ..., K) take pair b's rows
     for pair b's indices, as one gather over the flattened (B N, C) table.
-    A CPU tensor takes the plain version; a CUDA fp32 or bf16 table with
-    fill 0 goes through the gather_rows kernel; any other CUDA input
+    With fill 0 the gather is `GatherRows` (differentiable in the table):
+    on a CPU tensor the plain versions, on a CUDA fp32 or bf16 table the
+    gather_rows kernel and, for a gradient, its backward kernel. Another
+    fill takes the plain version on the CPU; any other CUDA input
     raises."""
     if x.dim() == 3:
         B, N = x.shape[:2]
@@ -136,10 +138,10 @@ def gather_padded(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0) -> torc
             idx = torch.where((idx >= 0) & (idx < N), idx + base,
                               torch.full_like(idx, -1))
         x = x.reshape(B * N, x.shape[2])
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and (fill != 0.0 or x.dim() != 2):
         return gather_rows_plain(x, idx, fill)
     if fill != 0.0 or x.dim() != 2:
         raise ValueError("gather_padded on the card takes a 2-D table and "
                          f"fill 0, got shape {tuple(x.shape)}, fill {fill}")
-    out = gather_rows(x.contiguous(), idx.reshape(-1).contiguous())
+    out = GatherRows.apply(x.contiguous(), idx.reshape(-1).contiguous())
     return out.reshape(*idx.shape, x.shape[1])

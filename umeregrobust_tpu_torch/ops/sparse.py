@@ -1,5 +1,5 @@
 """Static-shape sparse 3D convolution: kernel maps and the two conv forms
-(port of umeregrobust_tpu/ops/sparse.py, eval mode).
+(port of umeregrobust_tpu/ops/sparse.py).
 
 A level is (coords (N, 4) int32 [b, x, y, z], mask (N,)) in canonical
 code-sorted order with a valid prefix. A k=3 kernel map is kept in the
@@ -20,7 +20,9 @@ import numpy as np
 import torch
 
 from umeregrobust_tpu_torch.ops.cuda_conv import (
-    choose_kernel, round_to, sparse_conv_rowtile, sparse_conv_tapsplit)
+    choose_kernel, round_to, sparse_conv_rowtile, sparse_conv_tapsplit,
+    sparse_conv_wgrad)
+from umeregrobust_tpu_torch.ops.neighbors import gather_padded
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, SENTINEL_HIGH, batched_sorted_lookup,
     pack_code, sorted_join_code)
@@ -31,7 +33,7 @@ __all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
            "build_level_maps", "interface_candidates", "invert_map_batch",
            "code_window_table", "window_probe", "group_kernel_map",
            "ungroup_kernel_map", "sparse_conv", "sparse_conv_grouped",
-           "masked_batch_norm", "round_to", "matmul_by_pair"]
+           "masked_batch_norm", "round_to", "matmul_by_pair", "PerTapConv"]
 
 # window-table pad word: above every valid code, distinct from both
 # sentinels and their +-stride neighbourhoods
@@ -293,14 +295,52 @@ def matmul_by_pair(x: torch.Tensor, w: torch.Tensor,
     """x (N, K) @ w (K, C) as `pairs` matmuls over equal row blocks: each
     block is the call a one-pair run makes (the same shapes), so its rows
     get that run's bits, where one matmul over all rows may take another
-    cuBLAS kernel and round otherwise."""
+    cuBLAS kernel and round otherwise. The blocks' products are
+    concatenated (autograd refuses products written in place)."""
     if pairs == 1:
         return x @ w
-    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    for xb, ob in zip(x.chunk(pairs), out.chunk(pairs)):
-        torch.mm(xb, w, out=ob)
-    return out
+    return torch.cat([xb @ w for xb in x.chunk(pairs)])
+
+
+def _per_tap(feats, weights, nbr_map, compute_dtype, pairs):
+    """One of the two per-tap conv kernels (or their plain version on the
+    CPU), picked by `choose_kernel` from one pair's shapes."""
+    kernel, _ = choose_kernel(nbr_map.shape[1] // pairs, weights.shape[2],
+                              weights.shape[0])
+    conv = sparse_conv_rowtile if kernel == "rowtile" else sparse_conv_tapsplit
+    return conv(feats.to(torch.float32).contiguous(), weights.contiguous(),
+                nbr_map.contiguous(), compute_dtype)
+
+
+class PerTapConv(torch.autograd.Function):
+    """The per-tap conv with its backward: dX is the forward conv of dY
+    over the inverted map (`invert_map_batch`; every map the port builds
+    is injective per tap: an input row is one output row's neighbour at a
+    given offset) with the weights transposed to (K, Cout, Cin), so it
+    runs the same two kernels; dW is `sparse_conv_wgrad`. Both round their
+    operands to compute_dtype and sum in fp32, as the forward does."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, nbr_map, compute_dtype, pairs):
+        ctx.save_for_backward(feats, weights, nbr_map)
+        ctx.compute_dtype, ctx.pairs = compute_dtype, pairs
+        return _per_tap(feats, weights, nbr_map, compute_dtype, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weights, nbr_map = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        cd, pairs = ctx.compute_dtype, ctx.pairs
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            n_in = feats.shape[0]
+            ok = (nbr_map >= 0) & (nbr_map < n_in)
+            inv = invert_map_batch(torch.where(ok, nbr_map, -1), n_in)
+            dx = _per_tap(g, weights.transpose(1, 2), inv, cd, pairs)
+        if ctx.needs_input_grad[1]:
+            dw = sparse_conv_wgrad(feats.to(torch.float32).contiguous(), g,
+                                   nbr_map.contiguous(), cd)
+        return dx, dw, None, None, None
 
 
 def sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
@@ -316,12 +356,9 @@ def sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
     per-tap loop. pairs=B: the rows are B pairs' levels, and the kernel is
     the one a pair's level alone takes (with bf16 operands a row's sums
     then do not depend on the batch; the fp32 FMA tile's tap segments do,
-    in the last bits)."""
-    kernel, _ = choose_kernel(nbr_map.shape[1] // pairs, weights.shape[2],
-                              weights.shape[0])
-    conv = sparse_conv_rowtile if kernel == "rowtile" else sparse_conv_tapsplit
-    out = conv(feats.to(torch.float32).contiguous(), weights.contiguous(),
-               nbr_map.contiguous(), compute_dtype)
+    in the last bits). Differentiable in feats and weights (`PerTapConv`:
+    the backward kernels on the card, their plain versions on the CPU)."""
+    out = PerTapConv.apply(feats, weights, nbr_map, compute_dtype, pairs)
     if bias is not None:
         out = out + bias.to(torch.float32)[None, :]
     return out
@@ -347,12 +384,19 @@ def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
                      torch.cat([f, z, z, z])], dim=1)  # (N_in + 3, 3 Cin)
     w3 = round_to(weights, compute_dtype).reshape(G, 3, Cin, Cout)[
         :, gmap.worder]
-    # "no candidate" centres of maps whose N_out > N_in point past the
-    # table: clamp onto the all-zero last row (JAX clamps gathers the same)
-    center = torch.clamp(gmap.center, max=N_in + 2)
+    # a window whose slots are all masked off (a "no candidate" centre: the
+    # all-zero last row N_in + 2, past the table where N_out > N_in, or a
+    # real row when N_out < N_in) contributes nothing, so it gathers a zero
+    # row (-1) instead; the gather is gather_padded's (the gather_rows
+    # kernel on the card), whose backward then adds no cotangent for such
+    # windows: a backward that adds rows sharing an index one after
+    # another would add them all into a single row
+    used = torch.any(gmap.masks, dim=1) | gmap.patho
+    center = torch.where(used & (gmap.center < N_in + 2), gmap.center,
+                         torch.full_like(gmap.center, -1))
     out = torch.zeros((N_out, Cout), dtype=torch.float32, device=f.device)
     for g in range(G):
-        wide = F3c[center[g]].reshape(N_out, 3, Cin)
+        wide = gather_padded(F3c, center[g]).reshape(N_out, 3, Cin)
         masked = wide * gmap.masks[g].T[:, :, None].to(f.dtype)
         mid = masked[:, 2] + wide[:, 1] * gmap.patho[g][:, None].to(f.dtype)
         x3 = torch.cat([masked[:, 0], masked[:, 1], mid], dim=1)
@@ -365,9 +409,45 @@ def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
 def masked_batch_norm(feats: torch.Tensor, mask: torch.Tensor,
                       scale: torch.Tensor, bias: torch.Tensor,
                       running_mean: torch.Tensor, running_var: torch.Tensor,
-                      eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm with running statistics; invalid rows re-zeroed."""
-    inv = torch.rsqrt(running_var + eps)
-    out = (feats - running_mean[None, :]) * (inv * scale)[None, :] \
-        + bias[None, :]
-    return out * mask.to(torch.float32)[:, None]
+                      train: bool = False, momentum: float = 0.1,
+                      eps: float = 1e-5, cloud: Optional[torch.Tensor] = None,
+                      n_clouds: int = 1
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """BatchNorm over valid rows only; invalid rows re-zeroed. Returns
+    (out, new_mean, new_var).
+
+    Eval: the running statistics normalize, and come back unchanged.
+    Train (torch / MinkowskiEngine semantics, as the JAX package): each
+    cloud's valid rows take their own statistics (cloud (N,) int64 in [0,
+    n_clouds) on valid rows; None: one cloud), the biased variance
+    normalizes, and each cloud's running estimate new = (1 - momentum) old
+    + momentum batch (unbiased variance) is averaged over the clouds, as
+    the JAX trainer averages the per-cloud states of its vmapped forwards.
+    The buffers are not written: the caller commits the returned state.
+    The per-cloud sums are one fp32 matmul of a (n_clouds, N) one-hot of
+    the valid rows (a fixed summation order, no atomics)."""
+    m = mask.to(torch.float32)[:, None]
+    if train:
+        G = int(n_clouds)
+        if cloud is None:
+            cloud = torch.zeros(feats.shape[0], dtype=torch.int64,
+                                device=feats.device)
+        onehot = ((cloud[None, :] == torch.arange(G, device=feats.device)[
+            :, None]) & mask[None, :]).to(torch.float32)
+        n = torch.clamp(torch.sum(onehot, dim=1, keepdim=True), min=1.0)
+        mean_g = (onehot @ feats) / n  # (G, C)
+        mean = onehot.T @ mean_g  # each valid row's cloud mean, else 0
+        diff = (feats - mean) * m
+        var_g = (onehot @ (diff * diff)) / n
+        unbiased = var_g * n / torch.clamp(n - 1.0, min=1.0)
+        new_mean = torch.mean((1.0 - momentum) * running_mean[None]
+                              + momentum * mean_g, dim=0)
+        new_var = torch.mean((1.0 - momentum) * running_var[None]
+                             + momentum * unbiased, dim=0)
+        var = onehot.T @ var_g
+    else:
+        mean, var = running_mean[None, :], running_var[None, :]
+        new_mean, new_var = running_mean, running_var
+    inv = torch.rsqrt(var + eps)
+    out = (feats - mean) * (inv * scale) + bias[None, :]
+    return out * m, new_mean, new_var

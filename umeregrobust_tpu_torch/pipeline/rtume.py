@@ -6,9 +6,8 @@ Each cloud's keypoints get m0-normalised UME matrices of their capped
 ball (pipeline/ume_gen.ume_from_ball_query: kernel `ume_moments_fused`,
 two launches a call), paired diagonally, as sums over random keypoint
 triplets (loc_utils.py:406-410) or as the full n_kp x n_kp grid, then one
-closed-form estimate a pair (core/ume.estimate_rigid_from_ume). On the
-card the moments kernel serves 4C = 128 only, so features are C = 32
-wide there (the network's width); the CPU takes any C.
+closed-form estimate a pair (core/ume.estimate_rigid_from_ume). Any
+feature width C runs on the card and on the CPU.
 """
 from __future__ import annotations
 

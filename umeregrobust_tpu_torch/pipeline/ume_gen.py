@@ -5,8 +5,8 @@ F[k] = sum_n w[k, n] [f_n | f_n x_n | f_n y_n | f_n z_n], w[k, n] = 1 iff
 point n lies within the radius of keypoint k and is among the first
 max_nn such points in index order (PyTorch3D ball_query capping). The
 accumulation always goes through the kernel wrapper ops/cuda_ume: the
-CUDA kernel on CUDA tensors (it raises for widths other than 4C = 128),
-its plain version on CPU tensors.
+CUDA kernel on CUDA tensors (any width C), its plain version on CPU
+tensors.
 """
 from __future__ import annotations
 
