@@ -139,27 +139,40 @@ Phases (any failure ends the run with a non-zero exit):
   5i. widths: register_pair_e2e and rtume_estimate with a seeded random
      ResUNetSmall2 at out_channels 16 and 64 on the nominal pair: finite
      transforms, the moments and scorer kernels launched;
-  5j. train (phase_train): (a) gather_rows_backward (forced cases and
-     the training UMEs' gathers of a B = 8 batch, bit for bit against the
-     plain version on the CPU, two launches identical), gather_rows and
-     its backward at the grouped convs' window gathers of a B = 8
-     training forward (window_gathers: the conv with the most table rows
-     and the widest, bit for bit) and
-     sparse_conv_wgrad (forced maps at fp32 / bf16; each of ResUNet's 11
-     conv layers on its real map at bf16, with dX through the inverted
-     map against the plain version's), device times beside index_add_
-     and per-tap index_select + torch.mm; (b) ResUNetSmall2 (in-repo
-     weights) at train_kitti_config's widths (B = 8, 16384 voxels a
-     cloud, 512 matches, 256 UME keypoints, max_nn 750, min_nn 300, r 5,
-     bf16) on HDL-64 density pairs: step ms, peak memory, losses,
-     nonfinite_grad and launches a step, then one step under
-     torch.profiler (device busy ms, idle share, the top ops); one pair
-     card vs CPU at fp32 (losses 1e-3 relative, every gradient leaf
-     elementwise within 1e-4 of its max |grad|); (c)
-     ResUNet (seeded random parameters, k7 stem, k5 layers) at B = 2, the
-     three conv kernels forward and backward; (d) the train CLI on a
-     KITTI-layout tree (2 train, 2 val pairs, batch 2, 1 epoch) and its
-     last_epoch_checkpoint.pkl in the evaluate CLI;
+  5j. train (phase_train): (a) gather_rows_backward (forced cases:
+     indices -1 and >= N, rows hit thousands of times, N = 1 and 3, int32
+     indices, nothing valid; and the training UMEs' gathers of a B = 8
+     batch; bit for bit against the plain version on the CPU, two
+     launches identical, its row segments equal to row_segments_plain's),
+     gather_rows and its backward at the grouped convs' window gathers of
+     a B = 8 training forward (window_gathers: the conv with the most
+     table rows and the widest, bit for bit; the forward beside
+     index_select and its bound), and at the UME shape and both window
+     shapes the backward's time device alone, each of its launches',
+     index_add_'s and the plain version's, the bound, the longest row
+     segment and the count and placement in three forms, atomic rank /
+     warp-aggregated / plain atomics (gather_backward_shape,
+     row_count_forms); both backward kernels launched back to back with
+     no synchronize, round after round with the ResUNet pyramid rebuilt
+     behind them, their outputs and scratch between guards that must
+     stay unwritten, every round's bits the first's (backward_stress);
+     sparse_conv_wgrad (forced maps at fp32 / bf16, among them channel
+     counts that are no multiple of 8 and an odd Cout; each of ResUNet's
+     11 conv layers on its real map at bf16, with dX through the inverted map against the plain
+     version's), per layer the plan, device times of the function, of
+     each launch and of the first port's CUDA-core kernel in the same
+     call, beside per-tap index_select + torch.mm and the bound; (b)
+     ResUNetSmall2 (in-repo weights) at train_kitti_config's widths (B =
+     8, 16384 voxels a cloud, 512 matches, 256 UME keypoints, max_nn 750,
+     min_nn 300, r 5, bf16) on HDL-64 density pairs: step ms, peak
+     memory, losses, nonfinite_grad and launches a step, then one step
+     under torch.profiler (device busy ms, idle share, the top ops); one
+     pair card vs CPU at fp32 (losses 1e-3 relative, every gradient leaf
+     elementwise within 1e-4 of its max |grad|); (c) ResUNet (seeded
+     random parameters, k7 stem, k5 layers) at B = 2, the three conv
+     kernels forward and backward, step ms and one profiled step; (d)
+     the train CLI on a KITTI-layout tree (2 train, 2 val pairs, batch 2,
+     1 epoch) and its last_epoch_checkpoint.pkl in the evaluate CLI;
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model, the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
@@ -268,8 +281,11 @@ def graph_ms(fn, reps=7, inner=20):
 
 
 def kernel_split_ms(fn, calls=20):
-    """Mean device ms a launch of each CUDA kernel that fn() launches,
-    over `calls` calls (torch.profiler), by kernel name."""
+    """Mean device ms a call of each CUDA kernel (and memset) that fn()
+    launches, over `calls` calls (torch.profiler's device events, as
+    profile_step reads them), by kernel name (the launches of one name,
+    template instances included, added). A session that reports no device
+    event is made once more ({} if that one reports none either)."""
     import re
 
     import torch
@@ -277,13 +293,22 @@ def kernel_split_ms(fn, calls=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {re.search(r"\w+_kernel", a.key).group(): a.self_device_time_total
-            / a.count / 1e3 for a in prof.key_averages()
-            if re.search(r"\w+_kernel", a.key)}
+    out = {}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            m = re.search(r"\w+_kernel|Memset", e.name)
+            if m and e.device_type == torch.autograd.DeviceType.CUDA:
+                out[m.group()] = (out.get(m.group(), 0.0)
+                                  + e.time_range.elapsed_us() / calls / 1e3)
+        if out:
+            break
+        log("kernel_split_ms: no device event in a profiler session")
+    return out
 
 
 def sm_clock_under_load(fn, seconds=1.0):
@@ -373,6 +398,7 @@ def ptxas_report(source="sparse_conv_taps.cu"):
     from umeregrobust_tpu_torch.ops import _build
 
     def demangle(sym):  # "..14entries_kernelILb1EiEEv.." -> entries_kernel<true,int32>
+        # (float and float4 arguments too: seg_sum_kernel<32,float4>)
         pos = 0
         while pos < len(sym):  # length-prefixed names, read in order
             m = re.match(r"\d+", sym[pos:])
@@ -386,11 +412,13 @@ def ptxas_report(source="sparse_conv_taps.cu"):
                 rest = sym[pos:]
                 if not rest.startswith("I"):
                     return ident
-                args = re.findall(r"Lb([01])E|Li(\d+)E|([il])(?=[EL])",
-                                  rest[1:rest.index("EE") + 1])
+                args = re.findall(
+                    r"Lb([01])E|Li(\d+)E|6(float4)|([ilf])(?=[EL6])",
+                    rest[1:rest.index("EE") + 1])
+                types = {"i": "int32", "l": "int64", "f": "float"}
                 return ident + "<" + ",".join(
-                    ("true" if b == "1" else "false") if b else n or
-                    ("int32" if t == "i" else "int64") for b, n, t in args) + ">"
+                    ("true" if b == "1" else "false") if b else n or v
+                    or types[t] for b, n, v, t in args) + ">"
         return sym
 
     log = (_build.BUILD_DIR / "build.log").read_text()
@@ -2978,35 +3006,284 @@ def ume_gather_indices(batch, dev, num_samples=256, max_nn=750, min_nn=300,
     return torch.cat(out), B * N
 
 
-def gather_backward_row(dev, batch):
-    """gather_rows_backward: forced cases (random indices with -1 and
-    rows hit many times, N = 1, C = 3 / 64, int32 indices, nothing valid)
-    and the main path's shape (the training UMEs' gathers of a B = 8 batch
-    at train_kitti_config: 2 x 8 x 256 x 750 rows of an (8 x 16384, 32)
-    table) against the plain version (index_add_) run on the CPU, bit for
-    bit, two launches bit-identical; device times (CUDA graph): the
-    wrapper (stable sort, segment starts, kernel) and the kernel alone,
-    beside the plain version and index_add_ on the card, and the bound."""
+STRESS_ROUNDS = 4
+GUARD_BYTES = 1 << 20  # guard bytes on each side of a guarded tensor
+GUARD_BYTE = 0xA5
+_COUNT_FORMS = None
+
+
+def count_forms_library():
+    """csrc/bench/row_count_forms.cu (the three count / placement forms of
+    gather_rows_backward's counting sort), built with the kernels' nvcc
+    flags into the build directory and loaded; once a process."""
+    global _COUNT_FORMS
+    if _COUNT_FORMS is None:
+        import ctypes
+
+        from umeregrobust_tpu_torch.ops import _build
+
+        src = _build.CSRC / "bench" / "row_count_forms.cu"
+        lib = _build.BUILD_DIR / "bench" / f"librow_count_forms.{os.getpid()}.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, "-I",
+                            str(_build.CSRC), "-shared", str(src), "-o",
+                            str(lib), "-lcudart"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"row_count_forms.cu did not build:\n{r.stdout}")
+        cdll = ctypes.CDLL(str(lib))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        cdll.umr_bench_row_count.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        cdll.umr_bench_row_count.restype = i
+        _COUNT_FORMS = cdll
+    return _COUNT_FORMS
+
+
+def row_count_forms(idx, N):
+    """gather_rows_backward's count and placement in the three forms of
+    csrc/bench/row_count_forms.cu at one shape (idx (M,), N rows):
+    atomic_rank (the kernel's own: one atomic a position, its old value
+    the rank), warp_aggregated (the count's atomic aggregated by
+    __match_any_sync) and plain_atomics (count and placement each by an
+    atomic): device ms (CUDA graph) of the count alone, of count + scan +
+    placement, and of the whole row segments (the sort included), and
+    whether each form's segments equal row_segments'."""
     import torch
 
     from umeregrobust_tpu_torch.ops import _build, cuda_gather
 
+    lib = count_forms_library()
+    dev, M = idx.device, idx.shape[0]
+    ints = torch.empty(cuda_gather.segment_scratch(M, N), dtype=torch.int32,
+                       device=dev)
+    cursor = torch.empty(N, dtype=torch.int32, device=dev)
+    st0, ps0 = cuda_gather.row_segments(idx, N)
+    n = N + 1
+    at = 2 * n + -(-n // cuda_gather._SCAN_TILE)
+    i64 = int(idx.dtype == torch.int64)
+
+    def run(form, stop):
+        code = lib.umr_bench_row_count(
+            idx.data_ptr(), ints.data_ptr(), cursor.data_ptr(), M, N, i64,
+            form, stop, _build.stream_of(dev))
+        if code != 0:
+            raise RuntimeError(f"umr_bench_row_count: CUDA error {code}")
+
+    out = {}
+    for form, name in enumerate(("atomic_rank", "warp_aggregated",
+                                 "plain_atomics")):
+        run(form, 2)
+        torch.cuda.synchronize()
+        same = (torch.equal(ints[n: 2 * n], st0)
+                and torch.equal(ints[at: at + ps0.numel()], ps0))
+        out[name] = dict(
+            count_ms=graph_ms(lambda f=form: run(f, 0)),
+            count_place_ms=graph_ms(lambda f=form: run(f, 1)),
+            segments_ms=graph_ms(lambda f=form: run(f, 2)),
+            segments_equal=bool(same))
+    return out
+
+
+def guarded_empty(guard=GUARD_BYTES):
+    """A context in which torch.empty on a CUDA device returns a view into
+    a buffer `guard` bytes longer at each end, those bytes set to
+    GUARD_BYTE; it yields the list of (buffer, guard, bytes) made, for
+    guards_intact. The wrappers allocate their outputs and scratch with
+    torch.empty, so a kernel's write past either end of one lands in a
+    guard (a check for where compute-sanitizer cannot run)."""
+    import contextlib
+    import math
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        real, made = torch.empty, []
+
+        def empty(*size, dtype=None, device=None, **kw):
+            if kw or device is None or torch.device(device).type != "cuda":
+                return real(*size, dtype=dtype, device=device, **kw)
+            shape = (tuple(size[0]) if len(size) == 1
+                     and not isinstance(size[0], int) else tuple(size))
+            dtype = dtype or torch.get_default_dtype()
+            n = math.prod(shape) * real(0, dtype=dtype).element_size()
+            raw = real(2 * guard + n, dtype=torch.uint8, device=device)
+            raw[:guard] = GUARD_BYTE
+            raw[guard + n:] = GUARD_BYTE
+            made.append((raw, guard, n))
+            return raw[guard: guard + n].view(dtype).view(shape)
+
+        torch.empty = empty
+        try:
+            yield made
+        finally:
+            torch.empty = real
+
+    return ctx()
+
+
+def guards_intact(made):
+    """Whether every guard of guarded_empty's buffers still holds
+    GUARD_BYTE."""
+    return all(bool((raw[:g] == GUARD_BYTE).all())
+               and bool((raw[g + n:] == GUARD_BYTE).all())
+               for raw, g, n in made)
+
+
+def backward_stress(dev, batch, windows, rounds=STRESS_ROUNDS):
+    """The two backward kernels launched back to back with no synchronize,
+    as training launches them, `rounds` times: ResUNet's 11 wgrad layers
+    (B = 2, bf16) and gather_rows_backward at the UME shape and both
+    window shapes, each twice a round, with the ResUNet pyramid and conv
+    maps built again right behind them (the geometry's own torch indexing
+    runs while they may still run). Every output and scratch tensor the
+    wrappers allocate lies between guards (guarded_empty) that must come
+    back unchanged, the inputs must come back unchanged, the two launches
+    of a round and every round must give the first round's bits, and the
+    rebuilt maps must equal the first ones."""
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import ARCHS, init_resunet
+    from umeregrobust_tpu_torch.ops import cuda_conv, cuda_gather
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, _capacities, batch_to_device, cloud_features)
+
+    t0 = time.time()
+    bf = torch.bfloat16
+    cfg = TrainConfig(arch="ResUNet", batch_size=2,
+                      level_capacity_ratios=RESUNET_TRAIN_RATIOS)
+    model = init_resunet(ARCHS["ResUNet"], 1, 32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    two = batch_to_device({k: v[:2] for k, v in batch.items()}, dev)
+
+    def pyramid():
+        return capture_conv_layers(model, lambda: cloud_features(
+            model, two, _capacities(cfg, model.arch), bf, train=False))
+
+    g = torch.Generator(device="cpu").manual_seed(13)
+    idx, N = ume_gather_indices(batch, dev)
+    gathers = [(torch.randn(idx.shape[0], 32, generator=g).to(dev), idx, N)]
+    for label in ("most_rows", "widest"):
+        w = windows[label]
+        gathers.append((torch.randn(w["idx"].shape[0], w["table"][1],
+                                    generator=g).to(dev), w["idx"],
+                        w["table"][0]))
+    layers = pyramid()
+    convs = [(f, torch.randn(nbr.shape[1], w.shape[2], generator=g).to(dev),
+              nbr) for _, f, w, nbr, _ in layers]
+    maps0 = [nbr for _, _, _, nbr, _ in layers]
+    ins = [t for c in convs for t in c] + [t for d, i, _ in gathers
+                                           for t in (d, i)]
+    keep = [t.clone() for t in ins]
+    first, rows = None, []
+    for r in range(rounds):
+        with guarded_empty() as made:
+            outs = []
+            for _ in range(2):
+                outs += [cuda_conv.sparse_conv_wgrad(f, dy, nbr, bf)
+                         for f, dy, nbr in convs]
+                outs += [cuda_gather.gather_rows_backward(d, i, n)
+                         for d, i, n in gathers]
+        layers = pyramid()  # synchronizes at its end
+        half = len(outs) // 2
+        first = first or outs[:half]
+        rows.append(dict(
+            round=r, guarded_tensors=len(made), guards_intact=guards_intact(made),
+            inputs_unchanged=all(torch.equal(a, b) for a, b in zip(ins, keep)),
+            twice_identical=all(torch.equal(a, b) for a, b in
+                                zip(outs[:half], outs[half:])),
+            same_as_first=all(torch.equal(a, b) for a, b in
+                              zip(outs[:half], first)),
+            maps_same_as_first=len(layers) == len(maps0) and all(
+                torch.equal(nbr, m) for (_, _, _, nbr, _), m in
+                zip(layers, maps0))))
+        del made, outs
+    ok = all(all(v for k, v in row.items()
+                 if k not in ("round", "guarded_tensors")) for row in rows)
+    return dict(rounds=rounds, layers=len(convs), gathers=len(gathers),
+                guard_bytes=GUARD_BYTES, per_round=rows,
+                seconds=time.time() - t0, ok=ok)
+
+
+def gather_backward_shape(label, d, idx, N):
+    """gather_rows_backward's times at one shape (dout d (M, C), idx (M,),
+    N table rows): the whole function and each of its launches device
+    alone, index_add_ over the valid positions and the plain version on
+    the card, the bound, the rows' segment lengths, and the count and
+    placement in their three forms (row_count_forms)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_gather
+
+    M, C = d.shape
+    ok = (idx >= 0) & (idx < N)
+    vi, vd = idx[ok].to(torch.int64), d[ok]
+
+    def library():
+        return torch.zeros(N, C, device=d.device).index_add_(0, vi, vd)
+
+    counts = torch.bincount(vi, minlength=N)
+    # bytes: the indices, the cotangent rows of valid indices (an index
+    # outside [0, N) adds nothing and is never read), the table written
+    n_valid = int(ok.sum())
+    bb, by = bound_ms(n_valid * C * 4 + M * idx.element_size() + N * C * 4,
+                      n_valid * C)
+    return dict(
+        shape=label, rows=M, valid=n_valid, table=[N, C],
+        longest_segment=int(counts.max()) if N else 0,
+        mean_segment=n_valid / max(N, 1),
+        ms=graph_ms(lambda: cuda_gather.gather_rows_backward(d, idx, N)),
+        launch_ms=kernel_split_ms(
+            lambda: cuda_gather.gather_rows_backward(d, idx, N)),
+        library_ms=graph_ms(library),
+        plain_ms=time_ms(lambda: cuda_gather.gather_rows_backward_plain(
+            d, idx, N)),
+        bound_ms=bb, bound_by=by, count_forms=row_count_forms(idx, N))
+
+
+def gather_backward_row(dev, batch, windows):
+    """gather_rows_backward: forced cases (random indices with -1 and
+    indices >= N, rows hit thousands of times (segments past the
+    register sort, merged in rounds), N = 1 and 3, C = 3 / 5 / 12 / 64,
+    int32 indices, nothing valid) and the main path's shape (the
+    training UMEs' gathers of a B = 8 batch at train_kitti_config: 2 x 8
+    x 256 x 750 rows of an (8 x 16384, 32) table) against the plain
+    version (index_add_) run on the CPU, bit for bit, two launches
+    bit-identical, and its row segments equal to row_segments_plain's;
+    then at that shape and at the two window-gather shapes of a B = 8
+    training forward (`windows`): gather_backward_shape's times."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_gather
+
     g = torch.Generator(device="cpu").manual_seed(3)
     cases = []
-    for M, N, C, it in ((40000, 3000, 32, torch.int64),
-                        (1000, 50, 64, torch.int64), (7, 3, 3, torch.int64),
-                        (5000, 1, 32, torch.int32),
-                        (300000, 20000, 32, torch.int32),
-                        (64, 100, 32, None)):
+    for M, N, C, it, hot in ((40000, 3000, 32, torch.int64, 0),
+                             (1000, 50, 64, torch.int64, 0),
+                             (7, 3, 3, torch.int64, 0),
+                             (5000, 1, 32, torch.int32, 0),
+                             (300000, 20000, 32, torch.int32, 0),
+                             (20000, 500, 12, torch.int64, 3000),
+                             (200000, 3, 5, torch.int32, 0),
+                             (64, 100, 32, None, 0)):
         idx = (torch.full((M,), -1, dtype=torch.int64) if it is None else
-               torch.randint(-1, N, (M,), generator=g).to(it))
+               torch.randint(-1, N + 2, (M,), generator=g).to(it))
+        if hot:  # one row hit `hot` times
+            idx[torch.randperm(M, generator=g)[:hot]] = 0
         d = torch.randn(M, C, generator=g)
         want = cuda_gather.gather_rows_backward_plain(d, idx, N)
         got = cuda_gather.gather_rows_backward(d.to(dev), idx.to(dev), N)
         again = cuda_gather.gather_rows_backward(d.to(dev), idx.to(dev), N)
-        cases.append(dict(M=M, N=N, C=C, bit_equal_cpu_plain=bool(
-            torch.equal(got.cpu(), want)), two_launches_identical=bool(
-            torch.equal(got, again)),
+        st, ps = cuda_gather.row_segments(idx.to(dev), N)
+        st0, ps0 = cuda_gather.row_segments_plain(idx, N)
+        cases.append(dict(
+            M=M, N=N, C=C, bit_equal_cpu_plain=bool(torch.equal(got.cpu(),
+                                                                want)),
+            two_launches_identical=bool(torch.equal(got, again)),
+            segments_equal=bool(torch.equal(st.cpu(), st0)
+                                and torch.equal(ps.cpu(), ps0)),
+            longest_segment=int((st0[1:] - st0[:-1]).max()),
             max_abs_err=float((got.cpu() - want).abs().max())))
     idx, N = ume_gather_indices(batch, dev)
     M, C = idx.shape[0], 32
@@ -3014,45 +3291,38 @@ def gather_backward_row(dev, batch):
     want = cuda_gather.gather_rows_backward_plain(d.cpu(), idx.cpu(), N)
     got = cuda_gather.gather_rows_backward(d, idx, N)
     again = cuda_gather.gather_rows_backward(d, idx, N)
+    st, ps = cuda_gather.row_segments(idx, N)
+    st0, ps0 = cuda_gather.row_segments_plain(idx.cpu(), N)
     err = float((got.cpu() - want).abs().max())
-    lib = _build.load_library()
-    key = torch.where(idx >= 0, idx, N)
-    skey, perm = torch.sort(key, stable=True)
-    starts = torch.searchsorted(skey, torch.arange(N + 1, device=dev))
-    out = torch.empty(N, C, device=dev)
-
-    def kernel():
-        lib.umr_gather_rows_backward(d.data_ptr(), perm.data_ptr(),
-                                     starts.data_ptr(), out.data_ptr(), N, C,
-                                     _build.stream_of(dev))
-
-    ok_rows = idx >= 0
-    vi, vd = idx[ok_rows], d[ok_rows]
-
-    def library():
-        return torch.zeros(N, C, device=dev).index_add_(0, vi, vd)
-
-    # bytes: the indices, the cotangent rows of valid indices (index -1
-    # adds nothing and is never read), the table written once
-    n_valid = int(ok_rows.sum())
-    bb, by = bound_ms(n_valid * C * 4 + M * idx.element_size() + N * C * 4,
-                      n_valid * C)
+    shapes = [gather_backward_shape(
+        "UME feature gathers of a B = 8 training batch", d, idx, N)]
+    for label in ("most_rows", "widest"):
+        w = windows[label]
+        wd = torch.randn(w["idx"].shape[0], w["table"][1],
+                         generator=g).to(dev)
+        shapes.append(gather_backward_shape(
+            f"window gathers of a B = 8 training forward ({label})", wd,
+            w["idx"], w["table"][0]))
+    main = shapes[0]
     row = dict(
         shape=f"UME feature gathers of a B = 8 training batch: {M} rows "
-              f"({n_valid} valid) into a ({N}, {C}) fp32 table",
+              f"({main['valid']} valid) into a ({N}, {C}) fp32 table",
         cases=cases, bit_equal_cpu_plain=bool(torch.equal(got.cpu(), want)),
         two_launches_identical=bool(torch.equal(got, again)),
+        segments_equal=bool(torch.equal(st.cpu(), st0)
+                            and torch.equal(ps.cpu(), ps0)),
         max_abs_err=max([err] + [c["max_abs_err"] for c in cases]),
-        ms=graph_ms(lambda: cuda_gather.gather_rows_backward(d, idx, N)),
-        kernel_ms=graph_ms(kernel),
-        plain_ms=time_ms(lambda: cuda_gather.gather_rows_backward_plain(
-            d, idx, N)),
-        library_ms=graph_ms(library), bound_ms=bb, bound_by=by)
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], shapes=shapes,
+        no_slower_than_index_add=[s_["ms"] <= s_["library_ms"]
+                                  for s_ in shapes])
     row["ok"] = (row["bit_equal_cpu_plain"] and row["two_launches_identical"]
+                 and row["segments_equal"]
                  and all(c["bit_equal_cpu_plain"]
-                         and c["two_launches_identical"] for c in cases))
+                         and c["two_launches_identical"]
+                         and c["segments_equal"] for c in cases))
     return row
-
 
 
 def window_gathers(dev, batch, weights):
@@ -3062,8 +3332,8 @@ def window_gathers(dev, batch, weights):
     of the conv with the widest table, `gather_rows` against its plain
     version on the CPU and `gather_rows_backward` (a seeded cotangent)
     against its plain version on the CPU, bit for bit, two launches of
-    each identical; device times (CUDA graph) of the first gather of
-    each, both directions, the backward with its sort."""
+    each identical; the forward's device time (CUDA graph) of the first
+    gather of each (gather_backward_row times the backward there)."""
     import torch
 
     from umeregrobust_tpu_torch.models.resunet import ARCHS
@@ -3110,13 +3380,19 @@ def window_gathers(dev, batch, weights):
             bwd &= bool(torch.equal(p.cpu(), want))
             twice &= bool(torch.equal(a, b) and torch.equal(p, q))
         idx = idxs[0]
+        ok = idx >= 0
         rows[label] = dict(
             table=[N, C], gathers=len(idxs), rows=idx.shape[0],
-            valid=int((idx >= 0).sum()), forward_bit_equal=fwd,
+            valid=int(ok.sum()), forward_bit_equal=fwd,
             backward_bit_equal=bwd, two_launches_identical=twice,
             kernel_ms=graph_ms(lambda: cuda_gather.gather_rows(x, idx)),
-            backward_ms=graph_ms(lambda: cuda_gather.gather_rows_backward(
-                dd, idx, N)))
+            library_kernel_ms=graph_ms(lambda: torch.index_select(
+                x, 0, torch.where(ok, idx, 0))),
+            # bytes: the valid rows read, every output row written, the
+            # indices
+            bound_ms=bound_ms((int(ok.sum()) + idx.shape[0]) * C * 4
+                              + idx.shape[0] * idx.element_size(), 0)[0],
+            idx=idx)
     return dict(gathers=len(got), tables=len(tables), **rows,
                 ok=all(r["forward_bit_equal"] and r["backward_bit_equal"]
                        and r["two_launches_identical"]
@@ -3126,10 +3402,12 @@ def wgrad_layer_row(name, f, w, nbr, pairs, g):
     """One real conv layer's weight gradient at bf16 operands against the
     plain version (<= 1e-4 x max |dW|), two launches bit-identical; dX
     (the forward kernels over the inverted map) against the plain
-    version's dX; device times (CUDA graph) of the kernel, times of the
-    plain version and of the library route (per tap index_select of the
-    valid entries' rows and one fp32 torch.mm of the bf16-rounded
-    operands), and the bound."""
+    version's dX; device times (CUDA graph) of the function, of each of
+    its launches and of the first port's CUDA-core kernel at bf16
+    (`sparse_conv_wgrad_fma`, in the same call), times of the plain
+    version and of the library route (per tap index_select of the valid
+    entries' rows and one fp32 torch.mm of the bf16-rounded operands),
+    and the bound."""
     import torch
 
     from umeregrobust_tpu_torch.ops import cuda_conv
@@ -3172,11 +3450,15 @@ def wgrad_layer_row(name, f, w, nbr, pairs, g):
         layer=name, K=K, cin=Cin, cout=Cout, rows_in=f.shape[0],
         rows_out=nbr.shape[1], valid=valid, x_rows_read=x_rows,
         dy_rows_read=dy_rows,
-        S=cuda_conv.wgrad_split(nbr.shape[1], Cin, Cout, K),
+        plan=cuda_conv.wgrad_plan(nbr.shape[1], Cin, Cout, K)._asdict(),
         max_abs_err=err, rel_err=err / max(scale, 1e-30),
         bit_identical=bool(torch.equal(got, again)),
         dx_rel_err=dx_err / max(dx_scale, 1e-30),
         kernel_ms=graph_ms(lambda: cuda_conv.sparse_conv_wgrad(
+            f, dy, nbr, bf), reps=5, inner=5),
+        launch_ms=kernel_split_ms(lambda: cuda_conv.sparse_conv_wgrad(
+            f, dy, nbr, bf), calls=5),
+        old_kernel_ms=graph_ms(lambda: cuda_conv.sparse_conv_wgrad_fma(
             f, dy, nbr, bf), reps=5, inner=5),
         plain_ms=time_ms(lambda: cuda_conv.sparse_conv_wgrad_plain(
             f, dy, nbr, bf), reps=3, warmup=1),
@@ -3188,8 +3470,11 @@ def wgrad_layer_row(name, f, w, nbr, pairs, g):
 
 def wgrad_forced_cases(dev):
     """sparse_conv_wgrad on forced maps (injective per tap, ~40% valid;
-    K 27 / 125 / 343, Cin 1 / 32 / 64 / 512, Cout 32 / 128 / 1024, entry
-    segments 1-10, int32 and int64), fp32 and bf16, against the plain
+    K 27 / 125 / 343, Cin 1 / 3 / 20 / 32 / 64 / 512, Cout 5 / 7 / 32 /
+    48 / 128 / 1024, entry segments 1-10, int32 and int64: channel counts
+    that are no multiple of 8 take the tensor-core kernel's zero-padded
+    rows and its scalar stores of an odd Cout, the stem kernel takes Cout
+    < 32), fp32 and bf16, against the plain
     version (<= 2e-5 / 1e-4 x max |dW|), two launches bit-identical; and
     the fp32 dX of the conv's autograd on the card against autograd
     through the plain version on the CPU (<= 2e-5 x max |dX|)."""
@@ -3205,7 +3490,10 @@ def wgrad_forced_cases(dev):
             (500, 300, 125, 64, 128, torch.int32),
             (20000, 20000, 27, 32, 32, torch.int64),
             (200, 100, 343, 1, 32, torch.int64),
-            (300, 200, 125, 512, 1024, torch.int32)):
+            (300, 200, 125, 512, 1024, torch.int32),
+            (700, 900, 27, 3, 48, torch.int64),
+            (500, 400, 27, 20, 7, torch.int32),
+            (200, 100, 343, 1, 5, torch.int32)):
         nbr = torch.stack([torch.where(
             torch.rand(n_out, generator=g) < 0.4,
             torch.randperm(max(n_in, n_out), generator=g)[:n_out],
@@ -3221,7 +3509,9 @@ def wgrad_forced_cases(dev):
             want = cuda_conv.sparse_conv_wgrad_plain(X, G, nbr, cd)
             e = float((got.cpu() - want).abs().max() / want.abs().max())
             row = dict(shape=[n_in, n_out, K, cin, cout, str(it)[6:]],
-                       dtype=str(cd)[6:], rel_err=e,
+                       dtype=str(cd)[6:],
+                       kernel=cuda_conv.wgrad_plan(n_out, cin, cout, K,
+                                                   cd).kind, rel_err=e,
                        bit_identical=bool(torch.equal(got, again)))
             if cd == torch.float32:
                 x = X.to(dev).requires_grad_()
@@ -3404,11 +3694,19 @@ def phase_train(dev, t_start):
           "seconds_total": time.time() - t_start})
 
     # (a) the backward kernels
-    kern["gather_rows_backward"] = gather_backward_row(dev, batch)
-    out["windows"] = window_gathers(dev, batch, weights)
+    windows = window_gathers(dev, batch, weights)
+    kern["gather_rows_backward"] = gather_backward_row(dev, batch, windows)
+    out["windows"] = {k: ({kk: vv for kk, vv in v.items() if kk != "idx"}
+                          if isinstance(v, dict) else v)
+                      for k, v in windows.items()}
+    out["stress"] = backward_stress(dev, batch, windows)
+    del windows
+    emit({"phase": "backward_stress", **out["stress"],
+          "seconds_total": time.time() - t_start})
     kern["gather_rows_backward"].update(
         windows=out["windows"],
-        ok=kern["gather_rows_backward"]["ok"] and out["windows"]["ok"])
+        ok=kern["gather_rows_backward"]["ok"] and out["windows"]["ok"]
+        and out["stress"]["ok"])
     emit({"phase": "train_kernel", "kernel": "gather_rows_backward",
           **kern["gather_rows_backward"]})
     forced = wgrad_forced_cases(dev)
@@ -3435,12 +3733,16 @@ def phase_train(dev, t_start):
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=sum(r["kernel_ms"] for r in rows),
         kernel_ms=sum(r["kernel_ms"] for r in rows),
+        old_kernel_ms=sum(r["old_kernel_ms"] for r in rows),
+        layers_no_slower_than_old=sum(r["kernel_ms"] <= r["old_kernel_ms"]
+                                      for r in rows),
         plain_ms=sum(r["plain_ms"] for r in rows),
         library_ms=sum(r["library_ms"] for r in rows),
         bound_ms=sum(r["bound_ms"] for r in rows),
         bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
         forced=forced,
-        ok=all(r["ok"] for r in rows) and all(c["ok"] for c in forced))
+        ok=all(r["ok"] for r in rows) and all(c["ok"] for c in forced)
+        and out["stress"]["ok"])
 
     # (b) ResUNetSmall2 at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
@@ -3463,6 +3765,7 @@ def phase_train(dev, t_start):
                      model=res_model)
         out["resunet"] = train_steps(tr, two, TRAIN_STEPS)
         paths["train_resunet"] = out["resunet"]["launches"]
+        out["resunet"]["profile"] = profile_step(tr, two)
         del tr, res_model
         emit({"phase": "train_resunet", "B": 2, **out["resunet"],
               "seconds_total": time.time() - t_start})
@@ -3539,7 +3842,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "library": os.path.relpath(str(_build.build_library()), ROOT),
           "ptxas_sparse_conv_taps": ptxas_report(),
-          "ptxas_nn1_argmin": ptxas_report("nn1_argmin.cu")})
+          "ptxas_nn1_argmin": ptxas_report("nn1_argmin.cu"),
+          "ptxas_gather_rows_backward": {
+              k: v for k, v in ptxas_report("gather_rows.cu").items()
+              if k.startswith("seg_")}})
 
     # --- data and model
     cfg = RegistrationConfig(**REDUCED_CFG)  # bench.py:321-326

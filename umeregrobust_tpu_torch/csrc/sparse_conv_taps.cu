@@ -1073,10 +1073,16 @@ int set_smem(Kern kernel, size_t bytes) {
 // is the forward conv over the inverted map, ops/cuda_conv.py):
 //   dW[k] = sum over tap k's valid entries (o, i) of X[i]^T dY[o]
 // (K, Cin, Cout) fp32; operands rounded to bf16 when the forward's were.
+// Replaces: what JAX's autodiff makes of the gather convs of
+// tools/exp_pallas_gather.py:74,107 (umeregrobust_tpu/ops/sparse.py
+// sparse_conv's weight gradient).
 // Bound on the H100: bytes at the main path's widths (each entry reads
 // one row of X and one of dY, and makes Cin x Cout products: 64-1024 a
 // byte at 32-512 channels in fp32 FMAs, ~20 needed to reach the 67
-// TFLOP/s fp32 line only at the widest layers). Simple design: a block
+// TFLOP/s fp32 line only at the widest layers), and at the deep k5
+// layers writing dW itself (up to 268 MB a layer). The first port's
+// kernel, kept for fp32 operands (and as the yardstick at bf16; the
+// bf16 kernels follow it). Simple design: a block
 // owns one (tap, 32 input channels, 32 output channels) tile and walks
 // its tap's entries (the forward's entry lists, row order) 64 at a time
 // through shared memory, 4 sums a thread. With few taps and channel tiles
@@ -1145,6 +1151,306 @@ __global__ void wgrad_sum_kernel(const float* __restrict__ partial,
   float s = 0.f;
   for (int q = 0; q < S; ++q) s += partial[(int64_t)q * n + e];
   out[e] = s;
+}
+
+// ---------------------------------------------------------------------
+// Weight gradient with bf16 operands, redesigned for the H100. The first
+// port's kernel above (kept: the fp32 path, and the yardstick at bf16)
+// made fp32 FMAs on CUDA cores with five shared-memory loads for every
+// four, and a 32 x 32 tile read every gathered X row Cout / 32 times and
+// every dY row Cin / 32 times. Here each tap's (Cin x E_k)(E_k x Cout)
+// product, whose long axis is the tap's entries, goes through the tensor
+// cores:
+//  - X and dY are rounded to bf16 once a call (to_bf16_rows_kernel, rows
+//    zero-padded to a multiple of 8 channels: 16-byte row pieces), the
+//    rounding the forward gives its operands, so every product is exact
+//    and the sums stay fp32;
+//  - a block owns (tap, 128 input channels, 128 output channels, entry
+//    segment): each stage gathers 32 entries' X and dY row slices with
+//    cp.async into shared memory (three stages in flight, the entry list
+//    read one stage ahead), and 8 warps (2 x 4, 64 x 32 each) multiply
+//    them with mma.sync.m16n8k16 (A = X^T by ldmatrix.trans from the
+//    gathered rows, B = dY as in the forward), fp32 sums in registers
+//    until one write of the tile. 128-channel tiles read a gathered row
+//    Cout / 128 (X) or Cin / 128 (dY) times: 1-8 at ResUNet's widths.
+//    mma.sync and not wgmma: the products are not what bounds a layer
+//    (the deep layers' taps hold a handful of entries, the wide layers
+//    are bound by writing dW, K Cin Cout fp32, the rest by gathering
+//    rows), and mma.sync takes the staged rows as ldmatrix reads them,
+//    with no warpgroup layout to build;
+//  - the map's entry lists are built here (launch_entries, as the forward
+//    kernels build theirs): keeping the forward's lists until the
+//    backward saved ~0.11 ms of device time over ResUNet's 11 layers, in
+//    a host-bound step of ~0.5 s, for ~0.2 GB of peak memory and a second
+//    way to get them, so the lists are not kept;
+//  - a tap without entries writes its zero tile without reading;
+//  - with few (tap, tile) blocks for the card the entries are cut into S
+//    contiguous segments whose partial tiles wgrad_sum_kernel adds in
+//    segment order: no atomics, two launches give the same bits.
+// One input channel (the stems, wgrad_cin1_kernel): a block takes a tile
+// of output rows, stages each 32-row chunk of dY once, and its warps (16,
+// a tap in 16 each) read the map's chunk for their taps, coalesced, the
+// next 8 taps' entries in flight while these are added, and add x * dY[o]
+// for the valid entries (a ballot, in row order) into per-(tap, channel)
+// sums in registers (at most 64 registers a thread: two blocks of 512 an
+// SM): every dY row is read once, the map once. The tiles' partials are
+// added in tile order by wgrad_sum_kernel. Bound: reading the (K, N_out)
+// map.
+constexpr int kGM = 128;     // input channels a tile (rows of dW[k])
+constexpr int kGN = 128;     // output channels a tile
+constexpr int kGE = 32;      // entries a stage
+constexpr int kGStages = 3;
+constexpr int kGThreads = 256;
+constexpr int kGLd = kGM + 8;  // bf16 a staged row (272 B: ldmatrix rows
+                               // fall in distinct banks)
+static_assert(kGM == kGN, "one staged row length serves X and dY");
+
+__host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
+
+__host__ inline size_t wgrad_mma_smem_bytes() {
+  return (size_t)kGStages * 2 * kGE * kGLd * 2;
+}
+
+// y[r][c] = bf16(x[r][c]) for c < C, 0 for C <= c < round8(C), and the
+// same of g into gy: one thread an 8-value (16-byte) piece, one launch
+// for both operands.
+__device__ __forceinline__ void to_bf16_piece(const float* __restrict__ x,
+                                              __nv_bfloat16* __restrict__ y,
+                                              int64_t t, int C) {
+  const int C8 = round8(C), P = C8 / 8;
+  const int64_t r = t / P;
+  const int c0 = (int)(t - r * P) * 8;
+  const float* src = x + r * C;
+  float v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) v[u] = c0 + u < C ? src[c0 + u] : 0.f;
+  *reinterpret_cast<uint4*>(y + r * C8 + c0) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+__global__ void to_bf16_rows_kernel(const float* __restrict__ x,
+                                    __nv_bfloat16* __restrict__ xy,
+                                    int64_t x_pieces, int Cx,
+                                    const float* __restrict__ g,
+                                    __nv_bfloat16* __restrict__ gy,
+                                    int64_t g_pieces, int Cg) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < x_pieces) to_bf16_piece(x, xy, t, Cx);
+  else if (t < x_pieces + g_pieces) to_bf16_piece(g, gy, t - x_pieces, Cg);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__global__ void __launch_bounds__(kGThreads, 2)
+    wgrad_mma_kernel(const __nv_bfloat16* __restrict__ Xb,
+                     const __nv_bfloat16* __restrict__ Gb,
+                     const int2* __restrict__ ent,
+                     const int* __restrict__ cnt, float* __restrict__ dst,
+                     int N_out, int Cin, int Cout, int K, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sbuf = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int k = blockIdx.x;
+  const int ci0 = blockIdx.y * kGM;
+  const int tiles_n = (Cout + kGN - 1) / kGN;
+  const int co0 = (blockIdx.z % tiles_n) * kGN;
+  const int seg = blockIdx.z / tiles_n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Cin8 = round8(Cin), Cout8 = round8(Cout);
+  const int n = cnt[k];
+  const int chunk = (n + S - 1) / S;
+  const int e0 = min(n, seg * chunk), e1 = min(n, e0 + chunk);
+  const int nsteps = (e1 - e0 + kGE - 1) / kGE;
+  const int2* te = ent + (int64_t)k * N_out;
+
+  // staging: thread -> rows ra, ra + 16 of a stage, 16-byte piece pc
+  const int ra = tid >> 4, pc = (tid & 15) * 8;
+  const bool x_in = ci0 + pc < Cin8, g_in = co0 + pc < Cout8;
+  auto load_ent = [&](int step, int2& a, int2& b) {
+    const int base = e0 + step * kGE;
+    a = make_int2(-1, -1);
+    b = make_int2(-1, -1);
+    if (step < nsteps) {
+      if (base + ra < e1) a = te[base + ra];
+      if (base + ra + 16 < e1) b = te[base + ra + 16];
+    }
+  };
+  auto issue = [&](int step, int2 a, int2 b) {
+    __nv_bfloat16* sx = sbuf + (size_t)(step % kGStages) * 2 * kGE * kGLd;
+    __nv_bfloat16* sg = sx + kGE * kGLd;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int2 e = h ? b : a;  // (out_row, in_row)
+      const int r = ra + 16 * h;
+      const bool xv = x_in && e.y >= 0, gv = g_in && e.x >= 0;
+      cp_async16(smem_u32(sx + r * kGLd + pc),
+                 xv ? (const void*)(Xb + (int64_t)e.y * Cin8 + ci0 + pc)
+                    : (const void*)Xb,
+                 xv ? 16 : 0);
+      cp_async16(smem_u32(sg + r * kGLd + pc),
+                 gv ? (const void*)(Gb + (int64_t)e.x * Cout8 + co0 + pc)
+                    : (const void*)Gb,
+                 gv ? 16 : 0);
+    }
+  };
+
+  const int wm = warp & 1, wn = warp >> 1;  // 64 input x 32 output channels
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  const int a_k = (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int a_m = wm * 64 + ((lane >> 3) & 1) * 8;
+  const int b_k = lane & 15;
+  const int b_n = wn * 32 + (lane >> 4) * 8;
+
+  int2 ea, eb;
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    load_ent(s, ea, eb);
+    if (s < nsteps) issue(s, ea, eb);
+    cp_async_commit();
+  }
+  load_ent(kGStages - 1, ea, eb);
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();  // stage `step` landed; stage step - 1 is read
+    if (step + kGStages - 1 < nsteps) issue(step + kGStages - 1, ea, eb);
+    cp_async_commit();
+    load_ent(step + kGStages, ea, eb);
+    const __nv_bfloat16* sx =
+        sbuf + (size_t)(step % kGStages) * 2 * kGE * kGLd;
+    const __nv_bfloat16* sg = sx + kGE * kGLd;
+#pragma unroll
+    for (int kk = 0; kk < kGE; kk += 16) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4_trans(a[mi], smem_u32(sx + (kk + a_k) * kGLd + a_m + mi * 16));
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, smem_u32(sg + (kk + b_k) * kGLd + b_n + nj * 16));
+        b[2 * nj][0] = r[0];
+        b[2 * nj][1] = r[1];
+        b[2 * nj + 1][0] = r[2];
+        b[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+    }
+  }
+  cp_async_wait<0>();  // nothing in flight when the block ends
+
+  float* d = dst + (int64_t)(S > 1 ? seg * K + k : k) * Cin * Cout;
+  const int g = lane >> 2, t = lane & 3;
+  const bool pairs = (Cout & 1) == 0;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ci = ci0 + wm * 64 + mi * 16 + g + 8 * h;
+      if (ci >= Cin) continue;
+      float* row = d + (int64_t)ci * Cout;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int co = co0 + wn * 32 + ni * 8 + 2 * t;
+        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (pairs && co + 1 < Cout) {
+          *reinterpret_cast<float2*>(row + co) = make_float2(v0, v1);
+        } else {
+          if (co < Cout) row[co] = v0;
+          if (co + 1 < Cout) row[co + 1] = v1;
+        }
+      }
+    }
+}
+
+constexpr int kW1Warps = 16;
+constexpr int kW1TapsAWarp = 24;  // taps a warp at most: K <= 384
+
+template <typename IdxT>
+__global__ void __launch_bounds__(kW1Warps * 32, 2)
+    wgrad_cin1_kernel(const float* __restrict__ X, const float* __restrict__ G,
+                      const IdxT* __restrict__ nbr,
+                      float* __restrict__ partial, int N_in, int N_out,
+                      int Cout, int K, int rows_per_tile, bool bf16) {
+  __shared__ float sG[32][33];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int o_begin = blockIdx.x * rows_per_tile;
+  const int o_end = min(N_out, o_begin + rows_per_tile);
+  float acc[kW1TapsAWarp];
+#pragma unroll
+  for (int t = 0; t < kW1TapsAWarp; ++t) acc[t] = 0.f;
+  for (int o0 = o_begin; o0 < o_end; o0 += 32) {
+    __syncthreads();  // the previous chunk's dY rows are read
+    for (int q = tid; q < 32 * 32; q += kW1Warps * 32) {
+      const int r = q >> 5, c = q & 31;
+      const int o = o0 + r;
+      sG[r][c] = (o < o_end && c < Cout)
+                     ? round_operand(G[(int64_t)o * Cout + c], bf16) : 0.f;
+    }
+    __syncthreads();
+    const int o = o0 + lane;
+    constexpr int U = 8;  // map loads a lane in flight
+    // a map entry as a row of X, -1 where absent (narrowed to 32 bits)
+    auto load_map = [&](int t0, int (&m)[U]) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int kk = warp + kW1Warps * (t0 + u);
+        const int64_t v = (kk < K && o < o_end)
+                              ? (int64_t)nbr[(int64_t)kk * N_out + o] : -1;
+        m[u] = (v >= 0 && v < N_in) ? (int)v : -1;
+      }
+    };
+    int m[U], next[U];
+    load_map(0, m);
+#pragma unroll
+    for (int t0 = 0; t0 < kW1TapsAWarp; t0 += U) {
+      if (warp + kW1Warps * t0 >= K) break;  // warp-uniform
+      // the next taps' map loads go out before these taps' rows are read
+      if (t0 + U < kW1TapsAWarp) load_map(t0 + U, next);
+      float x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        x[u] = m[u] >= 0 ? round_operand(__ldg(X + m[u]), bf16) : 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        unsigned vm = __ballot_sync(0xffffffffu, m[u] >= 0);
+        while (vm) {  // the chunk's valid rows in row order
+          const int j = __ffs(vm) - 1;
+          vm &= vm - 1;
+          acc[t0 + u] = fmaf(__shfl_sync(0xffffffffu, x[u], j), sG[j][lane],
+                             acc[t0 + u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) m[u] = next[u];
+    }
+  }
+  const int64_t n = (int64_t)K * Cout;
+  float* dst = partial + (int64_t)blockIdx.x * n;
+#pragma unroll
+  for (int t = 0; t < kW1TapsAWarp; ++t) {
+    const int kk = warp + kW1Warps * t;
+    if (kk < K && lane < Cout) dst[(int64_t)kk * Cout + lane] = acc[t];
+  }
 }
 
 }  // namespace
@@ -1299,5 +1605,78 @@ UMR_EXPORT int umr_sparse_conv_wgrad(const float* X, const float* G,
     wgrad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
         partial, out, n, S);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Weight gradient at bf16 operands on the tensor cores (wgrad_mma_kernel):
+// X (N_in, Cin) and G = dY (N_out, Cout) f32, nbr (K, N_out) -> out (K,
+// Cin, Cout) f32. Scratch, caller-allocated: ints (2 K N_out + K + K
+// ceil(N_out / 2048)) int32 for the entry lists; xb (N_in, round8(Cin))
+// and gb (N_out, round8(Cout)) bf16; partial (S, K, Cin, Cout) f32 when
+// S > 1 (else null).
+UMR_EXPORT int umr_sparse_conv_wgrad_mma(const float* X, const float* G,
+                                         const void* nbr, int* ints,
+                                         void* xb, void* gb, float* partial,
+                                         float* out, int N_in, int N_out,
+                                         int Cin, int Cout, int K, int S,
+                                         int idx64, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_n = (Cout + kGN - 1) / kGN;
+  if (bad_shape(N_in, N_out, Cin, Cout, K) || !entries_ok(N_out, K) ||
+      S < 1 || (S > 1 && partial == nullptr) ||
+      (Cin + kGM - 1) / kGM > 65535 || (int64_t)tiles_n * S > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int64_t KN = (int64_t)K * N_out;
+  int2* ent = reinterpret_cast<int2*>(ints);
+  int* cnt = ints + 2 * KN;
+  int* chunk_cnt = cnt + K;
+  if (idx64) launch_entries<int64_t>(nbr, N_in, N_out, K, 32, chunk_cnt, ent, cnt, nullptr, nullptr, st);
+  else launch_entries<int32_t>(nbr, N_in, N_out, K, 32, chunk_cnt, ent, cnt, nullptr, nullptr, st);
+  __nv_bfloat16* xh = static_cast<__nv_bfloat16*>(xb);
+  __nv_bfloat16* gh = static_cast<__nv_bfloat16*>(gb);
+  const int64_t px = (int64_t)N_in * (round8(Cin) / 8);
+  const int64_t pg = (int64_t)N_out * (round8(Cout) / 8);
+  to_bf16_rows_kernel<<<(unsigned)((px + pg + 255) / 256), 256, 0, st>>>(
+      X, xh, px, Cin, G, gh, pg, Cout);
+  const size_t smem = wgrad_mma_smem_bytes();
+  const int code = set_smem(wgrad_mma_kernel, smem);
+  if (code != 0) return code;
+  dim3 grid(K, (Cin + kGM - 1) / kGM, tiles_n * S);
+  wgrad_mma_kernel<<<grid, kGThreads, smem, st>>>(
+      xh, gh, ent, cnt, S > 1 ? partial : out, N_out, Cin, Cout, K, S);
+  if (S > 1) {
+    const int64_t n = (int64_t)K * Cin * Cout;
+    wgrad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        partial, out, n, S);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Weight gradient with one input channel (wgrad_cin1_kernel): X (N_in, 1),
+// G (N_out, Cout <= 32), nbr (K <= 384, N_out) -> out (K, 1, Cout) f32;
+// partial (ceil(N_out / rows_per_tile), K, Cout) f32 scratch;
+// rows_per_tile a multiple of 32. bf16: operands rounded to bf16.
+UMR_EXPORT int umr_sparse_conv_wgrad_cin1(const float* X, const float* G,
+                                          const void* nbr, float* partial,
+                                          float* out, int N_in, int N_out,
+                                          int Cout, int K, int rows_per_tile,
+                                          int bf16, int idx64, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_shape(N_in, N_out, 1, Cout, K) || Cout > 32 ||
+      K > kW1Warps * kW1TapsAWarp || rows_per_tile < 32 ||
+      rows_per_tile % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int T = (N_out + rows_per_tile - 1) / rows_per_tile;
+  if (idx64)
+    wgrad_cin1_kernel<int64_t><<<T, kW1Warps * 32, 0, st>>>(
+        X, G, static_cast<const int64_t*>(nbr), partial, N_in, N_out, Cout,
+        K, rows_per_tile, bf16 != 0);
+  else
+    wgrad_cin1_kernel<int32_t><<<T, kW1Warps * 32, 0, st>>>(
+        X, G, static_cast<const int32_t*>(nbr), partial, N_in, N_out, Cout,
+        K, rows_per_tile, bf16 != 0);
+  const int64_t n = (int64_t)K * Cout;
+  wgrad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(partial, out,
+                                                                n, T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,9 +56,16 @@ _SIGNATURES = {
                                     _INT, _INT, _INT, _INT, _VP],
     "umr_sparse_conv_cin1": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                              _INT, _VP],
-    "umr_gather_rows_backward": [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "umr_row_segments": [_VP, _VP, _INT, _INT, _INT, _VP],
+    "umr_gather_rows_backward": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                 _INT, _VP],
     "umr_sparse_conv_wgrad": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                               _INT, _INT, _INT, _INT, _INT, _VP],
+    "umr_sparse_conv_wgrad_mma": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                                  _VP],
+    "umr_sparse_conv_wgrad_cin1": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                                   _INT, _INT, _INT, _INT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -17,8 +17,10 @@ output-stationary (a 128 x 64 output tile walks the taps that have an
 entry in it), and with one input channel it is a map-streaming kernel.
 fp32 operands take the FMA tile of the first port (`sparse_conv_fma`).
 `choose_kernel` picks the wrapper from the shapes alone. The backward:
-`sparse_conv_wgrad` (kernel in the same source) gives the weights'
-gradient, dW[k] = sum over tap k's entries (o, i) of X[i]^T dY[o]; the
+`sparse_conv_wgrad` (kernels in the same source: bf16 tensor-core tap
+products, a one-input-channel row-tile kernel, the fp32 CUDA-core tile;
+`wgrad_plan` picks) gives the weights' gradient,
+dW[k] = sum over tap k's entries (o, i) of X[i]^T dY[o]; the
 input's gradient is the forward conv of dY over the inverted map with
 the weights transposed, so it launches the two forward kernels again
 (ops/sparse.py `sparse_conv`). On a CPU tensor the wrappers run the
@@ -36,7 +38,8 @@ from umeregrobust_tpu_torch.ops.cuda_gather import gather_rows_plain
 __all__ = ["sparse_conv_rowtile", "sparse_conv_tapsplit", "sparse_conv_plain",
            "sparse_conv_fma", "choose_kernel", "conv_entries",
            "conv_entries_plain", "ConvEntries", "round_to",
-           "sparse_conv_wgrad", "sparse_conv_wgrad_plain", "wgrad_split",
+           "sparse_conv_wgrad", "sparse_conv_wgrad_plain",
+           "sparse_conv_wgrad_fma", "wgrad_split", "wgrad_plan", "WgradPlan",
            "LAUNCHES", "TRACE"]
 
 # kernel launches by each wrapper (not by the plain version)
@@ -371,40 +374,79 @@ def sparse_conv_wgrad_plain(feats: torch.Tensor, dout: torch.Tensor,
                         for k in range(nbr_map.shape[0])])
 
 
-_WGRAD_TILE = 32  # channels of a tile of the wgrad kernel (csrc kWT)
+_WGRAD_TILE = 32  # channels of a tile of the FMA wgrad kernel (csrc kWT)
 _WGRAD_SEGMENT = 2048  # rows of N_out a segment covers at most
 _WGRAD_SCRATCH = 64 << 20  # bytes of partial tiles at most
+_WGRAD_MMA_TILE = 128  # channels of a tensor-core wgrad tile (csrc kGM, kGN)
+_WGRAD_MMA_SEGMENT = 128  # rows of N_out a tensor-core segment covers
+_WGRAD_CIN1_ROWS = 128  # output rows a tile of the one-channel kernel
+_WGRAD_CIN1_MAX_K = 384  # taps it takes (csrc kW1Warps x kW1TapsAWarp)
+_GRID_Z = 65535
 
 
 def wgrad_split(n_out: int, cin: int, cout: int, k_vol: int) -> int:
-    """Entry segments a tap of the wgrad kernel: one per 2048 rows of
+    """Entry segments a tap of the FMA wgrad kernel: one per 2048 rows of
     N_out (a tap has at most N_out entries, so a block walks at most 2048
     of them), as far as the (S, K, Cin, Cout) partial tiles stay within
     64 MB and grid z within its limit."""
     scratch = _WGRAD_SCRATCH // (4 * k_vol * cin * cout)
     return max(1, min(-(-n_out // _WGRAD_SEGMENT), scratch,
-                      65535 // -(-cout // _WGRAD_TILE)))
+                      _GRID_Z // -(-cout // _WGRAD_TILE)))
 
 
-def sparse_conv_wgrad(feats: torch.Tensor, dout: torch.Tensor,
-                      nbr_map: torch.Tensor,
-                      compute_dtype: torch.dtype = torch.float32
-                      ) -> torch.Tensor:
-    """feats (N_in, Cin) f32, dout (N_out, Cout) f32, nbr_map (K, N_out)
-    int32/int64 (-1 absent) -> (K, Cin, Cout) f32 weight gradient. On the
-    card: the map's entry lists, then a block a (tap, 32 x 32 channel
-    tile, entry segment) that adds its tap's entries in row order, and
-    the segments' tiles added in segment order (no atomics)."""
-    if feats.device.type == "cpu":
-        return sparse_conv_wgrad_plain(feats, dout, nbr_map, compute_dtype)
+class WgradPlan(NamedTuple):
+    """How sparse_conv_wgrad runs a shape on the card. kind: "cin1" (one
+    input channel: output-row tiles of `rows` rows, their partials added
+    in tile order), "mma" (bf16 tensor-core tiles of 128 x 128 channels,
+    each tap's entries cut into `S` segments) or "fma" (fp32 operands: the
+    CUDA-core kernel, `S` segments). scratch_bytes: the partials'."""
+
+    kind: str
+    S: int
+    rows: int
+    scratch_bytes: int
+
+
+def wgrad_plan(n_out: int, cin: int, cout: int, k_vol: int,
+               compute_dtype: torch.dtype = torch.bfloat16) -> WgradPlan:
+    """The wgrad kernel and its split, from the shapes alone (a tap's entry
+    count is on the card; N_out bounds it). One input channel with up to
+    32 outputs and 384 taps: row tiles of 128 rows, doubled while the (T,
+    K, Cout) partials pass 64 MB. bf16 otherwise: one segment where the
+    (tap, tile) blocks fill the SMs (the partials' extra pass cost more
+    than it saved on ResUNet's layers), else enough for about two blocks
+    an SM, at most one per 128 rows of N_out, the (S, K, Cin, Cout)
+    partials within 64 MB and grid z within its limit. fp32:
+    `wgrad_split`."""
+    if cin == 1 and cout <= 32 and k_vol <= _WGRAD_CIN1_MAX_K:
+        rows = _WGRAD_CIN1_ROWS
+        while -(-n_out // rows) * k_vol * cout * 4 > _WGRAD_SCRATCH:
+            rows *= 2
+        T = max(1, -(-n_out // rows))
+        return WgradPlan("cin1", 1, rows, T * k_vol * cout * 4)
+    if compute_dtype == torch.float32:
+        S = wgrad_split(n_out, cin, cout, k_vol)
+        return WgradPlan("fma", S, 0,
+                         S * k_vol * cin * cout * 4 if S > 1 else 0)
+    tiles_m = -(-cin // _WGRAD_MMA_TILE)
+    tiles_n = -(-cout // _WGRAD_MMA_TILE)
+    blocks = k_vol * tiles_m * tiles_n
+    want = 1 if blocks >= _SM_COUNT else -(-2 * _SM_COUNT // blocks)
+    S = max(1, min(want, -(-n_out // _WGRAD_MMA_SEGMENT),
+                   _WGRAD_SCRATCH // (4 * k_vol * cin * cout),
+                   _GRID_Z // tiles_n))
+    return WgradPlan("mma", S, 0, S * k_vol * cin * cout * 4 if S > 1 else 0)
+
+
+def _wgrad_checked(feats, dout, nbr_map, compute_dtype, name):
+    """Validate sparse_conv_wgrad's inputs; returns (lib, dims)."""
     dev = feats.device
     lib = _build.load_library()  # raises if it cannot be built
     if dev.type != "cuda":
-        raise ValueError(f"sparse_conv_wgrad runs on CUDA or CPU tensors, "
-                         f"not {dev}")
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {dev}")
     if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"sparse_conv_wgrad: compute_dtype fp32 or bf16, "
-                         f"got {compute_dtype}")
+        raise ValueError(f"{name}: compute_dtype fp32 or bf16, got "
+                         f"{compute_dtype}")
     if nbr_map.dtype not in (torch.int32, torch.int64) or nbr_map.dim() != 2:
         raise ValueError("nbr_map: expected a (K, N_out) int32/int64 map")
     K, N_out = nbr_map.shape
@@ -415,8 +457,23 @@ def sparse_conv_wgrad(feats: torch.Tensor, dout: torch.Tensor,
     Cout = dout.shape[1]
     if min(K, Cin, Cout) < 1 or K > 65535 or 2 * K * N_out >= 2 ** 31 - 64 \
             or max(N_in, N_out) >= 2 ** 31 - 64:
-        raise ValueError(f"sparse_conv_wgrad: unsupported shape K={K} "
-                         f"Cin={Cin} Cout={Cout} N_in={N_in} N_out={N_out}")
+        raise ValueError(f"{name}: unsupported shape K={K} Cin={Cin} "
+                         f"Cout={Cout} N_in={N_in} N_out={N_out}")
+    return lib, (N_in, N_out, Cin, Cout, K)
+
+
+def sparse_conv_wgrad_fma(feats: torch.Tensor, dout: torch.Tensor,
+                          nbr_map: torch.Tensor,
+                          compute_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """The CUDA-core wgrad kernel of the first port (a block a tap x 32 x
+    32 channel tile x entry segment, fp32 FMAs, segments added in order):
+    sparse_conv_wgrad's fp32 path, and with bf16 operands a yardstick
+    only. Counts no launch. CUDA tensors only."""
+    lib, dims = _wgrad_checked(feats, dout, nbr_map, compute_dtype,
+                               "sparse_conv_wgrad_fma")
+    N_in, N_out, Cin, Cout, K = dims
+    dev = feats.device
     out = torch.empty((K, Cin, Cout), dtype=torch.float32, device=dev)
     if N_out == 0:
         return out.zero_()
@@ -431,6 +488,59 @@ def sparse_conv_wgrad(feats: torch.Tensor, dout: torch.Tensor,
         out.data_ptr(), N_in, N_out, Cin, Cout, K, S,
         int(compute_dtype == torch.bfloat16),
         int(nbr_map.dtype == torch.int64), _build.stream_of(dev))
-    _build.check(lib, code, "sparse_conv_wgrad")
+    _build.check(lib, code, "sparse_conv_wgrad_fma")
+    return out
+
+
+def sparse_conv_wgrad(feats: torch.Tensor, dout: torch.Tensor,
+                      nbr_map: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """feats (N_in, Cin) f32, dout (N_out, Cout) f32, nbr_map (K, N_out)
+    int32/int64 (-1 absent) -> (K, Cin, Cout) f32 weight gradient,
+    dW[k] = sum over tap k's valid entries (o, i) of X[i]^T dY[o], operands
+    rounded to compute_dtype, fp32 sums. On the card (`wgrad_plan`): one
+    input channel -> row tiles that read each dY row and the map once,
+    adding into every tap's sums, their partials added in tile order; bf16
+    -> the map's entry lists, X and dY rounded to bf16 once, then a block a (tap, 128 x 128 channel tile, entry segment)
+    multiplying gathered rows on the tensor cores, segments added in
+    order; fp32 -> the CUDA-core kernel (`sparse_conv_wgrad_fma`). No
+    atomics: two launches give the same bits."""
+    if feats.device.type == "cpu":
+        return sparse_conv_wgrad_plain(feats, dout, nbr_map, compute_dtype)
+    lib, dims = _wgrad_checked(feats, dout, nbr_map, compute_dtype,
+                               "sparse_conv_wgrad")
+    N_in, N_out, Cin, Cout, K = dims
+    dev = feats.device
+    if N_out == 0:
+        return torch.zeros((K, Cin, Cout), dtype=torch.float32, device=dev)
+    plan = wgrad_plan(N_out, Cin, Cout, K, compute_dtype)
+    idx64 = int(nbr_map.dtype == torch.int64)
+    if plan.kind == "fma":
+        out = sparse_conv_wgrad_fma(feats, dout, nbr_map, compute_dtype)
+    else:
+        out = torch.empty((K, Cin, Cout), dtype=torch.float32, device=dev)
+        partial = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                               device=dev) if plan.scratch_bytes else None)
+        if plan.kind == "cin1":
+            code = lib.umr_sparse_conv_wgrad_cin1(
+                feats.data_ptr(), dout.data_ptr(), nbr_map.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), N_in, N_out, Cout, K,
+                plan.rows, int(compute_dtype == torch.bfloat16), idx64,
+                _build.stream_of(dev))
+        else:
+            ints = torch.empty(2 * K * N_out + K + K * _ent_chunks(N_out),
+                               dtype=torch.int32, device=dev)
+            xb = torch.empty(N_in * -(-Cin // 8) * 8, dtype=torch.bfloat16,
+                             device=dev)
+            gb = torch.empty(N_out * -(-Cout // 8) * 8, dtype=torch.bfloat16,
+                             device=dev)
+            code = lib.umr_sparse_conv_wgrad_mma(
+                feats.data_ptr(), dout.data_ptr(), nbr_map.data_ptr(),
+                ints.data_ptr(), xb.data_ptr(), gb.data_ptr(),
+                0 if partial is None else partial.data_ptr(), out.data_ptr(),
+                N_in, N_out, Cin, Cout, K, plan.S, idx64,
+                _build.stream_of(dev))
+        _build.check(lib, code, "sparse_conv_wgrad")
     LAUNCHES["sparse_conv_wgrad"] += 1
     return out

@@ -4,19 +4,23 @@ tools/exp_gather2.py, the gather inside ops/neighbors.gather_padded).
 
 out[i] = table[idx[i]], a zero row where idx[i] < 0. Its backward,
 `gather_rows_backward`, scatter-adds the output's cotangent into the
-table's rows in a fixed order (kernel in the same source); `GatherRows`
-is the autograd function of the pair. On a CPU tensor each wrapper runs
-its plain version; on a CUDA tensor it launches its kernel or raises.
+table's rows in a fixed order (kernels in the same source: a counting
+sort of the positions by row, `row_segments`, then a sum a row);
+`GatherRows` is the autograd function of the pair. On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel
+or raises.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from umeregrobust_tpu_torch.ops import _build
 
 __all__ = ["gather_rows", "gather_rows_plain", "gather_rows_backward",
-           "gather_rows_backward_plain", "GatherRows", "LAUNCHES",
-           "LAUNCHES_BACKWARD"]
+           "gather_rows_backward_plain", "row_segments", "row_segments_plain",
+           "segment_scratch", "GatherRows", "LAUNCHES", "LAUNCHES_BACKWARD"]
 
 LAUNCHES = 0  # kernel launches by gather_rows (not by the plain version)
 LAUNCHES_BACKWARD = 0  # kernel launches by gather_rows_backward
@@ -87,41 +91,101 @@ def gather_rows_backward_plain(dout: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx[ok], dout[ok])
 
 
+_SCAN_TILE = 4096  # counts a scan block of the row segments (csrc kScanTile)
+
+
+def segment_scratch(m: int, n_rows: int) -> int:
+    """int32 scratch of the row segments (csrc umr_row_segments): counts
+    and starts (n_rows + 1 each), a sum per scan tile, the positions and
+    their merge twin (m each)."""
+    n = n_rows + 1
+    return 2 * n + -(-n // _SCAN_TILE) + 2 * m
+
+
+def row_segments_plain(idx: torch.Tensor, n_rows: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(starts (n_rows + 1,), positions (V,)) int32: the V positions i with
+    0 <= idx[i] < n_rows grouped by row, row r's in ascending i at
+    positions[starts[r]:starts[r + 1]]. starts from the rows' counts
+    (bincount, exclusive cumulative sum), positions by a stable order of
+    their rows."""
+    idx = idx.reshape(-1).to(torch.int64)
+    ok = (idx >= 0) & (idx < n_rows)
+    at = torch.nonzero(ok).reshape(-1)
+    counts = torch.bincount(idx[ok], minlength=n_rows)
+    starts = torch.zeros(n_rows + 1, dtype=torch.int64, device=idx.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    order = torch.argsort(idx[ok], stable=True)
+    return starts.to(torch.int32), at[order].to(torch.int32)
+
+
+def _segments_checked(idx, n_rows, name):
+    dev = idx.device
+    lib = _build.load_library()  # raises if it cannot be built
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {dev}")
+    if idx.dtype not in _INDEX_DTYPES:
+        raise ValueError(f"idx: expected int32 or int64, got {idx.dtype}")
+    _build.require(idx, "idx", idx.dtype, (None,), dev)
+    if n_rows < 1 or max(idx.shape[0], n_rows) >= 2 ** 31 - 1:
+        raise ValueError(f"{name}: unsupported size M={idx.shape[0]}, "
+                         f"N={n_rows}")
+    ints = torch.empty(segment_scratch(idx.shape[0], n_rows),
+                       dtype=torch.int32, device=dev)
+    return lib, ints
+
+
+def row_segments(idx: torch.Tensor, n_rows: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """row_segments_plain's (starts, positions); on a CUDA tensor by the
+    counting sort gather_rows_backward starts with (count, scan, place,
+    sort each segment; no library sort). A check of those kernels: it
+    counts no launch and reads starts[n_rows] back to size positions."""
+    if idx.device.type == "cpu":
+        return row_segments_plain(idx, n_rows)
+    lib, ints = _segments_checked(idx, n_rows, "row_segments")
+    code = lib.umr_row_segments(idx.data_ptr(), ints.data_ptr(),
+                                idx.shape[0], n_rows,
+                                int(idx.dtype == torch.int64),
+                                _build.stream_of(idx.device))
+    _build.check(lib, code, "row_segments")
+    n = n_rows + 1
+    starts = ints[n: 2 * n]
+    at = 2 * n + -(-n // _SCAN_TILE)
+    return starts, ints[at: at + int(starts[-1])]
+
+
 def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
                          n_rows: int) -> torch.Tensor:
     """The cotangent of a row gather's table: dout (M, C) fp32, idx (M,)
-    int32 / int64 -> (n_rows, C) fp32. On the card: the indices sorted
-    once (stable), each row's segment of them found, then the kernel (a
-    warp a row, its cotangents added in ascending position: the bits of
-    the plain version on the CPU)."""
+    int32 / int64 -> (n_rows, C) fp32. On the card one C call: the row
+    segments (counting sort over [0, n_rows) in int32: a count, a scan
+    that gives each row's start, a placement, a warp sorting its 32
+    rows' segments in turn), then G lanes a row adding its cotangents in
+    ascending position, as 16-byte pieces where C * 4 allows: the bits of
+    the plain version on the CPU, with no float atomics and no library
+    sort."""
     global LAUNCHES_BACKWARD
     if dout.device.type == "cpu":
         return gather_rows_backward_plain(dout, idx, n_rows)
     dev = dout.device
-    lib = _build.load_library()  # raises if it cannot be built
-    if dev.type != "cuda":
-        raise ValueError(f"gather_rows_backward runs on CUDA or CPU tensors, "
-                         f"not {dev}")
-    if idx.dtype not in _INDEX_DTYPES:
-        raise ValueError(f"idx: expected int32 or int64, got {idx.dtype}")
+    if n_rows == 0:
+        _build.load_library()  # raises if it cannot be built
+        return torch.empty((0,) + tuple(dout.shape[1:]), dtype=torch.float32,
+                           device=dev)
+    lib, ints = _segments_checked(idx, n_rows, "gather_rows_backward")
     _build.require(dout, "dout", torch.float32, (None, None), dev)
     _build.require(idx, "idx", idx.dtype, (dout.shape[0],), dev)
     M, C = dout.shape
-    if C < 1 or max(M, n_rows) >= 2 ** 31:
-        raise ValueError(f"gather_rows_backward: unsupported size M={M}, "
-                         f"N={n_rows}, C={C}")
+    if C < 1:
+        raise ValueError(f"gather_rows_backward: unsupported C={C}")
     out = torch.empty((n_rows, C), dtype=torch.float32, device=dev)
-    if n_rows == 0:
-        return out
-    key = idx.to(torch.int64)
-    key = torch.where((key >= 0) & (key < n_rows), key,
-                      torch.full_like(key, n_rows))
-    sorted_key, perm = torch.sort(key, stable=True)
-    starts = torch.searchsorted(
-        sorted_key, torch.arange(n_rows + 1, dtype=torch.int64, device=dev))
+    vec16 = (C % 4 == 0 and dout.data_ptr() % 16 == 0
+             and out.data_ptr() % 16 == 0)
     code = lib.umr_gather_rows_backward(
-        dout.data_ptr(), perm.data_ptr(), starts.data_ptr(), out.data_ptr(),
-        n_rows, C, _build.stream_of(dev))
+        dout.data_ptr(), idx.data_ptr(), ints.data_ptr(), out.data_ptr(), M,
+        n_rows, C, int(idx.dtype == torch.int64), int(vec16),
+        _build.stream_of(dev))
     _build.check(lib, code, "gather_rows_backward")
     LAUNCHES_BACKWARD += 1
     return out
