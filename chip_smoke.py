@@ -173,6 +173,25 @@ Phases (any failure ends the run with a non-zero exit):
      kernels forward and backward, step ms and one profiled step; (d)
      the train CLI on a KITTI-layout tree (2 train, 2 val pairs, batch 2,
      1 epoch) and its last_epoch_checkpoint.pkl in the evaluate CLI;
+  5k. parallel (phase_parallel, one line a part): on a one-rank NCCL
+     mesh (a file store in a temporary directory), (a) the points-sharded
+     UME at 2048 keypoints x 16384 points of the nominal pair (C 32, r 5,
+     cap 750) bit for bit against ume_from_ball_query; (b) 4 and 8 'sp'
+     blocks emulated in one process through local_moments with the
+     per-keypoint caps, within 1e-5 x max |F| of the one-device kernel,
+     and the global-order case (every point in radius, max_nn 100 over 8
+     blocks: m0 = 100); (c) the kernel's caps: full(max_nn) bit for bit
+     as caps=None, random caps against the plain version, cap-0 rows
+     zero, device ms with and without caps; (d) ResUNetSmall2 at
+     train_kitti_config, B = 8: two data-parallel steps on the mesh bit
+     for bit against two without it (and a repeat without it), ms a
+     step; (e) the hash-grid NN at the CLI's raw ICP size (131072 target
+     and query points of an HDL-64 pair, r 0.4 m, budget 32): the card
+     against its CPU run bit for bit and against dense_nn_query where the
+     budget is exact, a voxel-key table with every key found, build and
+     lookup ms and probe rounds; (f) the native host ops against numpy /
+     scipy (quantize and nn_radius on the scan, a 2500 x 2500
+     Hungarian);
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model, the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
@@ -3593,7 +3612,7 @@ def card_vs_cpu(dev, batch, weights):
 
     from umeregrobust_tpu_torch.models.resunet import ARCHS
     from umeregrobust_tpu_torch.models.weights import load_model
-    from umeregrobust_tpu_torch.pipeline.e2e import _tf32_off
+    from umeregrobust_tpu_torch.ops.precision import tf32_off
     from umeregrobust_tpu_torch.train.trainer import (
         TrainConfig, _capacities, batch_losses, batch_to_device)
 
@@ -3603,7 +3622,7 @@ def card_vs_cpu(dev, batch, weights):
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
         model = load_model(weights, ARCHS["ResUNetSmall2"], device=d)
         t0 = time.time()
-        with _tf32_off():
+        with tf32_off():
             loss, m, _ = batch_losses(model, batch_to_device(one, d), cfg,
                                       _capacities(cfg, model.arch), True)
             loss.backward()
@@ -3800,6 +3819,614 @@ def phase_train(dev, t_start):
         emit({"phase": "train_cli", **cli,
               "seconds_total": time.time() - t_start})
     return out, kern, paths
+
+
+# ---------------------------------------------------------------------------
+# phase 5k: the parallel layer (the points-sharded UME through the moments
+# kernel's per-keypoint caps, the data-parallel train step), the hash table
+# and grid NN, and the native host ops
+
+SP_KEYPOINTS = 2048
+SP_BLOCKS = (4, 8)  # emulated 'sp' ranks in one process
+ICP_RAW = 131072  # the evaluate CLI's raw ICP size (icp_raw_max_size)
+GRID_RADIUS, GRID_BUDGET = 0.4, 32
+UME_DEVICE_MS_PR12 = (0.0858, 0.0891)  # ume_moments_fused, device alone
+
+
+def raw_cloud(raw, n, rng):
+    """A raw scan as the CLI's raw ICP stage holds it: rows permuted, cut
+    or zero-padded to n, with its mask."""
+    p = raw[rng.permutation(len(raw))[:n]].astype(np.float32)
+    buf = np.zeros((n, 3), np.float32)
+    buf[:len(p)] = p
+    return buf, np.arange(n) < len(p)
+
+
+def wall_ms(fn, reps=3):
+    """Median host-clock ms of fn() round a synchronize (for functions
+    that read the device on the host, as the hash loops do)."""
+    import torch
+
+    out, times = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def sp_parts(dev, mesh, p, feat, pm, r, cap, card):
+    """Parts (a)-(c): the 'sp' UME on a one-rank mesh against
+    ume_from_ball_query bit for bit; S = 4 and 8 blocks emulated through
+    local_moments against the one-device kernel, and the global-order
+    forced case; the kernel's caps against caps=None and the plain
+    version. Returns ({part: result}, launches of the counted 'sp' run,
+    the inputs and the one-device result on the host)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_ume
+    from umeregrobust_tpu_torch.parallel import (
+        local_moments, points_block, ume_from_ball_query_sp)
+    from umeregrobust_tpu_torch.parallel.points_sharded import (
+        block_caps, block_counts)
+    from umeregrobust_tpu_torch.pipeline.sampling import weighted_sample
+    from umeregrobust_tpu_torch.pipeline.ume_gen import (
+        moment_rows, moments_to_ume, ume_from_ball_query)
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    kp = p[weighted_sample(pm.float() / pm.float().sum(), SP_KEYPOINTS,
+                           g)].contiguous()
+    M, N, C = kp.shape[0], p.shape[0], feat.shape[1]
+    res = {}
+
+    # (a) the one-rank mesh through the entry point, counted
+    one = ume_from_ball_query(p, feat, kp, r, cap, p_mask=pm)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sp = ume_from_ball_query_sp(mesh, p, feat, kp, r, cap, p_mask=pm)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    same = bool(torch.equal(sp, one))
+    res["a_sp_ume"] = dict(
+        shape=f"{M} keypoints x {N} points, C {C}, r {r}, cap {cap}",
+        ranks=1, bit_identical_to_ume_from_ball_query=same,
+        finite=bool(torch.isfinite(sp).all()),
+        ms=time_ms(lambda: ume_from_ball_query_sp(mesh, p, feat, kp, r, cap,
+                                                  p_mask=pm)),
+        ms_ume_from_ball_query=time_ms(lambda: ume_from_ball_query(
+            p, feat, kp, r, cap, p_mask=pm)),
+        launches=launches["ume_moments_fused"], card=card,
+        ok=same and bool(torch.isfinite(sp).all()))
+
+    # (b) S blocks in one process, their sum against the one-device kernel
+    Z = moment_rows(p, feat, pm)
+    full = cuda_ume.ume_moments_fused(kp, p, Z, pm, r, cap)
+    scale = float(full.abs().max())
+    part_b = dict(card=card)
+    ok_b = True
+    for S in SP_BLOCKS:
+        blocks = [[points_block(x, i, S) for x in (p, feat, pm)]
+                  for i in range(S)]
+        counts = torch.stack([block_counts(b[0], b[2], kp, r)
+                              for b in blocks])
+        total = 0
+        for i, b in enumerate(blocks):
+            total = total + local_moments(*b, kp, r,
+                                          block_caps(counts, i, cap))
+        err = float((total - full).abs().max())
+        kept = sum(torch.minimum(block_caps(counts, i, cap), counts[i])
+                   for i in range(S))
+        exact_caps = bool(torch.equal(kept, torch.clamp(counts.sum(0),
+                                                        max=cap)))
+        part_b[f"S{S}"] = dict(max_abs_err=err, scale=scale,
+                               caps_exact=exact_caps,
+                               ok=err <= 1e-5 * scale and exact_caps)
+        ok_b &= part_b[f"S{S}"]["ok"]
+    # tests/test_points_sharded.py's forced case: every point in radius,
+    # max_nn 100 over 8 blocks, m0 = 100 exactly
+    cp = torch.zeros(512, 3, device=dev)
+    cf = torch.ones(512, 4, device=dev)
+    cm = torch.ones(512, dtype=torch.bool, device=dev)
+    ck = torch.zeros(1, 3, device=dev)
+    blocks = [[points_block(x, i, 8) for x in (cp, cf, cm)] for i in range(8)]
+    counts = torch.stack([block_counts(b[0], b[2], ck, 1.0) for b in blocks])
+    F = sum(local_moments(*b, ck, 1.0, block_caps(counts, i, 100))
+            for i, b in enumerate(blocks))
+    m0 = F[0, :4].tolist()
+    m0_mesh = ume_from_ball_query_sp(mesh, cp, cf, ck, 1.0, 100,
+                                     normalize=False)[0, :, 0].tolist()
+    part_b["forced_global_order"] = dict(
+        m0=m0, m0_mesh=m0_mesh,
+        ok=m0 == [100.0] * 4 and m0_mesh == [100.0] * 4)
+    part_b["ok"] = ok_b and part_b["forced_global_order"]["ok"]
+    res["b_emulated_blocks"] = part_b
+
+    # (c) per-keypoint caps on the card
+    caps_full = torch.full((M,), cap, dtype=torch.int32, device=dev)
+    with_full = cuda_ume.ume_moments_fused(kp, p, Z, pm, r, cap,
+                                           caps=caps_full)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rc = torch.randint(0, cap + 1, (M,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rc[:16] = 0
+    a = cuda_ume.ume_moments_fused(kp, p, Z, pm, r, cap, caps=rc)
+    a2 = cuda_ume.ume_moments_fused(kp, p, Z, pm, r, cap, caps=rc)
+    b = cuda_ume.ume_moments_plain(kp, p, Z, pm, r, cap, caps=rc)
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    sc = float(b.abs().max())
+    zero_rows = bool(torch.count_nonzero(a[rc == 0]) == 0)
+    none_ms = graph_ms(lambda: cuda_ume.ume_moments_fused(kp, p, Z, pm, r,
+                                                          cap))
+    res["c_caps"] = dict(
+        caps_full_bit_identical_to_none=bool(torch.equal(with_full, full)),
+        random_caps_max_abs_err=err, scale=sc, zero_rows_exact=zero_rows,
+        two_launches_identical=bool(torch.equal(a, a2)),
+        kernel_ms_caps_none=none_ms,
+        kernel_ms_caps_full=graph_ms(lambda: cuda_ume.ume_moments_fused(
+            kp, p, Z, pm, r, cap, caps=caps_full)),
+        kernel_ms_pr12_range=UME_DEVICE_MS_PR12,
+        kernel_ms_caps_none_in_range=bool(
+            UME_DEVICE_MS_PR12[0] <= none_ms <= UME_DEVICE_MS_PR12[1]),
+        card=card,
+        ok=bool(torch.equal(with_full, full)) and err <= 1e-5 * sc
+        and zero_rows and bool(torch.equal(a, a2)))
+    inputs = dict(p=p.cpu(), feat=feat.cpu(), pm=pm.cpu(), kp=kp.cpu(), r=r,
+                  cap=cap, one=moments_to_ume(full, C, normalize=False).cpu())
+    return res, launches, inputs
+
+
+def dp_part(dev, mesh, work, card):
+    """Part (d): ResUNetSmall2 (in-repo weights) at train_kitti_config, B =
+    8, two steps on the one-rank mesh against two without it, and two
+    more without it (whether a step repeats its bits at all). Returns
+    (result, launches of the counted mesh steps, the batch)."""
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.parallel import shard_batch
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, batch_to_device)
+
+    weights = os.path.join(ROOT, "weights", "synthetic_pretrain.pkl")
+    cfg = TrainConfig()
+    batch = train_batch(TRAIN_B, 901)
+
+    def run(name, m):
+        model = load_model(weights, ARCHS["ResUNetSmall2"], device=dev)
+        tr = Trainer(cfg, os.path.join(work, name), device=dev, model=model,
+                     mesh=m)
+        b = batch_to_device(shard_batch(m, batch) if m is not None
+                            else batch, dev)
+        steps = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metrics = tr.train_step(b)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.time() - t0) * 1e3,
+                              total_loss=metrics["total_loss"],
+                              nonfinite_grad=metrics["nonfinite_grad"]))
+        return steps, train_state(tr)
+
+    reset_launch_counts()
+    mesh_steps, mesh_state = run("mesh", mesh)
+    launches = launch_counts()
+    plain_steps, plain_state = run("plain", None)
+    again_steps, again_state = run("plain_again", None)
+
+    def differ(x, y):
+        return sorted(k for k in y if not torch.equal(x[k], y[k]))
+
+    diff = differ(mesh_state, plain_state)
+    repeat = differ(again_state, plain_state)
+    res = dict(arch="ResUNetSmall2", B=TRAIN_B, ranks=1,
+               mesh_steps=mesh_steps, plain_steps=plain_steps,
+               plain_again_steps=again_steps, tensors=len(plain_state),
+               mesh_vs_plain_differing=diff,
+               plain_vs_plain_differing=repeat,
+               launches_per_step={k: v / 2 for k, v in launches.items()},
+               card=card,
+               ok=not diff and all(np.isfinite(s["total_loss"])
+                                   for s in mesh_steps + plain_steps))
+    return res, launches, batch
+
+
+def grid_part(dev, pair, card):
+    """Part (e): the hash-grid NN at the CLI's raw ICP size (131072 target
+    and query points of an HDL-64 density scan pair, the source under the
+    ground truth), radius 0.4 m, budget 32: on the card against its CPU
+    run bit for bit, and against densegrid.dense_nn_query (budget raised
+    to the largest window: exact) on every query whose 27 cells hold <=
+    budget points; a voxel-key hash table at the same scale, every key
+    found."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import gridnn, hashing
+    from umeregrobust_tpu_torch.ops.densegrid import (
+        build_dense_grid, dense_nn_query, max_window_count)
+    from umeregrobust_tpu_torch.ops.voxel import quantize_np
+
+    rng = np.random.default_rng(3)
+    T = pair["gt_tform"].astype(np.float32)
+    tgt, tmask = raw_cloud(pair["tgt_pts"], ICP_RAW, rng)
+    src = (pair["src_pts"] @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    q, qmask = raw_cloud(src, ICP_RAW, rng)
+    tp, tm, qt, qm = (torch.as_tensor(x, device=dev)
+                      for x in (tgt, tmask, q, qmask))
+    build_ms, grid = wall_ms(lambda: gridnn.build_grid(
+        tp, tm, GRID_RADIUS, device=dev))
+    build_rounds = hashing.ROUNDS["build"]
+    query_ms, (d, idx) = wall_ms(lambda: gridnn.nn_query(
+        grid, qt, GRID_RADIUS, q_mask=qm, budget=GRID_BUDGET))
+    overflow = int(gridnn.overflow_count(grid, GRID_BUDGET))
+    cpu = gridnn.build_grid(tgt, tmask, GRID_RADIUS, device="cpu")
+    d_c, idx_c = gridnn.nn_query(cpu, q, GRID_RADIUS, q_mask=qmask,
+                                 budget=GRID_BUDGET)
+    card_is_cpu = bool(torch.equal(idx.cpu(), idx_c)
+                       and torch.equal(d.cpu(), d_c))
+    vs_cpu = dict(
+        cells=int((gridnn._cell_coords(tp, GRID_RADIUS).cpu()
+                   != gridnn._cell_coords(torch.as_tensor(tgt),
+                                          GRID_RADIUS)).any(1).sum()),
+        idx=int((idx.cpu() != idx_c).sum()), dist=int((d.cpu() != d_c).sum()))
+    # the queries the budget serves exactly: their 27 cells hold <= budget
+    offs = torch.tensor([(0, a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                         for c in (-1, 0, 1)], dtype=torch.int32, device=dev)
+    qc = gridnn._cell_coords(qt, GRID_RADIUS)
+    cells = hashing.lookup(grid.cell_table,
+                           (qc[:, None] + offs).reshape(-1, 4))
+    lookup_rounds = hashing.ROUNDS["lookup"]  # all 27 x 131072 probes
+    cnt = torch.where(cells >= 0, grid.count[cells.clamp(min=0).long()],
+                      0).reshape(-1, 27).amax(1)
+    covered = qm & (cnt <= GRID_BUDGET)
+    # the dense grid over the target's box, exact: budget = its fullest
+    # window; queries in chunks to bound the candidate tensor
+    lo = np.floor(tgt[tmask].min(0) / GRID_RADIUS)
+    hi = np.floor(tgt[tmask].max(0) / GRID_RADIUS)
+    dims = tuple(int(x) for x in hi - lo + 1)
+    dg = build_dense_grid(tp, tm, GRID_RADIUS, dims)
+    wmax = int(max_window_count(dg))
+    didx = torch.cat([dense_nn_query(dg, qt[s:s + 4096], GRID_RADIUS,
+                                     q_mask=qm[s:s + 4096],
+                                     budget=max(wmax, 1))[1]
+                      for s in range(0, ICP_RAW, 4096)])
+    diff = covered & (didx != idx.long())
+    # a differing index is a tie only where both points lie at the same
+    # distance from the query (to 1e-6 of it)
+    both = diff & (didx >= 0) & (idx >= 0)
+    dq = torch.linalg.vector_norm(
+        qt[both].double() - tp[didx[both]].double(), dim=1)
+    gq = torch.linalg.vector_norm(
+        qt[both].double() - tp[idx[both].long()].double(), dim=1)
+    ties = int(((dq - gq).abs() <= 1e-6 * dq.clamp(min=1e-3)).sum())
+    # a voxel-key table at the same scale: every key found at its row
+    coords, _ = quantize_np(tgt[tmask], 0.1)
+    keys = torch.as_tensor(np.concatenate(
+        [np.zeros((len(coords), 1), np.int32), coords], 1), device=dev)
+    kmask = torch.ones(len(keys), dtype=torch.bool, device=dev)
+    tbuild_ms, table = wall_ms(lambda: hashing.build_hash_table(
+        keys, kmask, device=dev))
+    tbuild_rounds = hashing.ROUNDS["build"]
+    tlookup_ms, found = wall_ms(lambda: hashing.lookup(table, keys))
+    tlookup_rounds = hashing.ROUNDS["lookup"]
+    all_found = bool(torch.equal(found.long(), torch.arange(
+        len(keys), device=dev)))
+    n_diff = int(diff.sum())
+    return dict(
+        target_points=int(tmask.sum()), queries=int(qmask.sum()),
+        radius=GRID_RADIUS, budget=GRID_BUDGET, overflow_count=overflow,
+        covered_queries=int(covered.sum()), hits=int((idx >= 0).sum()),
+        dense_window_max=wmax, dense_dims=dims,
+        idx_differ_from_dense=n_diff, of_which_ties=ties,
+        card_equals_cpu=card_is_cpu, card_vs_cpu_differing=vs_cpu,
+        grid_build_ms=build_ms,
+        grid_build_rounds=build_rounds, grid_query_ms=query_ms,
+        grid_lookup_rounds=lookup_rounds, table_keys=len(keys),
+        table_build_ms=tbuild_ms, table_build_rounds=tbuild_rounds,
+        table_lookup_ms=tlookup_ms, table_lookup_rounds=tlookup_rounds,
+        all_keys_found=all_found, card=card,
+        ok=card_is_cpu and n_diff == ties and all_found)
+
+
+def native_part(pair, card):
+    """Part (f): the port's g++-built host ops against numpy / scipy on a
+    kitti_test-size scan (quantize at 0.3 m; nn_radius of the source under
+    the ground truth at 0.4 m: float32 against cKDTree's float64, so a
+    differing index must be a tie or lie at the radius) and a 2500 x 2500
+    cost matrix with no ties (Hungarian)."""
+    from scipy.optimize import linear_sum_assignment
+    from scipy.spatial import cKDTree
+
+    from umeregrobust_tpu_torch import native
+    from umeregrobust_tpu_torch.ops.voxel import quantize_np
+
+    have = native.have_native()
+    scan = pair["src_pts"].astype(np.float32)
+    t0 = time.perf_counter()
+    c1, i1 = native.quantize(scan, 0.3)
+    q_ms = (time.perf_counter() - t0) * 1e3
+    c2, i2 = quantize_np(scan, 0.3)
+    quant_ok = np.array_equal(c1, c2) and np.array_equal(i1, i2)
+    T = pair["gt_tform"].astype(np.float32)
+    q = (scan @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    tgt = pair["tgt_pts"].astype(np.float32)
+    t0 = time.perf_counter()
+    idx, dist = native.nn_radius(q, tgt, GRID_RADIUS)
+    nn_ms = (time.perf_counter() - t0) * 1e3
+    kd_d, kd_i = cKDTree(tgt).query(q, k=1)
+    kd_i = np.where(kd_d <= GRID_RADIUS, kd_i, -1)
+    bad = np.flatnonzero(idx != kd_i)
+    d_nat = np.linalg.norm(q[bad].astype(np.float64)
+                           - tgt[np.maximum(idx[bad], 0)], axis=1)
+    explained = ((np.abs(kd_d[bad] - GRID_RADIUS) < 1e-5)
+                 | ((idx[bad] >= 0) & (np.abs(d_nat - kd_d[bad]) < 1e-6)))
+    cost = np.random.default_rng(11).uniform(0.0, 1.0, (2500, 2500))
+    t0 = time.perf_counter()
+    r1, col1 = native.hungarian(cost)
+    h_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r2, col2 = linear_sum_assignment(cost)
+    h_scipy_ms = (time.perf_counter() - t0) * 1e3
+    hung_ok = np.array_equal(r1, r2) and np.array_equal(col1, col2)
+    return dict(
+        have_native=have, scan_points=len(scan), voxels=len(c1),
+        quantize_equal=bool(quant_ok), quantize_ms=q_ms,
+        nn_queries=len(q), nn_hits=int((idx >= 0).sum()),
+        nn_differ_from_kdtree=len(bad),
+        nn_unexplained=int((~explained).sum()), nn_radius_ms=nn_ms,
+        hungarian_equal=bool(hung_ok), hungarian_ms=h_ms,
+        hungarian_scipy_ms=h_scipy_ms, card=card,
+        ok=have and quant_ok and hung_ok and bool(explained.all()))
+
+
+def train_state(tr, grads=False):
+    """A trainer's parameters, BN buffers and Adam state (and with grads
+    the parameters' gradients), cloned."""
+    import torch
+
+    state = {f"param.{k}": v.detach().clone()
+             for k, v in tr.model.named_parameters()}
+    if grads:
+        state.update({f"grad.{k}": v.grad.detach().clone()
+                      for k, v in tr.model.named_parameters()
+                      if v.grad is not None})
+    state.update({f"buffer.{k}": v.clone()
+                  for k, v in tr.model.named_buffers()})
+    for i, st in tr.optimizer.state_dict()["state"].items():
+        state.update({f"adam.{i}.{k}": torch.as_tensor(v).clone()
+                      for k, v in st.items()})
+    return state
+
+
+def leaf_err(a, b):
+    """max |a - b| over max |b| of one tensor (1e-30 floor)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+TWO_RANKS = 2
+TWO_RANK_CFG = dict(compute_dtype="float32")  # train_kitti_config at fp32
+TWO_RANK_TIMEOUT = 600  # seconds for the 2-rank run, start-up included
+
+
+def two_rank_worker(rank, world, store, inputs, out):
+    """Phase 5k's 2-rank run: one process a rank, both on the one card,
+    over a gloo group (two NCCL ranks cannot share a card): (a) the 'sp'
+    UME over 2 blocks of the points; (d) one data-parallel step of
+    ResUNetSmall2 at fp32, B / 2 pairs a rank. Writes its results to
+    {out}_{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        from umeregrobust_tpu_torch.models.resunet import ARCHS
+        from umeregrobust_tpu_torch.models.weights import load_model
+        from umeregrobust_tpu_torch.parallel import (
+            make_mesh, shard_batch, ume_from_ball_query_sp)
+        from umeregrobust_tpu_torch.train.trainer import (
+            TrainConfig, Trainer, batch_to_device)
+
+        d = torch.load(inputs, weights_only=False)
+        dev = torch.device(d["device"])
+        a = d["sp"]
+        sp = make_mesh(n_dp=1, n_sp=world, device_type=dev.type)
+        F = ume_from_ball_query_sp(
+            sp, a["p"].to(dev), a["feat"].to(dev), a["kp"].to(dev), a["r"],
+            a["cap"], p_mask=a["pm"].to(dev), normalize=False)
+        dp = make_mesh(n_dp=world, n_sp=1, device_type=dev.type)
+        tr = Trainer(TrainConfig(**d["cfg"]), f"{out}_run{rank}", device=dev,
+                     model=load_model(d["weights"], ARCHS["ResUNetSmall2"],
+                                      device=dev), mesh=dp)
+        b = batch_to_device(shard_batch(dp, d["batch"]), dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        m = tr.train_step(b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        torch.save(dict(F=F.cpu(), metrics=m, ms=(time.time() - t0) * 1e3,
+                        state={k: v.cpu() for k, v in
+                               train_state(tr, grads=True).items()}),
+                   f"{out}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_parts(dev, work, sp_inputs, batch, card):
+    """The 2-rank run of (a) and (d) (two_rank_worker), held to what this
+    process computes: (a) the moments before normalisation within 1e-5 x
+    max |F| of the one-device kernel's (as (b)), both ranks the same bits;
+    (d) at fp32, the averaged gradients, the new BN state and the
+    parameters after the step bit for bit against the mean of two
+    one-process steps on the halves of the batch (the ranks' slices) and
+    one Adam step on that mean, both ranks the same model; beside it,
+    how far the step lies from one step on the whole batch (a cloud's
+    bits depend on its place in a batch: ROADMAP Queue 3 item 12).
+    Returns {part: result}."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, batch_to_device)
+
+    weights = os.path.join(ROOT, "weights", "synthetic_pretrain.pkl")
+    cfg = TrainConfig(**TWO_RANK_CFG)
+
+    def trainer(name):
+        return Trainer(cfg, os.path.join(work, name), device=dev,
+                       model=load_model(weights, ARCHS["ResUNetSmall2"],
+                                        device=dev))
+
+    def cpu_state(tr):
+        return {k: v.cpu() for k, v in train_state(tr, grads=True).items()}
+
+    tr = trainer("whole32")
+    whole_m = tr.train_step(batch_to_device(batch, dev))
+    whole = cpu_state(tr)
+    half = len(batch["src_pts"]) // TWO_RANKS
+    halves = []
+    for h in range(TWO_RANKS):
+        tr = trainer(f"half{h}")
+        tr.train_step(batch_to_device(
+            {k: v[h * half:(h + 1) * half] for k, v in batch.items()}, dev))
+        halves.append(cpu_state(tr))
+    # what the ranks must hold: the halves' mean gradient and BN state, and
+    # the parameters after one Adam step on that mean
+    want = {}
+    for k in halves[0]:
+        if k.startswith(("grad.", "buffer.")):
+            want[k] = (halves[0][k] + halves[1][k]) / TWO_RANKS
+    tr = trainer("mean_step")
+    for name, p_ in tr.model.named_parameters():
+        p_.grad = want[f"grad.{name}"].to(dev)
+    tr.optimizer.step()
+    want.update({k: v.cpu() for k, v in train_state(tr).items()
+                 if k.startswith(("param.", "adam."))})
+    del tr
+    torch.cuda.empty_cache()
+    inputs = os.path.join(work, "two_rank_inputs.pt")
+    torch.save(dict(sp=sp_inputs, batch=batch, cfg=TWO_RANK_CFG,
+                    weights=weights, device=dev.type), inputs)
+    out = os.path.join(work, "two_rank")
+    t0 = time.time()
+    ctx = mp.spawn(two_rank_worker, nprocs=TWO_RANKS, join=False,
+                   args=(TWO_RANKS, os.path.join(work, "two_rank_store"),
+                         inputs, out))
+    deadline = time.time() + TWO_RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(deadline - time.time(), 0.0)):
+            if time.time() >= deadline:
+                raise TimeoutError("a rank of the 2-rank run did not finish")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    wall = time.time() - t0
+    ranks = [torch.load(f"{out}_{r}.pt", weights_only=False)
+             for r in range(TWO_RANKS)]
+    one = sp_inputs["one"]
+    scale = float(one.abs().max())
+    errs = [float((r["F"] - one).abs().max()) for r in ranks]
+    same = all(torch.equal(r["F"], ranks[0]["F"]) for r in ranks)
+    res = {"a_sp_ume_2_ranks": dict(
+        ranks=TWO_RANKS, backend="gloo", max_abs_err=max(errs), scale=scale,
+        ranks_bit_identical=same, wall_s=wall, card=card,
+        ok=max(errs) <= 1e-5 * scale and same)}
+    differing = sorted({k for r in ranks for k, v in want.items()
+                        if not torch.equal(r["state"][k], v)})
+    # beside it, the distance from one step on the whole batch
+    dist_whole = {"metric_rel": 0.0, "buffer": 0.0, "grad": 0.0,
+                  "param": 0.0}
+    for r in ranks:
+        for k, v in whole_m.items():
+            dist_whole["metric_rel"] = max(dist_whole["metric_rel"], abs(
+                r["metrics"][k] - v) / max(abs(v), 1e-7))
+        for k, v in whole.items():
+            kind = k.split(".")[0]
+            if kind in dist_whole:
+                dist_whole[kind] = max(dist_whole[kind],
+                                       leaf_err(r["state"][k], v))
+    same_model = all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])
+                     for k in whole)
+    res["d_data_parallel_2_ranks"] = dict(
+        ranks=TWO_RANKS, backend="gloo", B=len(batch["src_pts"]),
+        compute_dtype="float32", tensors_checked=len(want),
+        differing_from_mean_of_halves=differing,
+        whole_batch_distance=dist_whole,
+        loss=[r["metrics"]["total_loss"] for r in ranks],
+        loss_one_process=whole_m["total_loss"],
+        ms_a_step=[r["ms"] for r in ranks], ranks_same_model=same_model,
+        card=card, ok=not differing and same_model)
+    return res
+
+
+def phase_parallel(dev, model, pair, cfg, t_start):
+    """Phase 5k: parts (a)-(f) (one line each). A one-rank NCCL process
+    group (a file store in a temporary directory) and a ('dp', 'sp') mesh
+    of 1 x 1 serve (a) and (d); then (a) and (d) again over two gloo ranks
+    on the one card (two_rank_parts). Returns ({part: result}, launch
+    counts of the one-rank 'sp' and 'dp' runs by path)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from umeregrobust_tpu_torch.data.synthetic import SceneConfig, make_pair
+    from umeregrobust_tpu_torch.models.resunet import build_unet_geometry
+    from umeregrobust_tpu_torch.parallel import make_mesh
+
+    card = smi("name,power.limit")
+    src = {k: torch.as_tensor(v).to(dev) for k, v in pair["src"].items()}
+    with torch.no_grad():
+        geom = build_unet_geometry(src["coords"], src["mask"], model.arch,
+                                   (16384, 10240, 4096, 1280, 256))
+        feat = model(geom, src["mask"][:, None].float(), torch.bfloat16)
+    res, paths = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        dist.init_process_group("nccl", init_method=f"file://{work}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(n_dp=1, n_sp=1)
+            sp, paths["parallel_sp"], sp_inputs = sp_parts(
+                dev, mesh, src["grid"], feat, src["mask"], cfg.ume_r_nn,
+                cfg.ume_max_nn, card)
+            res.update(sp)
+            for k in sp:
+                emit({"phase": "parallel", "part": k, **sp[k],
+                      "seconds_total": time.time() - t_start})
+            res["d_data_parallel"], paths["parallel_dp"], batch = dp_part(
+                dev, mesh, work, card)
+            emit({"phase": "parallel", "part": "d_data_parallel",
+                  **res["d_data_parallel"],
+                  "seconds_total": time.time() - t_start})
+        finally:
+            dist.destroy_process_group()
+        two = two_rank_parts(dev, work, sp_inputs, batch, card)
+        res.update(two)
+        for k in two:
+            emit({"phase": "parallel", "part": k, **two[k],
+                  "seconds_total": time.time() - t_start})
+    # HDL-64E's 0.08 deg azimuth step: ~137,000 returns a scan, cut to the
+    # CLI's raw ICP size of 131072
+    scan = make_pair(SceneConfig(seed=905, azimuth_bins=4500, **HDL64),
+                     max_rotation_deg=30, max_translation=2.0, seed=905)
+    res["e_grid_nn"] = grid_part(dev, scan, card)
+    emit({"phase": "parallel", "part": "e_grid_nn", **res["e_grid_nn"],
+          "seconds_total": time.time() - t_start})
+    res["f_native"] = native_part(scan, card)
+    emit({"phase": "parallel", "part": "f_native", **res["f_native"],
+          "seconds_total": time.time() - t_start})
+    return res, paths
 
 
 def main() -> int:
@@ -4076,6 +4703,12 @@ def main() -> int:
     kern["gather_rows"]["ok"] = (kern["gather_rows"]["ok"]
                                  and train_res["windows"]["ok"])
 
+    # --- 5k. the parallel layer, the hash grid and the native host ops
+    emit({"phase": "parallel_start", "seconds_total": time.time() - t_start})
+    par, par_paths = phase_parallel(dev, model, pairs[0], cfg, t_start)
+    kern["ume_moments_fused"].update(caps=par["c_caps"])
+    kern["ume_moments_fused"]["ok"] &= par["c_caps"]["ok"]
+
     paths = {"e2e": e2e_launches, "family": fam["launches"],
              "scan": scan_launches, "batched": batch_res["regimes"][1],
              "batched_resunet": res_b["launches"],
@@ -4083,7 +4716,8 @@ def main() -> int:
              **{f"config_{k}": v for k, v in cfg_launches.items()},
              **{f"cli_{r['run']}": r["launches"] for r in cli_runs},
              **data_paths, **train_paths,
-             **{f"widths_{k}": v["launches"] for k, v in wide.items()}}
+             **{f"widths_{k}": v["launches"] for k, v in wide.items()},
+             **par_paths}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
@@ -4190,6 +4824,9 @@ def main() -> int:
     if not train_res["cli"]["ok"]:
         failures.append("train CLI: no checkpoint, or the evaluate CLI "
                         "could not use it")
+    for part, res in par.items():
+        if not res["ok"]:
+            failures.append(f"parallel {part}")
     # a kernel of a path must have launched in that path's counted run
     on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
                "batched_resunet": ("nn1_argmin", "gather_rows",
@@ -4204,6 +4841,8 @@ def main() -> int:
                                  "sparse_conv_rowtile", "sparse_conv_tapsplit",
                                  "sparse_conv_wgrad"),
                "train_cli": ("gather_rows", "gather_rows_backward"),
+               "parallel_sp": ("ume_moments_fused",),
+               "parallel_dp": ("gather_rows", "gather_rows_backward"),
                **{f"widths_{k}": ("ume_moments_fused", "corr_scores_fused",
                                   "gather_rows") for k in wide},
                "scan": ("nn1_argmin", "ume_moments_fused",

@@ -45,11 +45,8 @@ def test_importing_every_module_leaves_jax_out():
         assert f"umeregrobust_tpu_torch.{new}" in MODULES
 
 
-# the JAX package's modules the port has no counterpart of yet (ROADMAP
-# Queue 1): the parallel layer and the small host modules
-UNPORTED = ["native", "ops.gridnn", "ops.hashing", "ops.precision",
-            "parallel", "parallel.mesh", "parallel.points_sharded",
-            "utils.cache", "utils.profiling"]
+# the JAX package's modules the port has no counterpart of yet: none
+UNPORTED = []
 # the Pallas kernels' modules are the CUDA kernels' wrappers in the port
 PORTED_AS = {"ops.pallas_corr": "ops.cuda_corr", "ops.pallas_nn": "ops.cuda_nn",
              "ops.pallas_ume": "ops.cuda_ume"}
@@ -78,11 +75,13 @@ def test_the_training_modules_are_ported(mod):
 HOST_ONLY = ["data.laserscan", "data.registry", "data.matching_host",
              "data.sem", "data.datasets", "data.collate",
              "data.sem_preprocess", "data.nuscenes_export",
-             "cli.sem_preprocessing"]
+             "cli.sem_preprocessing", "native"]
 
 
 @pytest.mark.parametrize("mod", HOST_ONLY + [
-    "models.convert", "pipeline.rtume", "pipeline.keypoint_samplers"])
+    "models.convert", "pipeline.rtume", "pipeline.keypoint_samplers",
+    "parallel", "parallel.mesh", "parallel.points_sharded", "ops.gridnn",
+    "ops.hashing", "ops.precision", "utils.cache", "utils.profiling"])
 def test_every_ported_module_is_there(mod):
     assert f"umeregrobust_tpu_torch.{mod}" in MODULES
 
@@ -209,6 +208,11 @@ def test_load_library_raises_without_nvcc(no_nvcc):
         torch.zeros(4, 3, device=d), torch.zeros(8, 3, device=d),
         torch.zeros(8, 128, device=d),
         torch.ones(8, dtype=torch.bool, device=d), 1.0, 4),
+    lambda d: cuda_ume.ume_moments_fused(
+        torch.zeros(4, 3, device=d), torch.zeros(8, 3, device=d),
+        torch.zeros(8, 128, device=d),
+        torch.ones(8, dtype=torch.bool, device=d), 1.0, 4,
+        caps=torch.full((4,), 2, dtype=torch.int32, device=d)),
     lambda d: cuda_corr.corr_scores_fused(
         torch.zeros(2, 8, 4, device=d), torch.zeros(8, 32, device=d),
         torch.zeros(16, 4, device=d), torch.zeros(16, 32, device=d)),
@@ -235,10 +239,10 @@ def test_load_library_raises_without_nvcc(no_nvcc):
     lambda d: cuda_conv.sparse_conv_wgrad(
         torch.zeros(8, 4, device=d), torch.zeros(8, 6, device=d),
         torch.zeros((27, 8), dtype=torch.int64, device=d)),
-], ids=["nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
-        "gather_padded", "sparse_conv_rowtile", "sparse_conv_tapsplit",
-        "sparse_conv", "conv_entries", "gather_rows_backward",
-        "sparse_conv_wgrad"])
+], ids=["nn1_argmin", "ume_moments_fused", "ume_moments_fused_caps",
+        "corr_scores_fused", "gather_rows", "gather_padded",
+        "sparse_conv_rowtile", "sparse_conv_tapsplit", "sparse_conv",
+        "conv_entries", "gather_rows_backward", "sparse_conv_wgrad"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
@@ -346,6 +350,19 @@ def test_pair_axis_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         call("meta")
     assert call("cpu").shape[0] == 2  # CPU tensors: plain version, per pair
+
+
+def test_make_mesh_refuses_to_fall_back_to_gloo():
+    # without CUDA the default mesh raises before any process group starts
+    import torch.distributed as dist
+
+    from umeregrobust_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert not dist.is_initialized()
 
 
 def test_batched_and_hungarian_entries_refuse_the_cpu_fallback():

@@ -525,6 +525,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
+    from umeregrobust_tpu_torch.utils.cache import ensure_compile_cache
+
+    ensure_compile_cache()
     args = parse_args(argv)
     np.random.seed(int(args.seed))
     print(f"Evaluate {args.dataset} benchmark: {args.benchmark}")

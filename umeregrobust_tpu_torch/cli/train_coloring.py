@@ -98,6 +98,9 @@ def train_config(args) -> TrainConfig:
 
 
 def main(argv=None) -> Trainer:
+    from umeregrobust_tpu_torch.utils.cache import ensure_compile_cache
+
+    ensure_compile_cache()
     args = parse_args(argv)
     rng = np.random.default_rng(int(args.random_seed))
     cfg = train_config(args)

@@ -48,6 +48,9 @@
 //    reads only the rows that were selected.
 //  - A warp stops sweeping once its count reaches max_nn, which the capped
 //    semantics make exact.
+//  - Per-keypoint caps (optional): a cloud sharded over its points gives
+//    each block's keypoint the cap left by the blocks before it; the warp
+//    reads its own once and uses it in place of max_nn.
 // Pair axis: a call serves B independent clouds of one shape (grid y of
 // both kernels, per-pair pointer offsets, a packed copy per pair). A
 // keypoint's warp does what it does at B = 1, so each pair's rows are
@@ -132,11 +135,16 @@ __device__ __forceinline__ void drain(const int* __restrict__ q,
   }
 }
 
+// kCaps: each keypoint's own cap from caps[] in place of max_nn; without
+// it the kernel is the one it was before caps existed (a cap read at run
+// time in the common path made it slower on the H100)
+template <bool kCaps>
 __global__ void __launch_bounds__(kWarps * 32)
 ume_moments_kernel(const float* __restrict__ kpts,
                    const float* __restrict__ packed,
                    const float* __restrict__ Z, float* __restrict__ out,
-                   int M, int N, int P, int C4, float r2, int max_nn) {
+                   int M, int N, int P, int C4, float r2, int max_nn,
+                   const int* __restrict__ caps) {
   __shared__ int queue[kWarps][kQueue];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -150,6 +158,9 @@ ume_moments_kernel(const float* __restrict__ kpts,
   const int ld4 = C4 / 4;
   const int col4 = blockIdx.z * (kCols / 4) + lane;  // this lane's float4
   int* q = queue[warp];
+  // this keypoint's cap: the caller's own when it gives caps (a block of a
+  // cloud sharded over its points), else max_nn; uniform over the warp
+  const int cap = kCaps ? caps[pair * M + k] : max_nn;
   const float kx = kpts[3 * (int64_t)k];
   const float ky = kpts[3 * (int64_t)k + 1];
   const float kz = kpts[3 * (int64_t)k + 2];
@@ -159,7 +170,7 @@ ume_moments_kernel(const float* __restrict__ kpts,
   const float4* Z4 = reinterpret_cast<const float4*>(Z) + col4;
   const unsigned below = (1u << lane) - 1u;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  int count = 0;  // indices queued so far, <= max_nn (uniform over the warp)
+  int count = 0;  // indices queued so far, <= cap (uniform over the warp)
   int head = 0;   // indices drained so far
 
   float cx[kUnroll], cy[kUnroll], cz[kUnroll];
@@ -170,7 +181,7 @@ ume_moments_kernel(const float* __restrict__ kpts,
     cy[u] = __ldg(py + u * 32);
     cz[u] = __ldg(pz + u * 32);
   }
-  for (int base = 0; base < N && count < max_nn; base += kChunk) {
+  for (int base = 0; base < N && count < cap; base += kChunk) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       nx[u] = __ldg(px + base + kChunk + u * 32);
@@ -188,11 +199,11 @@ ume_moments_kernel(const float* __restrict__ kpts,
     if (any != 0u) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (bits[u] == 0u || count >= max_nn) continue;
+        if (bits[u] == 0u || count >= cap) continue;
         const int pos = count + __popc(bits[u] & below);
-        if (((bits[u] >> lane) & 1u) && pos < max_nn)
+        if (((bits[u] >> lane) & 1u) && pos < cap)
           q[pos & (kQueue - 1)] = base + u * 32 + lane;
-        count = min(count + __popc(bits[u]), max_nn);
+        count = min(count + __popc(bits[u]), cap);
         __syncwarp();
         while (count - head >= kBatch) {
           drain<true>(q, Z4, ld4, head, kBatch, acc);
@@ -222,11 +233,13 @@ UMR_EXPORT int umr_ume_moments_scratch(int N) { return 3 * packed_points(N); }
 // B pairs: kpts (B,M,3), pts (B,N,3), Z (B,N,C4) f32, mask (B,N) bool ->
 // out (B,M,C4) f32; scratch: B x umr_ume_moments_scratch(N) floats,
 // overwritten. C4 must be a positive multiple of 128 (the wrapper pads).
+// caps: null (every keypoint capped at max_nn) or (B,M) int32, keypoint
+// k's own cap in place of max_nn (0: a zero row).
 UMR_EXPORT int umr_ume_moments(const float* kpts, const float* pts,
                                const float* Z, const uint8_t* mask,
                                float* out, float* scratch, int B, int M,
                                int N, int C4, float r2, int max_nn,
-                               void* stream) {
+                               const int* caps, void* stream) {
   if (C4 < kCols || C4 % kCols != 0 || C4 / kCols > 65535 || B < 1 ||
       B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -235,7 +248,12 @@ UMR_EXPORT int umr_ume_moments(const float* kpts, const float* pts,
   ume_pack_points_kernel<<<dim3((P + 255) / 256, B), 256, 0, st>>>(
       pts, mask, scratch, N, P);
   const int blocks = (M + kWarps - 1) / kWarps;
-  ume_moments_kernel<<<dim3(blocks, B, C4 / kCols), kWarps * 32, 0, st>>>(
-      kpts, scratch, Z, out, M, N, P, C4, r2, max_nn);
+  const dim3 grid(blocks, B, C4 / kCols);
+  if (caps != nullptr)
+    ume_moments_kernel<true><<<grid, kWarps * 32, 0, st>>>(
+        kpts, scratch, Z, out, M, N, P, C4, r2, max_nn, caps);
+  else
+    ume_moments_kernel<false><<<grid, kWarps * 32, 0, st>>>(
+        kpts, scratch, Z, out, M, N, P, C4, r2, max_nn, caps);
   return static_cast<int>(cudaGetLastError());
 }

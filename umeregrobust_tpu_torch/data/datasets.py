@@ -1,5 +1,6 @@
 """KITTI / nuScenes registration pair datasets (the port's own copy of
-umeregrobust_tpu/data/datasets.py; host-side numpy + scipy).
+umeregrobust_tpu/data/datasets.py; host-side numpy + scipy, voxels from
+the native quantizer as in the JAX package).
 
 Every item is the reference's 9-tuple of numpy arrays
 (kitti_dataset.py:317-542, nuscenes_dataset.py:315-549):
@@ -30,7 +31,8 @@ from umeregrobust_tpu_torch.data.matching_host import (
     mutual_matches, one_side_matches)
 from umeregrobust_tpu_torch.data.registry import load_registry
 from umeregrobust_tpu_torch.data.sem import SEMConfig, equalize_sampling
-from umeregrobust_tpu_torch.ops.voxel import coords_to_grid_pts_np, quantize_np
+from umeregrobust_tpu_torch.native import quantize as quantize_np
+from umeregrobust_tpu_torch.ops.voxel import coords_to_grid_pts_np
 
 __all__ = ["SemanticKITTIDataset", "NuscenesDataset", "load_pair_pickle",
            "save_pair_pickle", "PAIR_KEYS"]

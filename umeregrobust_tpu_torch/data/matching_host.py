@@ -1,17 +1,18 @@
 """Host-side ground-truth correspondences for dataset items (the port's
-own copy of umeregrobust_tpu/data/matching_host.py; numpy + scipy): one-
-sided and mutual nearest-neighbour matches under the ground-truth
-transform (reference utils/general_utils.py:38-59).
+own copy of umeregrobust_tpu/data/matching_host.py): one-sided and mutual
+nearest-neighbour matches under the ground-truth transform (reference
+utils/general_utils.py:38-59).
 
-The nearest neighbour comes from scipy's cKDTree (the JAX package's
-native grid hash returns the same nearest point; the two can differ only
-on exact distance ties and on float32-against-float64 distances at the
-radius).
+The nearest neighbour comes from the native grid hash
+(umeregrobust_tpu_torch/native, C++, float32), as in the JAX package, so
+both give the same matches; scipy's cKDTree stands in where the native
+library cannot be built.
 """
 from __future__ import annotations
 
 import numpy as np
-from scipy.spatial import cKDTree
+
+from umeregrobust_tpu_torch import native
 
 __all__ = ["nn_radius", "one_side_matches", "mutual_matches"]
 
@@ -20,12 +21,7 @@ def nn_radius(q: np.ndarray, p: np.ndarray, radius: float
               ) -> tuple[np.ndarray, np.ndarray]:
     """(idx (Nq,) int64, dist (Nq,) float32): each query's nearest point of
     p within radius (inclusive), idx -1 and dist -1 where there is none."""
-    q = np.ascontiguousarray(q, np.float32)
-    p = np.ascontiguousarray(p, np.float32)
-    dist, idx = cKDTree(p).query(q, k=1)
-    idx = np.where(dist <= radius, idx, -1).astype(np.int64)
-    dist = np.where(idx >= 0, dist, -1.0).astype(np.float32)
-    return idx, dist
+    return native.nn_radius(q, p, radius)
 
 
 def one_side_matches(

@@ -1,5 +1,6 @@
 """SEM -- Sampling Equalizer Module (the port's own copy of
-umeregrobust_tpu/data/sem.py; numpy + scipy).
+umeregrobust_tpu/data/sem.py; numpy + scipy, nearest neighbours from the
+native grid hash through data/matching_host as in the JAX package).
 
 Replaces the reference's NKSR surface resampling (a reconstructed mesh
 sampled at 125k points, labels copied back from the raw scan within 3 m,

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "umr_nn1_argmin": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                        _INT, _VP],
     "umr_ume_moments": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                        _INT, _FLT, _INT, _VP],
+                        _INT, _FLT, _INT, _VP, _VP],
     "umr_ume_moments_scratch": [_INT],
     "umr_corr_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                         _INT, _INT, _INT, _FLT, _FLT, _VP],

@@ -4,7 +4,9 @@ umeregrobust_tpu/ops/pallas_ume.py).
 
 out[k] = sum_n w[k, n] * Z[n], w[k, n] = 1 iff point n is valid, lies
 within `radius` of keypoint k (direct-difference distance), and is among
-the first `max_nn` such points in index order. On a CPU tensor the
+the first `max_nn` such points in index order, or the first caps[k] where
+the caller gives per-keypoint caps (a points block of a sharded cloud,
+parallel/points_sharded). On a CPU tensor the
 wrapper runs the plain version; on a CUDA tensor it launches the kernel
 (which first packs the coordinates into a scratch buffer that the wrapper
 allocates) or raises. The kernel works on slices of 128 columns (4C at C
@@ -13,6 +15,8 @@ run as one grid. Columns are independent, so every real column keeps the
 bits it has at any width.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -38,8 +42,10 @@ def _r2(radius: float) -> torch.Tensor:
 
 def ume_moments_plain(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
                       p_mask: torch.Tensor, radius: float, max_nn: int,
-                      chunk: int = 256) -> torch.Tensor:
-    """([B,] M, 4C) fp32 capped moments, chunked over keypoints."""
+                      chunk: int = 256,
+                      caps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """([B,] M, 4C) fp32 capped moments, chunked over keypoints; caps
+    ([B,] M) int32, when given, cap each keypoint in place of max_nn."""
     r2 = _r2(radius).to(pts.device)
     pts = pts.to(torch.float32)
     Z = Z.to(torch.float32)
@@ -48,7 +54,8 @@ def ume_moments_plain(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
         ok = (sqdist3(kpts[..., s:s + chunk, :].to(torch.float32), pts)
               <= r2) & p_mask[..., None, :]
         cum = torch.cumsum(ok.to(torch.int32), dim=-1)
-        w = (ok & (cum <= max_nn)).to(torch.float32)
+        cap = max_nn if caps is None else caps[..., s:s + chunk, None]
+        w = (ok & (cum <= cap)).to(torch.float32)
         out.append(w @ Z)
     if not out:
         return torch.zeros(kpts.shape[:-2] + (0, Z.shape[-1]),
@@ -57,15 +64,18 @@ def ume_moments_plain(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
 
 
 def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
-                      p_mask: torch.Tensor, radius: float,
-                      max_nn: int) -> torch.Tensor:
+                      p_mask: torch.Tensor, radius: float, max_nn: int,
+                      caps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Capped UME moments ([B,] M, W) f32 for any width W (4C). kpts
     ([B,] M, 3) f32, pts ([B,] N, 3) f32, Z ([B,] N, W) f32, p_mask ([B,]
     N) bool; with a leading pair axis B, pair b's keypoints see pair b's
-    points, all pairs and column slices in one launch."""
+    points, all pairs and column slices in one launch. caps ([B,] M)
+    int32, when given, is each keypoint's cap in place of max_nn (0: a
+    zero row); without it the kernel runs as it always has."""
     global LAUNCHES
     if kpts.device.type == "cpu":
-        return ume_moments_plain(kpts, pts, Z, p_mask, radius, max_nn)
+        return ume_moments_plain(kpts, pts, Z, p_mask, radius, max_nn,
+                                 caps=caps)
     dev = kpts.device
     lib = _build.load_library()  # raises if it cannot be built
     if dev.type != "cuda":
@@ -80,6 +90,8 @@ def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
     _build.require(pts, "pts", torch.float32, lead + (None, 3), dev)
     _build.require(Z, "Z", torch.float32, lead + (N, None), dev)
     _build.require(p_mask, "p_mask", torch.bool, lead + (N,), dev)
+    if caps is not None:
+        _build.require(caps, "caps", torch.int32, lead + (M,), dev)
     W = Z.shape[-1]
     Wp = padded_width(W)
     if M == 0 or B == 0 or W == 0:
@@ -93,7 +105,8 @@ def ume_moments_fused(kpts: torch.Tensor, pts: torch.Tensor, Z: torch.Tensor,
         kpts.data_ptr(), pts.data_ptr(), Z.data_ptr(), p_mask.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), B, M, N, Wp,
         float(radius) ** 2,  # rounded to fp32 in the call, as _r2 rounds it
-        int(max_nn), _build.stream_of(dev))
+        int(max_nn), None if caps is None else caps.data_ptr(),
+        _build.stream_of(dev))
     _build.check(lib, code, "ume_moments_fused")
     LAUNCHES += 1
     return out if Wp == W else out[..., :W].contiguous()

@@ -18,34 +18,19 @@ raise when no CUDA device exists and device="cpu" was not passed.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from umeregrobust_tpu_torch.devices import resolve_device, to_device
 from umeregrobust_tpu_torch.models.resunet import ResUNet, build_unet_geometry
+from umeregrobust_tpu_torch.ops.precision import tf32_off
 from umeregrobust_tpu_torch.pipeline.registration import (
     RegistrationConfig, check_supported, copy_features_to_raw,
     copy_features_to_raw_grid, register_pair_features_batched)
 
 __all__ = ["register_pair_e2e", "register_pairs_batched", "pair_features_e2e",
            "pair_features_batched", "resolve_device"]
-
-
-@contextlib.contextmanager
-def _tf32_off():
-    """TF32 off for matmuls and convolutions (full fp32, the JAX numerics)
-    while the call runs; the caller's settings come back afterwards."""
-    mm, cd = (torch.backends.cuda.matmul.allow_tf32,
-              torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
 
 
 def _feature_stage(model, caps, compute_dtype, src_coords, src_grid, src_mask,
@@ -139,7 +124,7 @@ def pair_features_batched(
     pair = _pair_inputs(dev, src_coords, src_grid, src_mask, tgt_coords,
                         tgt_grid, tgt_mask, corr_src_pts, corr_src_mask,
                         corr_tgt_pts, corr_tgt_mask, add_axis=False)
-    with torch.no_grad(), _tf32_off():
+    with torch.no_grad(), tf32_off():
         return _feature_stage(model, caps, compute_dtype, *pair)
 
 
@@ -234,7 +219,7 @@ def register_pairs_batched(
            to_device(raw_tgt_mask, dev, torch.bool)]
     (_, src_grid, src_mask, _, tgt_grid, tgt_mask, corr_src_pts,
      corr_src_mask, corr_tgt_pts, corr_tgt_mask) = pair
-    with torch.no_grad(), _tf32_off():
+    with torch.no_grad(), tf32_off():
         src_feat, tgt_feat, cs_f, ct_f = _feature_stage(
             model, caps, compute_dtype, *pair, cfg=cfg)
         res = register_pair_features_batched(  # stages "hypotheses", "icp"

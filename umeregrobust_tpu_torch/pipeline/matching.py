@@ -10,6 +10,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from umeregrobust_tpu_torch import native
 from umeregrobust_tpu_torch.core.ume import projection_packed
 from umeregrobust_tpu_torch.pipeline.sampling import weighted_sample_batched
 
@@ -68,11 +69,10 @@ def probabilistic_match_filter_batched(
 
 def hungarian_match(D: np.ndarray) -> np.ndarray:
     """Host-side optimal assignment over a distance matrix, returning (K, 2)
-    int64 [src, tgt] pairs, K = min(M, N), rows ascending (reference
-    evaluate.py:216-222). scipy's linear_sum_assignment: an exact solver of
-    the assignment the JAX package's native Jonker-Volgenant code solves
-    (its own fallback is the same scipy call)."""
-    from scipy.optimize import linear_sum_assignment
-
-    r, c = linear_sum_assignment(np.asarray(D, np.float64))
+    int64 [src, tgt] pairs, K = min(M, N) (reference evaluate.py:216-222):
+    the native Jonker-Volgenant solver (umeregrobust_tpu_torch/native), the
+    JAX package's own, so tied costs give the same assignment in both;
+    scipy's linear_sum_assignment where the native library cannot be
+    built."""
+    r, c = native.hungarian(np.asarray(D))
     return np.stack([r, c], axis=1).astype(np.int64)

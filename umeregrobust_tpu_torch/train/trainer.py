@@ -16,7 +16,9 @@ corrections, AdamW's decay decoupled).
 A step whose gradients are not all finite leaves the parameters, the
 optimizer state (its step count too) and the BN state as they were, and
 reports nonfinite_grad = 1. Everything runs on the model's device (the
-card unless device="cpu"), with TF32 off.
+card unless device="cpu"), with TF32 off. With a mesh
+(parallel.make_mesh) the step is data parallel over its 'dp' dimension
+(make_train_step).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from umeregrobust_tpu_torch.devices import resolve_device, to_device
 from umeregrobust_tpu_torch.losses import (
@@ -37,14 +40,15 @@ from umeregrobust_tpu_torch.models.resunet import (
     ARCHS, ArchSpec, ResUNet, build_unet_geometry, init_resunet)
 from umeregrobust_tpu_torch.models.weights import (
     params_from_jax, params_to_jax)
-from umeregrobust_tpu_torch.pipeline.e2e import _tf32_off
+from umeregrobust_tpu_torch.ops.precision import tf32_off
+from umeregrobust_tpu_torch.parallel.mesh import replicate, shard_batch
 from umeregrobust_tpu_torch.pipeline.train_keypoints import (
     generate_training_umes)
 from umeregrobust_tpu_torch.train.checkpoint import save_checkpoint
 from umeregrobust_tpu_torch.train.optim import OptaxAdam
 
 __all__ = ["TrainConfig", "Trainer", "make_train_step", "make_optimizer",
-           "batch_to_device"]
+           "batch_to_device", "batch_losses", "pair_losses"]
 
 
 @dataclass(frozen=True)
@@ -136,6 +140,15 @@ def batch_losses(model: ResUNet, batch: Dict[str, torch.Tensor],
                  cfg: TrainConfig, caps: Tuple[int, ...], train: bool):
     """(mean total loss, metrics averaged over the pairs, new BN state or
     None): every loss of every pair of the batch."""
+    total, metrics, state = pair_losses(model, batch, cfg, caps, train)
+    return (torch.mean(total),
+            {k: torch.mean(v.detach()) for k, v in metrics.items()}, state)
+
+
+def pair_losses(model: ResUNet, batch: Dict[str, torch.Tensor],
+                cfg: TrainConfig, caps: Tuple[int, ...], train: bool):
+    """(total loss (B,), metrics {name: (B,)}, new BN state or None): each
+    pair's losses and metrics."""
     src_feat, tgt_feat, state = cloud_features(model, batch, caps,
                                                _dtype(cfg), train)
     pw = pointwise_infonce(src_feat, batch["src_pts"], tgt_feat,
@@ -177,8 +190,7 @@ def batch_losses(model: ResUNet, batch: Dict[str, torch.Tensor],
                 torch.sum(vm, -1), min=1.0)
             total = total + cfg.reg_loss_weight * reg_l
     metrics["total_loss"] = total
-    return (torch.mean(total),
-            {k: torch.mean(v.detach()) for k, v in metrics.items()}, state)
+    return total, metrics, state
 
 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
@@ -188,35 +200,80 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
                      weight_decay=cfg.weight_decay)
 
 
+def _dp_mean_(tensors, group) -> None:
+    """Average tensors in place over the ranks of `group`: one flattened
+    bucket, summed, then divided by the group's size (with one rank: the
+    same bits)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    o = 0
+    for t in tensors:
+        t.copy_(flat[o:o + t.numel()].view_as(t))
+        o += t.numel()
+
+
+def _dp_pairs(metrics: Dict[str, torch.Tensor], group):
+    """Each metric's per-pair values of every rank of `group`, in rank
+    order (B / dp pairs a rank -> B pairs)."""
+    names = sorted(metrics)
+    mine = torch.stack([metrics[k].detach().to(torch.float32)
+                        for k in names])
+    parts = [torch.empty_like(mine)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine.contiguous(), group=group)
+    every = torch.cat(parts, dim=1)
+    return {k: every[i] for i, k in enumerate(names)}
+
+
 def make_train_step(cfg: TrainConfig, model: ResUNet,
-                    optimizer: torch.optim.Optimizer):
+                    optimizer: torch.optim.Optimizer, mesh=None):
     """(train_step, eval_step), each batch (tensors on the model's device,
     `batch_to_device`) -> metrics (floats). train_step updates the model's
     parameters and BN buffers and the optimizer in place, or nothing when
-    a gradient is not finite."""
+    a gradient is not finite.
+
+    With a mesh (parallel.make_mesh), data parallel over its 'dp'
+    dimension: each rank passes its B / dp pairs (parallel.shard_batch)
+    and holds the same parameters; the gradients are averaged over 'dp'
+    (one flattened bucket), the finite check reads the averaged gradients
+    (every rank steps or skips together), the new BN running state is
+    averaged over 'dp', and the metrics are the means over all B pairs.
+    The step equals the one-process step on the whole batch up to the
+    fp32 order of the sums (bit for bit with one rank)."""
     caps = _capacities(cfg, model.arch)
     params = [p for p in model.parameters()]
+    dp = None if mesh is None else mesh.get_group("dp")
+
+    def means(metrics):
+        if dp is not None:
+            metrics = _dp_pairs(metrics, dp)
+        return {k: float(torch.mean(v.detach())) for k, v in metrics.items()}
 
     def train_step(batch):
         optimizer.zero_grad(set_to_none=False)
-        with _tf32_off():
-            loss, metrics, state = batch_losses(model, batch, cfg, caps,
+        with tf32_off():
+            total, metrics, state = pair_losses(model, batch, cfg, caps,
                                                 train=True)
-            loss.backward()
-            finite = bool(torch.stack([torch.isfinite(p.grad).all()
-                                       for p in params
-                                       if p.grad is not None]).all())
+            torch.mean(total).backward()
+            grads = [p.grad for p in params if p.grad is not None]
+            if dp is not None:
+                with torch.no_grad():
+                    _dp_mean_(grads, dp)
+                    _dp_mean_(list(state.values()), dp)
+            finite = bool(torch.stack([torch.isfinite(g).all()
+                                       for g in grads]).all())
             if finite:
                 optimizer.step()
                 model.load_bn_state(state)
-        out = {k: float(v) for k, v in metrics.items()}
+        out = means(metrics)
         out["nonfinite_grad"] = 0.0 if finite else 1.0
         return out
 
     def eval_step(batch):
-        with torch.no_grad(), _tf32_off():
-            _, metrics, _ = batch_losses(model, batch, cfg, caps, train=False)
-        return {k: float(v) for k, v in metrics.items()}
+        with torch.no_grad(), tf32_off():
+            _, metrics, _ = pair_losses(model, batch, cfg, caps, train=False)
+        return means(metrics)
 
     return train_step, eval_step
 
@@ -233,10 +290,11 @@ class Trainer:
     )
 
     def __init__(self, cfg: TrainConfig, out_dir: str, seed: int = 0,
-                 device="cuda", model: Optional[ResUNet] = None):
+                 device="cuda", model: Optional[ResUNet] = None, mesh=None):
         self.cfg = cfg
         self.out_dir = out_dir
         self.device = resolve_device(device)
+        self.mesh = mesh
         os.makedirs(out_dir, exist_ok=True)
         self.arch = ARCHS[cfg.arch]
         if model is None:
@@ -245,9 +303,12 @@ class Trainer:
                 generator=torch.Generator(device=self.device).manual_seed(
                     seed), device=self.device)
         self.model = model
+        if mesh is not None:  # every rank starts from rank 0's model
+            replicated = replicate(mesh, dict(model.state_dict()))
+            model.load_state_dict(replicated)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.train_step, self.eval_step = make_train_step(
-            cfg, self.model, self.optimizer)
+            cfg, self.model, self.optimizer, mesh=mesh)
         self.epoch = 0
         self.best = {k: (np.inf if red is min else -np.inf)
                      for k, red in self.BEST_KEYS}
@@ -282,7 +343,7 @@ class Trainer:
             calc_inlier_ratio)
 
         cfg = self.cfg
-        with torch.no_grad(), _tf32_off():
+        with torch.no_grad(), tf32_off():
             sf, tf, _ = cloud_features(
                 self.model, batch, _capacities(cfg, self.arch),
                 _dtype(cfg), train=False)
@@ -302,6 +363,8 @@ class Trainer:
         acc: Dict[str, float] = {}
         n = 0
         for i, batch in enumerate(batches):
+            if self.mesh is not None:  # this rank's pairs of the batch
+                batch = shard_batch(self.mesh, batch)
             batch = batch_to_device(batch, self.device)
             m = self.train_step(batch) if train else self.eval_step(batch)
             if not train and self.cfg.calc_inlier_ratio_eval:
