@@ -50,7 +50,22 @@ Phases (any failure ends the run with a non-zero exit):
      indices >= N_in with N_out > N_in, Cin 1 / 3 / 320 / 384 / 768, Cout
      32 / 48 / 128 / 1024, int32 and int64), fp32 and bf16, both kernels, two
      launches bit-identical, the entry lists equal to their plain twin;
-     then the pair axis at B = 4 (the four regime pairs, phase_pair_axis):
+     then the grouped k3 conv kernel sparse_conv_grouped
+     (phase_grouped_layers): every grouped layer of a ResUNetSmall2
+     one-pair forward (18; grouped_layer lines: against
+     sparse_conv_grouped_plain on the card within 1e-4 (bf16) / 1e-5
+     (fp32) x max |out|, two launches bit-identical, the same bits on
+     row tiles of 128, 64 and 32 rows, the output and bf16 copies
+     between guards, device time alone at bf16 and fp32, one call
+     an event pair, the plain version's time, the bound, the library
+     route (a gather of the 27 tap rows + one torch.mm) and the per-tap
+     kernel on the same map), the same layers of the four regime pairs as
+     one B = 4 forward (each pair's rows the bits of its one-pair call),
+     and forced cases (grouped_forced: Cin 1 / 16 / 20 / 24 / 32 / 96 /
+     256 / 768, Cout 5 / 7 / 32 / 48 / 64 / 256, N_out < N_in and > N_in,
+     an unused tile and group, patho rows, the transposed slot order,
+     int32 and int64 centres, bias); then the pair axis at B = 4 (the
+     four regime pairs, phase_pair_axis):
      nn1_argmin, ume_moments_fused and corr_scores_fused (four stage
      shapes) with a leading pair axis, and gather_rows over the flattened
      table, each pair bit-identical to its B = 1 call, the batch against
@@ -93,7 +108,11 @@ Phases (any failure ends the run with a non-zero exit):
      products against one torch.bmm, bit for bit); the grouped k3 conv
      against the parent tree's form (phase_grouped_ab: parent, change,
      change, parent, twice; pairs/s one at a time and as one batch, feature
-     stage ms, features compared bit for bit); ResUNet (seeded random
+     stage ms, every pair's NP / SP verdict the same in every round, the
+     features at fp32 operands within 1e-3 x max of the parent's; at bf16
+     their difference and bit-equality reported beside the per-tap
+     kernels' difference from the parent's form);
+     ResUNet (seeded random
      parameters, full widths) on the nominal and rotheavy pairs through
      pair_features_batched: each pair's features within 1e-4 of its own
      call (level 1 fills), the run's launches counted as their own path
@@ -145,7 +164,8 @@ Phases (any failure ends the run with a non-zero exit):
      batch; bit for bit against the plain version on the CPU, two
      launches identical, its row segments equal to row_segments_plain's),
      gather_rows and its backward at the grouped convs' window gathers of
-     a B = 8 training forward (window_gathers: the conv with the most
+     a B = 8 training forward and backward (window_gathers: the backward's
+     recompute gathers them; the conv with the most
      table rows and the widest, bit for bit; the forward beside
      index_select and its bound), and at the UME shape and both window
      shapes the backward's time device alone, each of its launches',
@@ -166,7 +186,9 @@ Phases (any failure ends the run with a non-zero exit):
      8, 16384 voxels a cloud, 512 matches, 256 UME keypoints, max_nn 750,
      min_nn 300, r 5, bf16) on HDL-64 density pairs: step ms, peak
      memory, losses, nonfinite_grad and launches a step, then one step
-     under torch.profiler (device busy ms, idle share, the top ops); one
+     under torch.profiler (device busy ms, idle share, the top ops), then
+     ms a step and peak memory against the parent tree's grouped conv
+     (train_grouped_ab: parent, change, change, parent); one
      pair card vs CPU at fp32 (losses 1e-3 relative, every gradient leaf
      elementwise within 1e-4 of its max |grad|); (c) ResUNet (seeded
      random parameters, k7 stem, k5 layers) at B = 2, the three conv
@@ -193,7 +215,8 @@ Phases (any failure ends the run with a non-zero exit):
      scipy (quantize and nn_radius on the scan, a 2500 x 2500
      Hungarian);
   6. profile (only with --profile): the same pairs, seeds and config
-     again under torch.profiler, with the grouped model, the
+     again under torch.profiler, with the grouped model (and with the
+     parent tree's grouped conv, "grouped_parent"), the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
      last two also with the old conv kernels (OldConvKernels): per
      pipeline stage (register_pair_e2e's
@@ -202,7 +225,8 @@ Phases (any failure ends the run with a non-zero exit):
      as an estimate combining two runs, of phase 5's unprofiled wall;
      kernel launches and the top ops by device time; then phase 5d's
      two batches through register_pairs_batched (models "batched", B = 4,
-     and "batched_x2", B = 8; per pair).
+     and "batched_x2", B = 8; per pair), again with the parent tree's
+     grouped conv ("batched_parent", "batched_x2_parent").
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -240,6 +264,12 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                              "tools/exp_gather2.py:107"),
     "sparse_conv_wgrad": ("umeregrobust_tpu_torch/csrc/sparse_conv_taps.cu",
                           "tools/exp_pallas_gather.py:74"),
+    # a hand kernel for a plain-XLA part (the JAX default's grouped k3 conv,
+    # a lax.scan): it takes the gather kernel's window gathers into its
+    # products
+    "sparse_conv_grouped": ("umeregrobust_tpu_torch/csrc/"
+                            "sparse_conv_grouped.cu",
+                            "tools/exp_gather2.py:107"),
 }
 FORWARD_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
                    "gather_rows", "sparse_conv_tapsplit", "sparse_conv_rowtile")
@@ -461,25 +491,26 @@ def ptxas_report(source="sparse_conv_taps.cu"):
 def launch_counts():
     """Every kernel wrapper's launch count."""
     from umeregrobust_tpu_torch.ops import (
-        cuda_conv, cuda_corr, cuda_gather, cuda_nn, cuda_ume)
+        cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn, cuda_ume)
 
     return {"nn1_argmin": cuda_nn.LAUNCHES,
             "ume_moments_fused": cuda_ume.LAUNCHES,
             "corr_scores_fused": cuda_corr.LAUNCHES,
             "gather_rows": cuda_gather.LAUNCHES,
             "gather_rows_backward": cuda_gather.LAUNCHES_BACKWARD,
-            **cuda_conv.LAUNCHES}
+            **cuda_conv.LAUNCHES, **cuda_grouped.LAUNCHES}
 
 
 def reset_launch_counts():
     from umeregrobust_tpu_torch.ops import (
-        cuda_conv, cuda_corr, cuda_gather, cuda_nn, cuda_ume)
+        cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn, cuda_ume)
 
     for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather):
         m.LAUNCHES = 0
     cuda_gather.LAUNCHES_BACKWARD = 0
-    for k in cuda_conv.LAUNCHES:
-        cuda_conv.LAUNCHES[k] = 0
+    for d in (cuda_conv.LAUNCHES, cuda_grouped.LAUNCHES):
+        for k in d:
+            d[k] = 0
 
 
 UME_QUEUE = 128  # ume_moments.cu's per-warp hit queue (kQueue)
@@ -1619,6 +1650,345 @@ def phase_conv_layers(dev, pair, weights):
     return out
 
 
+def capture_grouped_layers(model, run):
+    """Every grouped k3 conv of one feature stage of `model`, run by
+    `run()`: (parameter name, features, weights, GroupedMap, pairs, the
+    output level's mask) in launch order (the conv itself runs as it
+    would; a layer named conv{k}, block{k}.*, conv{k}_tr or block{k}_tr.*
+    writes level k - 1)."""
+    import re
+
+    import torch
+
+    import umeregrobust_tpu_torch.models.resunet as resunet
+
+    names = {p.data_ptr(): n[:-2] for n, p in model.named_parameters()}
+    got, levels = [], []
+    conv, fwd = resunet.sparse_conv_grouped, resunet.ResUNet.forward
+
+    def forward(self, geom, *a, **kw):
+        levels[:] = [lv.mask for lv in geom["levels"]]
+        return fwd(self, geom, *a, **kw)
+
+    def record(feats, w, gmap, bias=None, compute_dtype=torch.float32,
+               pairs=1):
+        name = names.get(w.data_ptr(), "?")
+        got.append((name, feats.to(torch.float32).contiguous(),
+                    w.detach().contiguous(), gmap, pairs,
+                    levels[int(re.search(r"\d+", name).group()) - 1]))
+        return conv(feats, w, gmap, bias=bias, compute_dtype=compute_dtype,
+                    pairs=pairs)
+
+    resunet.sparse_conv_grouped, resunet.ResUNet.forward = record, forward
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        resunet.sparse_conv_grouped, resunet.ResUNet.forward = conv, fwd
+    torch.cuda.synchronize()
+    return got
+
+
+def grouped_bound(f, w, gmap):
+    """(bound ms, bound_by, windows used, input rows read) of one grouped
+    conv at bf16 operands. Operations: 2 x 3 Cin x Cout a window that some
+    slot uses; bytes: the bf16 input rows some slot reads, the map
+    (centres, masks, patho), the bf16 weights and the fp32 output, each
+    once."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.sparse import ungroup_kernel_map
+
+    _, Cin, Cout = w.shape
+    N_in, N_out = f.shape[0], gmap.center.shape[1]
+    used = int((gmap.masks.any(1) | gmap.patho).sum())
+    nbr = ungroup_kernel_map(gmap)
+    rows_read = int(torch.unique(nbr[(nbr >= 0) & (nbr < N_in)]).numel())
+    map_bytes = sum(x.numel() * x.element_size()
+                    for x in (gmap.center, gmap.masks, gmap.patho))
+    n_bytes = (rows_read * Cin * 2 + map_bytes + 27 * Cin * Cout * 2
+               + N_out * Cout * 4)
+    bb, by = bound_ms(n_bytes, 2 * used * 3 * Cin * Cout, BF16_PEAK)
+    return bb, by, used, rows_read
+
+
+GROUPED_LIMITS = {"float32": 1e-5, "bfloat16": 1e-4}  # x max |plain|
+
+
+def grouped_tiles(f, w, gmap, bias=None):
+    """Whether the bf16 kernel gives the same bits on row tiles of 128, 64
+    and 32 rows (grouped_plan's choice forced each way)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+
+    plan, outs = cuda_grouped.grouped_plan, []
+    try:
+        for rows in (128, 64, 32):
+            cuda_grouped.grouped_plan = lambda *a, rows=rows: plan(
+                *a)._replace(tile_rows=rows)
+            outs.append(cuda_grouped.sparse_conv_grouped_kernel(
+                f, w, gmap, bias, torch.bfloat16))
+    finally:
+        cuda_grouped.grouped_plan = plan
+    return all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def grouped_check(f, w, gmap, bias=None):
+    """The grouped kernel against sparse_conv_grouped_plain on the card at
+    fp32 and bf16 operands (max abs error within GROUPED_LIMITS x max
+    |plain|; only the fp32 summation order differs), two launches
+    bit-identical, the first launch's output and bf16 copies between
+    guards that must stay unwritten (guarded_empty); with bf16 operands
+    also the same bits on every row tile (grouped_tiles)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.cuda_grouped import (
+        sparse_conv_grouped_kernel)
+    from umeregrobust_tpu_torch.ops.sparse import sparse_conv_grouped_plain
+
+    res = {}
+    for name, lim in GROUPED_LIMITS.items():
+        dt = getattr(torch, name)
+        ref = sparse_conv_grouped_plain(f, w, gmap, bias, dt)
+        scale = float(ref.abs().max())
+        with guarded_empty() as made:
+            a = sparse_conv_grouped_kernel(f, w, gmap, bias, dt)
+        b = sparse_conv_grouped_kernel(f, w, gmap, bias, dt)
+        torch.cuda.synchronize()
+        err = float((a - ref).abs().max())
+        twice, guards = bool(torch.equal(a, b)), guards_intact(made)
+        tiles = dt == torch.float32 or grouped_tiles(f, w, gmap, bias)
+        res[name] = dict(max_abs_err=err, limit=lim * scale, scale=scale,
+                         two_launches_identical=twice, guards_intact=guards,
+                         tiles_identical=tiles,
+                         ok=err <= lim * scale and twice and guards and tiles
+                         and bool(torch.isfinite(a).all()))
+        del made, a, b, ref
+    return res
+
+
+def grouped_forced_cases(dev):
+    """The grouped kernel on forced maps (random centres, masks and patho
+    rows with the map's invariant: masks[2] off where patho is set):
+    Cin 1 / 16 / 20 / 96 / 256 / 768, Cout 5 / 7 / 32 / 48 / 256, N_out <
+    N_in and N_out > N_in with centres past the table, a 128-row tile and
+    a group that no window uses, many patho rows, the transposed slot
+    order, int32 and int64 centres, with and without bias; each at fp32
+    and bf16 (grouped_check). Returns (cases, all passed)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.sparse import GroupedMap
+
+    rng = np.random.default_rng(17)
+
+    def case(n_in, n_out, cin, cout, idx, p=0.5, patho=0.05,
+             transposed=False, bias=False, edit=None):
+        center = rng.integers(0, n_in + 4, (9, n_out))
+        masks = rng.random((9, 3, n_out)) < p
+        pat = (rng.random((9, n_out)) < patho) & ~masks[:, 2]
+        if edit is not None:
+            edit(center, masks, pat)
+        gmap = GroupedMap(
+            center=torch.as_tensor(center, device=dev).to(idx),
+            masks=torch.as_tensor(masks, device=dev),
+            patho=torch.as_tensor(pat, device=dev),
+            worder=torch.tensor([2, 1, 0] if transposed else [0, 1, 2],
+                                device=dev))
+        f = torch.as_tensor(rng.standard_normal((n_in, cin)),
+                            dtype=torch.float32, device=dev)
+        w = torch.as_tensor(rng.standard_normal((27, cin, cout))
+                            / np.sqrt(27 * cin), dtype=torch.float32,
+                            device=dev)
+        b = (torch.as_tensor(rng.standard_normal(cout), dtype=torch.float32,
+                             device=dev) if bias else None)
+        return f, w, gmap, b
+
+    def unused(center, masks, pat):  # rows 128..255 use no window, and
+        masks[:, :, 128:256] = False  # group 4 none anywhere
+        pat[:, 128:256] = False
+        masks[4], pat[4] = False, False
+
+    def past_table(center, masks, pat):  # "no candidate" centres past a
+        center[:, ::3] = center.shape[1] + 2  # small table (N_out > N_in)
+
+    i32, i64 = torch.int32, torch.int64
+    cases = {
+        "cin1_cout32": case(3000, 3000, 1, 32, i64),
+        "cin20_cout7_nout_lt_nin": case(1000, 700, 20, 7, i32, bias=True),
+        "cin96_cout48_nout_gt_nin": case(500, 1300, 96, 48, i64,
+                                         edit=past_table),
+        "cin16_cout5_transposed": case(600, 900, 16, 5, i32,
+                                       transposed=True, bias=True),
+        "unused_tile_and_group": case(700, 700, 32, 64, i64, edit=unused),
+        "patho_rows": case(800, 800, 24, 32, i64, p=0.3, patho=0.6),
+        "cin768_cout48": case(400, 400, 768, 48, i32, p=0.2),
+        "cin256_cout256": case(512, 512, 256, 256, i64, bias=True),
+    }
+    res, ok_all = {}, True
+    for name, (f, w, gmap, b) in cases.items():
+        r = grouped_check(f, w, gmap, b)
+        ok_all &= all(v["ok"] for v in r.values())
+        res[name] = dict(shape=f"{w.shape[1]}->{w.shape[2]}, {f.shape[0]}->"
+                               f"{gmap.center.shape[1]} rows, "
+                               f"{str(gmap.center.dtype)[6:]} centres",
+                         **r)
+    return res, ok_all
+
+
+def pair_rows_identical(out_b, mask_b, outs1, masks1):
+    """Whether each pair's output rows of a B-pair call (output level mask
+    mask_b: the pairs' valid rows one prefix, in pair order) are the bits
+    of its one-pair call (mask masks1[i], a valid prefix)."""
+    import torch
+
+    start = 0
+    for o, m in zip(outs1, masks1):
+        n = int(m.sum())
+        if not (bool(m[:n].all()) and torch.equal(out_b[start:start + n],
+                                                  o[:n])):
+            return False
+        start += n
+    return int(mask_b.sum()) == start and bool(mask_b[:start].all())
+
+
+def grouped_layer_row(name, f, w, gmap):
+    """One grouped k3 conv of the one-pair forward at its real shape:
+    grouped_check, the kernel's device time alone (CUDA graph) and one
+    call an event pair, the fp32 path's device time, the plain version's
+    time, the bound, the library route (one gather of the 27 tap rows
+    into a zero-padded (N_out, 27 Cin) bf16 tensor, then one torch.mm;
+    timed only) and the per-tap kernel that choose_kernel routes the same
+    map to (ungroup_kernel_map), as a second yardstick."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv, cuda_grouped
+    from umeregrobust_tpu_torch.ops.cuda_grouped import (
+        sparse_conv_grouped_kernel as kern)
+    from umeregrobust_tpu_torch.ops.sparse import (
+        sparse_conv_grouped_plain, ungroup_kernel_map)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    _, Cin, Cout = w.shape
+    N_in, N_out = f.shape[0], gmap.center.shape[1]
+    chk = grouped_check(f, w, gmap)
+    bb, by, used, rows_read = grouped_bound(f, w, gmap)
+    nbr = ungroup_kernel_map(gmap)
+    tap_kind = cuda_conv.choose_kernel(N_out, Cout, 27)[0]
+    tap = getattr(cuda_conv, "sparse_conv_" + tap_kind)
+    row = dict(
+        layer=name, cin=Cin, cout=Cout, rows_in=N_in, rows_out=N_out,
+        windows_used=used, window_share=used / (9 * N_out),
+        rows_read=rows_read, max_abs_err=chk["bfloat16"]["max_abs_err"],
+        limit=chk["bfloat16"]["limit"],
+        max_abs_err_fp32=chk["float32"]["max_abs_err"],
+        limit_fp32=chk["float32"]["limit"],
+        two_launches_identical=all(v["two_launches_identical"]
+                                   for v in chk.values()),
+        tile_rows=cuda_grouped.grouped_plan(N_in, N_out, Cin, Cout,
+                                            bf).tile_rows,
+        tiles_identical=chk["bfloat16"]["tiles_identical"],
+        guards_intact=all(v["guards_intact"] for v in chk.values()),
+        ok=all(v["ok"] for v in chk.values()),
+        ms=time_ms(lambda: kern(f, w, gmap, None, bf), reps=10),
+        kernel_ms=graph_ms(lambda: kern(f, w, gmap, None, bf), reps=5,
+                           inner=10),
+        kernel_ms_fp32=graph_ms(lambda: kern(f, w, gmap, None, f32), reps=3,
+                                inner=5),
+        plain_ms=time_ms(lambda: sparse_conv_grouped_plain(
+            f, w, gmap, None, bf), reps=3, warmup=1),
+        bound_ms=bb, bound_by=by, per_tap_kernel=tap_kind,
+        per_tap_kernel_ms=graph_ms(lambda: tap(f, w, nbr, bf), reps=5,
+                                   inner=10))
+    hit = (nbr >= 0) & (nbr < N_in)
+    idx = torch.where(hit, nbr, N_in).T.contiguous()  # (N_out, 27)
+    wb = w.reshape(27 * Cin, Cout).to(bf)
+
+    def library():
+        fp = torch.nn.functional.pad(f.to(bf), (0, 0, 0, 1))
+        return torch.mm(fp[idx].reshape(N_out, 27 * Cin), wb)
+
+    if N_out * 27 * Cin * 2 > IM2COL_LIMIT:
+        row.update(library_ms=None, library_kernel_ms=None)
+    else:
+        row.update(library_ms=time_ms(library, reps=10),
+                   library_kernel_ms=graph_ms(library, reps=5, inner=10))
+    return row
+
+
+def phase_grouped_layers(dev, pairs, weights):
+    """Every grouped k3 conv of a ResUNetSmall2 one-pair forward (the
+    in-repo weights, the reduced point) on the nominal pair, one row each
+    (grouped_layer_row), with their sums; the same layers of the four
+    regime pairs as one B = 4 forward, each pair's rows against its own
+    one-pair call (pair_rows_identical) and the kernel's device time at
+    B = 4 beside the B = 1 calls' and its bound; the forced cases."""
+    import torch
+
+    from umeregrobust_tpu_torch.data.suite import REDUCED
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.ops.cuda_grouped import (
+        sparse_conv_grouped_kernel as kern)
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        pair_features_batched, pair_features_e2e)
+
+    bf = torch.bfloat16
+    caps = REDUCED["caps"]
+    model = load_model(weights, ARCHS["ResUNetSmall2"], device=dev)
+    layers = capture_grouped_layers(model, lambda: pair_features_e2e(
+        model, caps, *pair_args(pairs[0]), device=dev))
+    rows = []
+    for name, f, w, gmap, _, _ in layers:
+        rows.append(grouped_layer_row(name, f, w, gmap))
+        emit({"phase": "grouped_layer", "model": "ResUNetSmall2", **rows[-1]})
+    del layers
+    batch = capture_grouped_layers(model, lambda: pair_features_batched(
+        model, caps, *stacked_args(pairs), device=dev))
+    ones = [capture_grouped_layers(model, lambda p=p: pair_features_e2e(
+        model, caps, *pair_args(p), device=dev)) for p in pairs]
+    per_layer = []
+    for j, (name, f4, w, g4, B, m4) in enumerate(batch):
+        out4 = kern(f4, w, g4, None, bf)
+        outs1 = [kern(o[j][1], w, o[j][3], None, bf) for o in ones]
+        per_layer.append(dict(
+            layer=name, B=B, bit_identical_to_b1=pair_rows_identical(
+                out4, m4, outs1, [o[j][5] for o in ones]),
+            kernel_ms_batched=graph_ms(lambda: kern(f4, w, g4, None, bf),
+                                       reps=5, inner=10),
+            kernel_ms_b1=sum(graph_ms(lambda o=o: kern(
+                o[j][1], w, o[j][3], None, bf), reps=3, inner=10)
+                for o in ones),
+            bound_ms_batched=grouped_bound(f4, w, g4)[0]))
+    del batch, ones, model
+    forced, forced_ok = grouped_forced_cases(dev)
+    emit({"phase": "grouped_forced", "ok": forced_ok, **forced})
+    keys = ("ms", "kernel_ms", "kernel_ms_fp32", "plain_ms", "bound_ms",
+            "per_tap_kernel_ms")
+    lib = [r["library_ms"] for r in rows]
+    summary = dict(
+        layers=len(rows), **{k: sum(r[k] for r in rows) for k in keys},
+        library_ms=None if None in lib else sum(lib),
+        library_kernel_ms=(None if None in lib else
+                           sum(r["library_kernel_ms"] for r in rows)),
+        bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        max_err_over_limit=max(r["max_abs_err"] / r["limit"] for r in rows),
+        layers_slower_than_per_tap=[r["layer"] for r in rows if
+                                    r["kernel_ms"] > r["per_tap_kernel_ms"]],
+        B=len(pairs),
+        bit_identical_to_b1=all(p["bit_identical_to_b1"] for p in per_layer),
+        kernel_ms_batched=sum(p["kernel_ms_batched"] for p in per_layer),
+        kernel_ms_b1_pairs=sum(p["kernel_ms_b1"] for p in per_layer),
+        bound_ms_batched=sum(p["bound_ms_batched"] for p in per_layer),
+        batched_layers=per_layer, forced_ok=forced_ok,
+        ok=all(r["ok"] for r in rows) and forced_ok and len(rows) == 18
+        and all(p["bit_identical_to_b1"] for p in per_layer))
+    emit({"phase": "grouped_layers_summary", "model": "ResUNetSmall2",
+          **summary})
+    return dict(rows=rows, **summary)
+
+
 def pair_args(p):
     s, tg = p["src"], p["tgt"]
     return (s["coords"], s["grid"], s["mask"], tg["coords"], tg["grid"],
@@ -1739,7 +2109,7 @@ def verdict(T, gt):
 
 
 MAIN_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
-                "gather_rows")
+                "gather_rows", "sparse_conv_grouped")
 
 
 def phase_batched(dev, model, caps, cfg, batch, seeds, label):
@@ -2124,13 +2494,16 @@ def count_kernels(fn):
 # kernels it must launch
 CONFIG_PATHS = {
     "knn": (dict(corr_mode="knn"),
-            ("nn1_argmin", "ume_moments_fused", "gather_rows")),
+            ("nn1_argmin", "ume_moments_fused", "gather_rows",
+             "sparse_conv_grouped")),
     "grid_copy": (dict(feat_copy_radius=0.6),
-                  ("ume_moments_fused", "corr_scores_fused", "gather_rows")),
+                  ("ume_moments_fused", "corr_scores_fused", "gather_rows",
+                   "sparse_conv_grouped")),
     "icp_inner1": (dict(icp_inner=1), MAIN_KERNELS),
     "no_ume_filter": (dict(filter_by_ume_dist=False), MAIN_KERNELS),
     "second_round": (dict(sr_kpts=1024, sr_gate_inliers=2.0), MAIN_KERNELS),
-    "parity": (None, ("nn1_argmin", "ume_moments_fused", "gather_rows")),
+    "parity": (None, ("nn1_argmin", "ume_moments_fused", "gather_rows",
+                      "sparse_conv_grouped")),
 }
 
 
@@ -2682,72 +3055,47 @@ class OldConvKernels:
 
 
 class ParentGroupedConv:
-    """Within the block the backbone's grouped k3 convs run as the tree
-    before the training slice ran them: the window rows gathered by tensor
-    indexing with "no candidate" centres clamped onto the all-zero row,
-    each pair-sized row block's product written in place (torch.mm out=).
-    A measurement aid for an A/B in one call; the port never runs so."""
+    """Within the block the backbone's grouped k3 convs run as the parent
+    tree ran them: `sparse_conv_grouped_plain` (9 window gathers through
+    the gather_rows kernel and per-pair cuBLAS products a conv; in
+    training autograd through it keeps the windows). A measurement aid for
+    an A/B in one call; the port never runs so on the card."""
 
     def __enter__(self):
-        import torch
-
         import umeregrobust_tpu_torch.models.resunet as resunet
-        from umeregrobust_tpu_torch.ops.sparse import round_to
+        from umeregrobust_tpu_torch.ops.sparse import (
+            sparse_conv_grouped_plain)
 
         self.mod, self.conv = resunet, resunet.sparse_conv_grouped
-
-        def by_pair(x, w, pairs):
-            if pairs == 1:
-                return x @ w
-            out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
-                              device=x.device)
-            for xb, ob in zip(x.chunk(pairs), out.chunk(pairs)):
-                torch.mm(xb, w, out=ob)
-            return out
-
-        def parent(feats, weights, gmap, bias=None,
-                   compute_dtype=torch.float32, pairs=1):
-            _, Cin, Cout = weights.shape
-            G, _, N_out = gmap.masks.shape
-            N_in = feats.shape[0]
-            f = round_to(feats, compute_dtype)
-            z = torch.zeros((1, Cin), dtype=f.dtype, device=f.device)
-            F3c = torch.cat([torch.cat([z, z, f, z]), torch.cat([z, f, z, z]),
-                             torch.cat([f, z, z, z])], dim=1)
-            w3 = round_to(weights, compute_dtype).reshape(G, 3, Cin, Cout)[
-                :, gmap.worder]
-            center = torch.clamp(gmap.center, max=N_in + 2)
-            out = torch.zeros((N_out, Cout), dtype=torch.float32,
-                              device=f.device)
-            for g in range(G):
-                wide = F3c[center[g]].reshape(N_out, 3, Cin)
-                masked = wide * gmap.masks[g].T[:, :, None].to(f.dtype)
-                mid = masked[:, 2] + wide[:, 1] * gmap.patho[g][:, None].to(
-                    f.dtype)
-                x3 = torch.cat([masked[:, 0], masked[:, 1], mid], dim=1)
-                out = out + by_pair(x3, w3[g].reshape(3 * Cin, Cout), pairs)
-            if bias is not None:
-                out = out + bias.to(torch.float32)[None, :]
-            return out
-
-        resunet.sparse_conv_grouped = parent
+        resunet.sparse_conv_grouped = sparse_conv_grouped_plain
         return self
 
     def __exit__(self, *exc):
         self.mod.sparse_conv_grouped = self.conv
 
 
-def phase_grouped_ab(dev, model, caps, cfg, pairs):
-    """This tree's grouped k3 conv (window gathers through gather_padded,
-    so the gather_rows kernel; per-pair products concatenated) against
-    the parent tree's (ParentGroupedConv), alternated in one call in the
-    order parent, change, change, parent, twice, after a warm-up of each. A
-    round: the pairs one at a time through register_pair_e2e (pair i
-    seeded i; pairs/s), each pair's feature stage alone
-    (pair_features_e2e; ms, host clock round a synchronize), then the
-    pairs as one batch through register_pairs_batched (pairs/s); with
-    the gather launches of the round. The two forms' features (the first
-    pair alone, and the batch) are compared bit for bit."""
+GROUPED_AB_FEATURE_LIMIT = 1e-3  # x max |feature|, fp32 operands
+
+
+def phase_grouped_ab(dev, model, caps, cfg, pairs, scan_model):
+    """This tree's grouped k3 conv (the sparse_conv_grouped kernel) against
+    the parent tree's form (ParentGroupedConv), alternated in one call in
+    the order parent, change, change, parent, twice, after a warm-up of
+    each. A round: the pairs one at a time through register_pair_e2e
+    (pair i seeded i; pairs/s and each pair's NP / SP verdict), each
+    pair's feature stage alone (pair_features_e2e; ms, host clock round a
+    synchronize), then the pairs as one batch through
+    register_pairs_batched (pairs/s); with the round's gather_rows and
+    sparse_conv_grouped launches. The two forms' features (the first pair
+    alone, and the batch) are compared. They differ in the kernel's fp32
+    summation order against cuBLAS's, which the bf16 network carries
+    through each next layer's rounding of its operands (a last-bit
+    difference moves a bf16 operand by one of its ulps): with bf16
+    operands their max abs difference is reported beside that between
+    the parent's form and the per-tap kernels (`scan_model`, a third sum
+    order); with fp32 operands, where no such rounding carries it, it is
+    held within GROUPED_AB_FEATURE_LIMIT x max |feature|. Every pair's
+    verdict must be the same in every round."""
     import contextlib
 
     import torch
@@ -2762,22 +3110,30 @@ def phase_grouped_ab(dev, model, caps, cfg, pairs):
         return ParentGroupedConv() if kind == "parent" else \
             contextlib.nullcontext()
 
-    def features():
-        one = pair_features_e2e(model, caps, *pair_args(pairs[0]), device=dev)
-        many = pair_features_batched(model, caps, *bargs, device=dev)
+    def features(dt=torch.bfloat16, m=model):
+        one = pair_features_e2e(m, caps, *pair_args(pairs[0]),
+                                compute_dtype=dt, device=dev)
+        many = pair_features_batched(m, caps, *bargs, compute_dtype=dt,
+                                     device=dev)
         return [t.cpu() for t in one + many]
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
     def one_round():
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.time()
+        verdicts = []
         for i, p in enumerate(pairs):
-            register_pair_e2e(model, caps, cfg, *pair_args(p), device=dev,
-                              generator=torch.Generator(
-                                  device=dev).manual_seed(i))
+            _, T = register_pair_e2e(model, caps, cfg, *pair_args(p),
+                                     device=dev, generator=torch.Generator(
+                                         device=dev).manual_seed(i))
+            v = verdict(T, p["gt"])
+            verdicts.append((v["np_pass"], v["sp_pass"]))
         torch.cuda.synchronize()
         seq = len(pairs) / (time.time() - t0)
-        launches = launch_counts()["gather_rows"]
+        lc = launch_counts()
         feat_ms = []
         for p in pairs:
             t0 = time.time()
@@ -2792,20 +3148,28 @@ def phase_grouped_ab(dev, model, caps, cfg, pairs):
         torch.cuda.synchronize()
         return dict(pairs_per_s=seq,
                     pairs_per_s_batched=len(pairs) / (time.time() - t0),
-                    features_ms=feat_ms, gather_rows_launches_e2e=launches)
+                    features_ms=feat_ms, verdicts=verdicts,
+                    gather_rows_launches_e2e=lc["gather_rows"],
+                    sparse_conv_grouped_launches_e2e=lc[
+                        "sparse_conv_grouped"])
 
-    feats, rounds = {}, []
+    feats, feats32, rounds = {}, {}, []
     for kind in ("parent", "change"):
         with form(kind):
             feats[kind] = features()  # also the warm-up
+            feats32[kind] = features(torch.float32)
             one_round()
+    scan = features(m=scan_model)
     for kind in ("parent", "change", "change", "parent") * 2:
         with form(kind):
             rounds.append(dict(form=kind, **one_round()))
     same = [bool(torch.equal(a, b))
             for a, b in zip(feats["parent"], feats["change"])]
-    diff = max(float((a - b).abs().max())
-               for a, b in zip(feats["parent"], feats["change"]))
+    diff32 = max_diff(feats32["parent"], feats32["change"])
+    limit32 = GROUPED_AB_FEATURE_LIMIT * max(float(a.abs().max())
+                                             for a in feats32["parent"])
+    want = rounds[0]["verdicts"]
+    same_verdicts = all(r["verdicts"] == want for r in rounds)
 
     def mean(kind, key):
         v = [r[key] for r in rounds if r["form"] == kind]
@@ -2814,9 +3178,16 @@ def phase_grouped_ab(dev, model, caps, cfg, pairs):
 
     return dict(
         pairs=len(pairs), rounds=rounds, features_bit_identical=all(same),
-        features_bit_identical_each=same, features_max_abs_diff=diff,
+        features_bit_identical_each=same,
+        features_max_abs_diff=max_diff(feats["parent"], feats["change"]),
+        features_max_abs_diff_scan_vs_parent=max_diff(feats["parent"], scan),
+        features_max_abs=max(float(a.abs().max()) for a in feats["parent"]),
+        features_max_abs_diff_fp32=diff32, features_limit_fp32=limit32,
+        same_verdicts=same_verdicts,
+        ok=diff32 <= limit32 and same_verdicts,
         **{f"{k}_{kind}": mean(kind, k) for kind in ("parent", "change")
            for k in ("pairs_per_s", "pairs_per_s_batched", "features_ms")})
+
 
 def phase_profile(run, pairs, cfg, unprofiled_wall_s, model, run_all=None):
     """The e2e pairs again under torch.profiler (same seeds and config);
@@ -3346,9 +3717,11 @@ def gather_backward_row(dev, batch, windows):
 
 def window_gathers(dev, batch, weights):
     """The grouped k3 convs' window gathers of one ResUNetSmall2 training
-    forward at train_kitti_config (B = 8, bf16 operands; tables of 3 Cin
-    columns, fp32): every gather of the conv with the most table rows and
-    of the conv with the widest table, `gather_rows` against its plain
+    forward and backward at train_kitti_config (B = 8, bf16 operands;
+    tables of 3 Cin columns, fp32): the forward runs the grouped kernel,
+    and its backward recomputes the plain version, whose window gathers
+    these are. Every gather of the conv with the most table rows and of
+    the conv with the widest table: `gather_rows` against its plain
     version on the CPU and `gather_rows_backward` (a seeded cotangent)
     against its plain version on the CPU, bit for bit, two launches of
     each identical; the forward's device time (CUDA graph) of the first
@@ -3370,12 +3743,13 @@ def window_gathers(dev, batch, weights):
 
     sparse.gather_padded = record
     try:
-        with torch.no_grad():
-            cloud_features(model, batch_to_device(batch, dev),
-                           _capacities(TrainConfig(), model.arch),
-                           torch.bfloat16, train=True)
+        src, tgt, _ = cloud_features(model, batch_to_device(batch, dev),
+                                     _capacities(TrainConfig(), model.arch),
+                                     torch.bfloat16, train=True)
+        (torch.sum(src) + torch.sum(tgt)).backward()
     finally:
         sparse.gather_padded = orig
+    del src, tgt, model
     tables = {}  # the recorded tables stay alive: no pointer is reused
     for x, idx in got:
         tables.setdefault(x.data_ptr(), (x, []))[1].append(idx)
@@ -3571,6 +3945,26 @@ def train_steps(trainer, batch, steps):
                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                 launches=lc, launches_per_step={k: v / steps
                                                 for k, v in lc.items()})
+
+
+def train_ab(trainer, batch, steps=2):
+    """ResUNetSmall2 training with the grouped kernel (the change) against
+    the parent tree's form (ParentGroupedConv: autograd through the plain
+    version, which keeps its windows for the backward), alternated parent,
+    change, change, parent: per turn train_steps (a warm-up step, then
+    `steps`): ms a step, peak device memory, launches a step."""
+    import contextlib
+
+    rows = []
+    for kind in ("parent", "change", "change", "parent"):
+        with (ParentGroupedConv() if kind == "parent"
+              else contextlib.nullcontext()):
+            r = train_steps(trainer, batch, steps)
+        rows.append(dict(form=kind, ms=[st["ms"] for st in r["steps"]],
+                         max_memory_allocated_bytes=r[
+                             "max_memory_allocated_bytes"],
+                         launches_per_step=r["launches_per_step"]))
+    return rows
 
 
 def profile_step(trainer, batch, top=8):
@@ -3772,8 +4166,12 @@ def phase_train(dev, t_start):
         out["small2"] = train_steps(tr, batch, TRAIN_STEPS)
         paths["train_small2"] = out["small2"]["launches"]
         out["small2"]["profile"] = profile_step(tr, batch)
+        out["small2_ab"] = train_ab(tr, batch)
         del tr
         emit({"phase": "train_small2", "B": TRAIN_B, **out["small2"],
+              "seconds_total": time.time() - t_start})
+        emit({"phase": "train_grouped_ab", "B": TRAIN_B,
+              "turns": out["small2_ab"],
               "seconds_total": time.time() - t_start})
         out["card_vs_cpu"] = card_vs_cpu(dev, batch, weights)
         emit({"phase": "train_card_vs_cpu", **out["card_vs_cpu"],
@@ -4430,6 +4828,8 @@ def phase_parallel(dev, model, pair, cfg, t_start):
 
 
 def main() -> int:
+    import contextlib
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add phase 6: the e2e pairs under torch.profiler")
@@ -4469,6 +4869,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "library": os.path.relpath(str(_build.build_library()), ROOT),
           "ptxas_sparse_conv_taps": ptxas_report(),
+          "ptxas_sparse_conv_grouped": ptxas_report("sparse_conv_grouped.cu"),
           "ptxas_nn1_argmin": ptxas_report("nn1_argmin.cu"),
           "ptxas_gather_rows_backward": {
               k: v for k, v in ptxas_report("gather_rows.cu").items()
@@ -4489,6 +4890,18 @@ def main() -> int:
     conv_layers = phase_conv_layers(dev, pairs[0], weights)
     forced, forced_ok = conv_forced_cases(dev)
     emit({"phase": "conv_forced", "ok": forced_ok, **forced})
+    grouped = phase_grouped_layers(dev, pairs, weights)
+    kern["sparse_conv_grouped"] = dict(
+        ok=grouped["ok"], max_abs_err=grouped["max_abs_err"],
+        shape=f"ResUNetSmall2's {grouped['layers']} grouped k3 layers, "
+              "one pair (reduced point, bf16): " + "; ".join(
+                  f"{r['layer']} {r['cin']}->{r['cout']}, {r['rows_in']}->"
+                  f"{r['rows_out']} rows" for r in grouped["rows"]),
+        **{k: grouped[k] for k in (
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_kernel_ms", "per_tap_kernel_ms", "B",
+            "kernel_ms_batched", "bound_ms_batched", "bit_identical_to_b1")},
+        kernel_ms_b1=grouped["kernel_ms"])
     for name in ("sparse_conv_rowtile", "sparse_conv_tapsplit"):
         kind = name[len("sparse_conv_"):]
         mine = [r for r in conv_layers["ResUNet"]["rows"]
@@ -4643,7 +5056,8 @@ def main() -> int:
                     device=dev).manual_seed(i) for i in range(len(batch))])
     block_mm = bmp.summary()
     emit({"phase": "block_matmul", "model": "ResUNetSmall2", **block_mm})
-    grouped_ab = phase_grouped_ab(dev, model, REDUCED["caps"], cfg_b, pairs)
+    grouped_ab = phase_grouped_ab(dev, model, REDUCED["caps"], cfg_b, pairs,
+                                  scan_model)
     emit({"phase": "grouped_ab", **grouped_ab,
           "seconds_total": time.time() - t_start})
     res_b = phase_resunet_batched(dev, pairs[:2])
@@ -4720,6 +5134,9 @@ def main() -> int:
              **par_paths}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
+        with ParentGroupedConv():  # the parent tree's grouped conv
+            run(pairs[0], 0)  # warm-up
+            phase_profile(run, pairs, cfg, None, "grouped_parent")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
                       scan_wall, "scan")
         with OldConvKernels():
@@ -4747,17 +5164,29 @@ def main() -> int:
             phase_profile(run_resunet, pairs, cfg, None,
                           "resunet_old_conv_kernels")
         del res_model
-        # phase 5d's two batches (its seeds and budget), one batch each
-        for label, tag, batch in (("regimes", "batched", pairs),
-                                  ("regimes_x2", "batched_x2",
-                                   pairs + more)):
-            bargs = stacked_args(batch)
-            phase_profile(None, batch, cfg_b, float(np.mean(
-                batch_res[label][0]["wall_s_batched"])), tag,
-                run_all=lambda: register_pairs_batched(
-                    model, REDUCED["caps"], cfg_b, *bargs, device=dev,
-                    generators=[torch.Generator(device=dev).manual_seed(i)
-                                for i in range(len(batch))]))
+        # phase 5d's two batches (its seeds and budget), one batch each,
+        # then again with the parent tree's grouped conv
+        for parent in (False, True):
+            for label, tag, batch in (("regimes", "batched", pairs),
+                                      ("regimes_x2", "batched_x2",
+                                       pairs + more)):
+                bargs = stacked_args(batch)
+
+                def run_all():
+                    return register_pairs_batched(
+                        model, REDUCED["caps"], cfg_b, *bargs, device=dev,
+                        generators=[torch.Generator(device=dev).manual_seed(
+                            i) for i in range(len(batch))])
+
+                with (ParentGroupedConv() if parent
+                      else contextlib.nullcontext()):
+                    if parent:
+                        run_all()  # warm-up
+                    phase_profile(None, batch, cfg_b, None if parent else
+                                  float(np.mean(batch_res[label][0][
+                                      "wall_s_batched"])),
+                                  tag + ("_parent" if parent else ""),
+                                  run_all=run_all)
 
     failures = [f"kernel {k}" for k, v in kern.items() if not v["ok"]]
     if not ref["ok"]:
@@ -4769,6 +5198,13 @@ def main() -> int:
             failures.append(f"pair {r['pair']}: launches {lc}")
         if not r["finite"]:
             failures.append(f"pair {r['pair']}: non-finite transform")
+    for r in results:  # the grouped path: the k3 convs in the kernel
+        lc = r["launches"]
+        if lc["sparse_conv_grouped"] != 18 or lc["gather_rows"] != 4:
+            failures.append(f"pair {r['pair']}: grouped path launched "
+                            f"sparse_conv_grouped {lc['sparse_conv_grouped']}"
+                            f" and gather_rows {lc['gather_rows']} times, "
+                            "not 18 and 4")
     if not results[0]["np_pass"]:
         failures.append("nominal pair fails NP")
     if not fam["ok"]:
@@ -4784,6 +5220,10 @@ def main() -> int:
         if not res["ok"]:
             failures.append(f"batched {label}: verdicts, |dT_init| or launches"
                             " differ from the sequential path")
+    if not grouped_ab["ok"]:
+        failures.append("grouped A/B: fp32 features beyond "
+                        f"{GROUPED_AB_FEATURE_LIMIT} x max from the parent's "
+                        "form, or a pair's verdict differs")
     if not res_b["ok"]:
         failures.append("batched ResUNet: features differ from one pair's, "
                         "or a conv launch disagrees with its plain version")
@@ -4836,15 +5276,19 @@ def main() -> int:
                **{p_: MAIN_KERNELS for p_ in data_paths if p_ != "rtume"},
                "rtume": ("ume_moments_fused",),
                "family": FORWARD_KERNELS,
-               "train_small2": ("gather_rows", "gather_rows_backward"),
+               "train_small2": ("gather_rows", "gather_rows_backward",
+                                "sparse_conv_grouped"),
                "train_resunet": ("gather_rows", "gather_rows_backward",
                                  "sparse_conv_rowtile", "sparse_conv_tapsplit",
                                  "sparse_conv_wgrad"),
-               "train_cli": ("gather_rows", "gather_rows_backward"),
+               "train_cli": ("gather_rows", "gather_rows_backward",
+                             "sparse_conv_grouped"),
                "parallel_sp": ("ume_moments_fused",),
-               "parallel_dp": ("gather_rows", "gather_rows_backward"),
+               "parallel_dp": ("gather_rows", "gather_rows_backward",
+                               "sparse_conv_grouped"),
                **{f"widths_{k}": ("ume_moments_fused", "corr_scores_fused",
-                                  "gather_rows") for k in wide},
+                                  "gather_rows", "sparse_conv_grouped")
+                  for k in wide},
                "scan": ("nn1_argmin", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",
                         "sparse_conv_rowtile", "sparse_conv_tapsplit")}

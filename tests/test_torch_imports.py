@@ -15,9 +15,10 @@ import torch
 
 import _torch_parity  # noqa: F401  (single-threaded torch)
 from umeregrobust_tpu_torch.ops import (
-    _build, cuda_conv, cuda_corr, cuda_gather, cuda_nn, cuda_ume)
+    _build, cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn, cuda_ume)
 from umeregrobust_tpu_torch.ops.neighbors import gather_padded
-from umeregrobust_tpu_torch.ops.sparse import sparse_conv
+from umeregrobust_tpu_torch.ops.sparse import (
+    GroupedMap, sparse_conv, sparse_conv_grouped)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "umeregrobust_tpu_torch"
@@ -186,6 +187,15 @@ def test_cli_reads_only_its_own_configs():
         assert "umeregrobust_tpu/configs" not in p.read_text(), p
 
 
+def _grouped_map(d, n_out=8):
+    """A GroupedMap of n_out rows whose windows are all unused."""
+    return GroupedMap(
+        center=torch.zeros((9, n_out), dtype=torch.int64, device=d),
+        masks=torch.zeros((9, 3, n_out), dtype=torch.bool, device=d),
+        patho=torch.zeros((9, n_out), dtype=torch.bool, device=d),
+        worder=torch.arange(3, device=d))
+
+
 @pytest.fixture
 def no_nvcc(monkeypatch, tmp_path):
     """A process that has no kernel library and cannot build one."""
@@ -239,10 +249,17 @@ def test_load_library_raises_without_nvcc(no_nvcc):
     lambda d: cuda_conv.sparse_conv_wgrad(
         torch.zeros(8, 4, device=d), torch.zeros(8, 6, device=d),
         torch.zeros((27, 8), dtype=torch.int64, device=d)),
+    lambda d: cuda_grouped.sparse_conv_grouped_kernel(
+        torch.zeros(8, 4, device=d), torch.zeros(27, 4, 6, device=d),
+        _grouped_map(d), compute_dtype=torch.bfloat16),
+    lambda d: sparse_conv_grouped(
+        torch.zeros(8, 4, device=d), torch.zeros(27, 4, 6, device=d),
+        _grouped_map(d)),
 ], ids=["nn1_argmin", "ume_moments_fused", "ume_moments_fused_caps",
         "corr_scores_fused", "gather_rows", "gather_padded",
         "sparse_conv_rowtile", "sparse_conv_tapsplit", "sparse_conv",
-        "conv_entries", "gather_rows_backward", "sparse_conv_wgrad"])
+        "conv_entries", "gather_rows_backward", "sparse_conv_wgrad",
+        "sparse_conv_grouped_kernel", "sparse_conv_grouped"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
@@ -294,7 +311,7 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
     assert sorted(kernels) == sorted([
         "nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
         "sparse_conv_rowtile", "sparse_conv_tapsplit",
-        "gather_rows_backward", "sparse_conv_wgrad"])
+        "gather_rows_backward", "sparse_conv_wgrad", "sparse_conv_grouped"])
     entry = {"ume_moments_fused": "umr_ume_moments",
              "corr_scores_fused": "umr_corr_scores"}
     for name, (source, replaces) in kernels.items():

@@ -49,8 +49,6 @@
 //  - One input channel (conv_cin1_kernel): the map read as it stands, 8
 //    loads a thread in flight, 8 warps a block splitting the taps, their
 //    partial sums added in warp order.
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
@@ -342,40 +340,8 @@ void launch_entries(const void* nbr, int N_in, int N_out, int K,
 }
 
 // ---------------------------------------------------------------------
-// Tensor-core pieces: mma.sync m16n8k16, bf16 operands, fp32 sums.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) first
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// Tensor-core pieces (mma.sync m16n8k16, bf16 operands, fp32 sums;
+// ldmatrix and cp.async helpers in common.cuh).
 constexpr int kMmaThreads = 512;  // 16 warps: 16 entries x 8 channels each
 constexpr int kTNm = 64;          // output channels a block
 constexpr int kME = 32;           // entries a tile (two m16 slices)
@@ -704,15 +670,6 @@ constexpr int kRLdA = kRKC + 8;  // 80-byte rows
 constexpr int kRLdB = kRTN + 8;  // 144-byte rows
 constexpr int kRA = kRTM * kRKC / 256;  // A values a thread a step
 constexpr int kRB = kRKC * kRTN / 256;  // B values a thread a step
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 
 template <typename IdxT>
 __global__ void __launch_bounds__(256)
@@ -1205,30 +1162,12 @@ constexpr int kGLd = kGM + 8;  // bf16 a staged row (272 B: ldmatrix rows
                                // fall in distinct banks)
 static_assert(kGM == kGN, "one staged row length serves X and dY");
 
-__host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
-
 __host__ inline size_t wgrad_mma_smem_bytes() {
   return (size_t)kGStages * 2 * kGE * kGLd * 2;
 }
 
-// y[r][c] = bf16(x[r][c]) for c < C, 0 for C <= c < round8(C), and the
-// same of g into gy: one thread an 8-value (16-byte) piece, one launch
-// for both operands.
-__device__ __forceinline__ void to_bf16_piece(const float* __restrict__ x,
-                                              __nv_bfloat16* __restrict__ y,
-                                              int64_t t, int C) {
-  const int C8 = round8(C), P = C8 / 8;
-  const int64_t r = t / P;
-  const int c0 = (int)(t - r * P) * 8;
-  const float* src = x + r * C;
-  float v[8];
-#pragma unroll
-  for (int u = 0; u < 8; ++u) v[u] = c0 + u < C ? src[c0 + u] : 0.f;
-  *reinterpret_cast<uint4*>(y + r * C8 + c0) =
-      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-}
-
+// x and g rounded to bf16 rows (to_bf16_piece), one launch for both
+// operands.
 __global__ void to_bf16_rows_kernel(const float* __restrict__ x,
                                     __nv_bfloat16* __restrict__ xy,
                                     int64_t x_pieces, int Cx,
@@ -1238,19 +1177,6 @@ __global__ void to_bf16_rows_kernel(const float* __restrict__ x,
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t < x_pieces) to_bf16_piece(x, xy, t, Cx);
   else if (t < x_pieces + g_pieces) to_bf16_piece(g, gy, t - x_pieces, Cg);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __global__ void __launch_bounds__(kGThreads, 2)

@@ -5,8 +5,15 @@
 // Computes out[k] = sum_n w[k,n] * Z[n] with w[k,n] = 1 iff point n is
 // valid, lies within `radius` of keypoint k, and is among the first
 // `max_nn` such points in index order (PyTorch3D ball_query capping).
-// fp32 throughout, rows added in index order, no atomics: two launches
-// give the same bits.
+// fp32 throughout, rows added in index order with compensated (Kahan)
+// sums, no atomics: two launches give the same bits. Plain fp32 sums of a
+// ball's up to 750 rows one after another left G 1.3e-5 of its max off
+// float64 sums (the plain version's blocked matmul 7.5e-6), and RT-UME's
+// subspace distances carried that through a near-degenerate UME
+// (condition number 2e5) to 9e-5; compensated, G is 2.6e-6 off. The
+// compensation lengthens the add chain a warp waits on (0.150 ms a call
+// at the main path's shape against 0.085; a tree over each batch of 16
+// rows was slower still, 0.286).
 //
 // Bound on the H100. Against device memory the work is small: Z is
 // 16384 x 128 x 4 B = 8 MB read once, the radius tests and row sums are
@@ -108,14 +115,24 @@ __global__ void ume_pack_points_kernel(const float* __restrict__ pts,
     packed[(int64_t)c * P + n] = ok ? pts[3 * (int64_t)n + c] : nan;
 }
 
+// s += x with the running compensation c (Kahan); rounded intrinsics, so
+// that no contraction or reassociation drops the compensation
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = __fsub_rn(x, c);
+  const float t = __fadd_rn(s, y);
+  c = __fsub_rn(__fsub_rn(t, s), y);
+  s = t;
+}
+
 // adds the rows queued at ring positions head .. head + n - 1 (n <= kBatch,
-// uniform over the warp) to acc, in that order; all n reads are started
-// before the first add. Z4 points at this lane's float4 of the slice; ld4
-// is a row's float4 count.
+// uniform over the warp) to acc (compensation cmp), in that order; all n
+// reads are started before the first add. Z4 points at this lane's float4
+// of the slice; ld4 is a row's float4 count.
 template <bool kFull>
 __device__ __forceinline__ void drain(const int* __restrict__ q,
                                       const float4* __restrict__ Z4, int ld4,
-                                      int head, int n, float4& acc) {
+                                      int head, int n, float4& acc,
+                                      float4& cmp) {
   float4 z[kBatch];
 #pragma unroll
   for (int j = 0; j < kBatch; ++j) {
@@ -127,10 +144,10 @@ __device__ __forceinline__ void drain(const int* __restrict__ q,
 #pragma unroll
   for (int j = 0; j < kBatch; ++j) {
     if (kFull || j < n) {
-      acc.x += z[j].x;
-      acc.y += z[j].y;
-      acc.z += z[j].z;
-      acc.w += z[j].w;
+      kahan_add(acc.x, cmp.x, z[j].x);
+      kahan_add(acc.y, cmp.y, z[j].y);
+      kahan_add(acc.z, cmp.z, z[j].z);
+      kahan_add(acc.w, cmp.w, z[j].w);
     }
   }
 }
@@ -170,6 +187,7 @@ ume_moments_kernel(const float* __restrict__ kpts,
   const float4* Z4 = reinterpret_cast<const float4*>(Z) + col4;
   const unsigned below = (1u << lane) - 1u;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 cmp = make_float4(0.f, 0.f, 0.f, 0.f);
   int count = 0;  // indices queued so far, <= cap (uniform over the warp)
   int head = 0;   // indices drained so far
 
@@ -206,7 +224,7 @@ ume_moments_kernel(const float* __restrict__ kpts,
         count = min(count + __popc(bits[u]), cap);
         __syncwarp();
         while (count - head >= kBatch) {
-          drain<true>(q, Z4, ld4, head, kBatch, acc);
+          drain<true>(q, Z4, ld4, head, kBatch, acc, cmp);
           head += kBatch;
         }
         // the ring's next writes land ahead of every slot still unread
@@ -220,7 +238,8 @@ ume_moments_kernel(const float* __restrict__ kpts,
       cz[u] = nz[u];
     }
   }
-  if (count > head) drain<false>(q, Z4, ld4, head, count - head, acc);
+  if (count > head)
+    drain<false>(q, Z4, ld4, head, count - head, acc, cmp);
   reinterpret_cast<float4*>(out)[(int64_t)k * ld4 + col4] = acc;
 }
 

@@ -9,7 +9,8 @@ relu -> cat(skip); head = 1x1 mlp -> relu -> 1x1 final (+bias) -> row
 L2 normalisation. The geometry (coordinate pyramid + kernel maps) is built
 once per forward input by `build_unet_geometry`: all-k3 archs take the
 rank-join fast path, the others the generic exact-match join. k=3 layers
-run the grouped-window conv (PyTorch ops), k5/k7 layers and
+run the grouped-window conv (`ops.sparse.sparse_conv_grouped`, the CUDA
+kernel of ops/cuda_grouped.py on the card), k5/k7 layers and
 `conv_impl="scan"` the per-tap conv (`ops.sparse.sparse_conv`, the CUDA
 kernels of ops/cuda_conv.py on the card).
 """

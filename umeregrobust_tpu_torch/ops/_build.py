@@ -66,6 +66,9 @@ _SIGNATURES = {
                                   _VP],
     "umr_sparse_conv_wgrad_cin1": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                                    _INT, _INT, _INT, _INT, _VP],
+    "umr_sparse_conv_grouped": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                _VP, _LL, _LL, _INT, _INT, _INT, _INT, _INT,
+                                _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -5,8 +5,10 @@ A level is (coords (N, 4) int32 [b, x, y, z], mask (N,)) in canonical
 code-sorted order with a valid prefix. A k=3 kernel map is kept in the
 grouped-window form (`GroupedMap`): levels are sorted with z fastest, so
 the <= 3 z-candidates of a (dx, dy) offset group are consecutive rows of
-the input level, and one wide gather of a centred 3-row window per group
-replaces 3 per-tap gathers. Tap order is lexicographic over (dx, dy, dz)
+the input level, and one centred 3-row window per group replaces 3
+per-tap rows: on the card one hand-written kernel a conv reads the
+windows into its tensor-core products (ops/cuda_grouped.py), on the CPU
+the plain version gathers them. Tap order is lexicographic over (dx, dy, dz)
 in {-1, 0, 1}^3 with dz fastest, as in the checkpoints. Larger kernels
 (k5, k7) and `conv_impl="scan"` keep the plain (K, N_out) per-tap map
 (-1 = absent) and go through `sparse_conv`, whose CUDA path is the
@@ -22,6 +24,7 @@ import torch
 from umeregrobust_tpu_torch.ops.cuda_conv import (
     choose_kernel, round_to, sparse_conv_rowtile, sparse_conv_tapsplit,
     sparse_conv_wgrad)
+from umeregrobust_tpu_torch.ops.cuda_grouped import sparse_conv_grouped_kernel
 from umeregrobust_tpu_torch.ops.neighbors import gather_padded
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, SENTINEL_HIGH, batched_sorted_lookup,
@@ -33,6 +36,7 @@ __all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
            "build_level_maps", "interface_candidates", "invert_map_batch",
            "code_window_table", "window_probe", "group_kernel_map",
            "ungroup_kernel_map", "sparse_conv", "sparse_conv_grouped",
+           "sparse_conv_grouped_plain", "GroupedConv", "cloud_order",
            "masked_batch_norm", "round_to", "matmul_by_pair", "PerTapConv"]
 
 # window-table pad word: above every valid code, distinct from both
@@ -364,17 +368,19 @@ def sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
     return out
 
 
-def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
-                        gmap: GroupedMap,
-                        bias: Optional[torch.Tensor] = None,
-                        compute_dtype: torch.dtype = torch.float32,
-                        pairs: int = 1) -> torch.Tensor:
-    """Sparse k=3 conv with grouped window gathers. feats (N_in, Cin),
-    invalid rows zero; weights (27, Cin, Cout); optional bias (Cout,).
-    Returns (N_out, Cout) fp32.
+def sparse_conv_grouped_plain(feats: torch.Tensor, weights: torch.Tensor,
+                              gmap: GroupedMap,
+                              bias: Optional[torch.Tensor] = None,
+                              compute_dtype: torch.dtype = torch.float32,
+                              pairs: int = 1) -> torch.Tensor:
+    """The plain version of the grouped k=3 conv: per group a window
+    gather (`gather_padded`: the gather_rows kernel on the card) and the
+    group's product. feats (N_in, Cin), invalid rows zero; weights (27,
+    Cin, Cout); optional bias (Cout,). Returns (N_out, Cout) fp32.
     Operands are rounded to compute_dtype, products summed in fp32.
     pairs=B: the output rows are B equal blocks (pairs' levels), each
-    block's products one matmul (`matmul_by_pair`)."""
+    block's products one matmul (`matmul_by_pair`). The CPU's path, the
+    card's yardstick, and the recompute of `GroupedConv`'s backward."""
     _, Cin, Cout = weights.shape
     G, _, N_out = gmap.masks.shape
     N_in = feats.shape[0]
@@ -406,6 +412,98 @@ def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+class GroupedConv(torch.autograd.Function):
+    """The grouped k=3 conv on the card: the forward is the hand-written
+    kernel (`sparse_conv_grouped_kernel`, no window tensor in device
+    memory), and it keeps only feats, weights and the map. The backward
+    recomputes the plain version on the saved inputs and differentiates
+    it, so dX and dW are those of autograd through
+    `sparse_conv_grouped_plain` (its window gathers' backward is the
+    gather_rows_backward kernel), and no window tensor lives from the
+    forward to the backward."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, bias, gmap, compute_dtype, pairs):
+        ctx.save_for_backward(feats, weights, bias)
+        ctx.gmap, ctx.compute_dtype, ctx.pairs = gmap, compute_dtype, pairs
+        return sparse_conv_grouped_kernel(
+            feats.to(torch.float32).contiguous(), weights.contiguous(), gmap,
+            bias, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weights, bias = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [None if x is None else x.detach().requires_grad_(n)
+                      for x, n in zip((feats, weights, bias), need)]
+            f, w, b = leaves
+            out = sparse_conv_grouped_plain(f, w, ctx.gmap, b,
+                                            ctx.compute_dtype, ctx.pairs)
+            want = [x for x, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(out, want, g) if want else ())
+        return (*(next(got) if n else None for n in need), None, None, None)
+
+
+def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
+                        gmap: GroupedMap,
+                        bias: Optional[torch.Tensor] = None,
+                        compute_dtype: torch.dtype = torch.float32,
+                        pairs: int = 1) -> torch.Tensor:
+    """Sparse k=3 conv over a grouped-window map. feats (N_in, Cin),
+    invalid rows zero; weights (27, Cin, Cout); optional bias (Cout,).
+    Returns (N_out, Cout) fp32; operands rounded to compute_dtype,
+    products summed in fp32. A CPU tensor takes the plain version
+    (`sparse_conv_grouped_plain`), a CUDA tensor the kernel through
+    `GroupedConv` (differentiable in feats, weights and bias), which sums
+    a row's products in an order set by the row alone, so pairs=B (the
+    output rows are B pairs' levels) gives each pair its one-pair bits on
+    the card; on the CPU each pair-sized block is one matmul."""
+    if feats.device.type == "cpu":
+        return sparse_conv_grouped_plain(feats, weights, gmap, bias,
+                                         compute_dtype, pairs)
+    return GroupedConv.apply(feats, weights, bias, gmap, compute_dtype,
+                             pairs)
+
+
+def _block_sums(x: torch.Tensor) -> torch.Tensor:
+    """x (G, cap, C) -> (G, 1, C): each block's sum over its rows, one
+    reduction a block: the call a one-block run makes, whatever the other
+    blocks (one reduction over all blocks may split its sums by their
+    count)."""
+    return torch.stack([torch.sum(xb, dim=0, keepdim=True) for xb in x])
+
+
+def cloud_order(cloud: torch.Tensor, valid: torch.Tensor, n_clouds: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(src, n_valid): src (N,) int64, a permutation of the rows that lays
+    them out as n_clouds equal blocks of cap = N / n_clouds slots, block c
+    first cloud c's valid rows in row order, then rows that are not valid
+    (those fill the blocks' remaining slots in row order); n_valid
+    (n_clouds,) the valid rows of each block. A cloud's rows need not sit
+    in its block of the level: the pyramid's levels keep one valid
+    prefix. A cloud with more than cap valid rows raises (an index out of
+    range)."""
+    N, G = valid.shape[0], int(n_clouds)
+    if N % G:
+        raise ValueError(f"{N} rows do not split into {G} equal blocks")
+    cap, dev = N // G, cloud.device
+    rank = torch.cumsum(((cloud[None, :] == torch.arange(G, device=dev)[
+        :, None]) & valid[None, :]).to(torch.int64), 1) - 1
+    c = torch.where(valid, cloud, torch.zeros_like(cloud))
+    r = torch.gather(rank, 0, c[None]).squeeze(0)
+    rows = torch.arange(N, device=dev)
+    table = torch.full((G + 1, cap), -1, dtype=torch.int64, device=dev)
+    table[torch.where(valid, c, G), torch.where(valid, r, 0)] = rows
+    src = table[:G].reshape(-1)  # invalid rows went to the spare block G
+    free = src < 0
+    # the k-th free slot takes the k-th row that is not valid
+    by_rank = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    by_rank[torch.where(valid, N, torch.cumsum(~valid, 0) - 1)] = rows
+    src = torch.where(free, by_rank[torch.cumsum(free, 0) - 1], src)
+    return src, rank[:, -1] + 1
+
+
 def masked_batch_norm(feats: torch.Tensor, mask: torch.Tensor,
                       scale: torch.Tensor, bias: torch.Tensor,
                       running_mean: torch.Tensor, running_var: torch.Tensor,
@@ -413,8 +511,9 @@ def masked_batch_norm(feats: torch.Tensor, mask: torch.Tensor,
                       eps: float = 1e-5, cloud: Optional[torch.Tensor] = None,
                       n_clouds: int = 1
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """BatchNorm over valid rows only; invalid rows re-zeroed. Returns
-    (out, new_mean, new_var).
+    """BatchNorm over valid rows only; invalid rows re-zeroed (in training
+    also rows whose cloud lies outside [0, n_clouds)). Returns (out,
+    new_mean, new_var).
 
     Eval: the running statistics normalize, and come back unchanged.
     Train (torch / MinkowskiEngine semantics, as the JAX package): each
@@ -424,30 +523,39 @@ def masked_batch_norm(feats: torch.Tensor, mask: torch.Tensor,
     + momentum batch (unbiased variance) is averaged over the clouds, as
     the JAX trainer averages the per-cloud states of its vmapped forwards.
     The buffers are not written: the caller commits the returned state.
-    The per-cloud sums are one fp32 matmul of a (n_clouds, N) one-hot of
-    the valid rows (a fixed summation order, no atomics)."""
-    m = mask.to(torch.float32)[:, None]
+    The rows split into n_clouds equal blocks, and a cloud holds at most
+    a block's rows (a pyramid of build_unet_geometry(pairs=n_clouds)).
+    Each cloud's valid rows are laid out in row order in a block of their
+    own (`cloud_order`, a permutation, so the backward of each gather adds
+    one value a row), its sums are one reduction over that block, as a
+    one-cloud run takes them, and the block is normalized where it lies:
+    a cloud's statistics and output do not depend on where its rows sit
+    or on the other clouds (no atomics)."""
     if train:
+        N, C = feats.shape
         G = int(n_clouds)
         if cloud is None:
-            cloud = torch.zeros(feats.shape[0], dtype=torch.int64,
-                                device=feats.device)
-        onehot = ((cloud[None, :] == torch.arange(G, device=feats.device)[
-            :, None]) & mask[None, :]).to(torch.float32)
-        n = torch.clamp(torch.sum(onehot, dim=1, keepdim=True), min=1.0)
-        mean_g = (onehot @ feats) / n  # (G, C)
-        mean = onehot.T @ mean_g  # each valid row's cloud mean, else 0
-        diff = (feats - mean) * m
-        var_g = (onehot @ (diff * diff)) / n
-        unbiased = var_g * n / torch.clamp(n - 1.0, min=1.0)
+            cloud = torch.zeros(N, dtype=torch.int64, device=feats.device)
+        src, n_valid = cloud_order(cloud, mask & (cloud >= 0) & (cloud < G),
+                                   G)
+        cap = N // G
+        x = feats.index_select(0, src).reshape(G, cap, C)
+        v = (torch.arange(cap, device=feats.device)[None, :]
+             < n_valid[:, None]).to(torch.float32)[..., None]
+        n = torch.clamp(n_valid.to(torch.float32), min=1.0)[:, None, None]
+        mean = _block_sums(x * v) / n  # (G, 1, C)
+        diff = (x - mean) * v
+        var = _block_sums(diff * diff) / n
+        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
         new_mean = torch.mean((1.0 - momentum) * running_mean[None]
-                              + momentum * mean_g, dim=0)
+                              + momentum * mean[:, 0], dim=0)
         new_var = torch.mean((1.0 - momentum) * running_var[None]
-                             + momentum * unbiased, dim=0)
-        var = onehot.T @ var_g
-    else:
-        mean, var = running_mean[None, :], running_var[None, :]
-        new_mean, new_var = running_mean, running_var
-    inv = torch.rsqrt(var + eps)
-    out = (feats - mean) * (inv * scale) + bias[None, :]
-    return out * m, new_mean, new_var
+                             + momentum * unbiased[:, 0], dim=0)
+        out = ((x - mean) * (torch.rsqrt(var + eps) * scale) + bias) * v
+        dst = torch.empty_like(src)
+        dst[src] = torch.arange(N, device=feats.device)
+        return out.reshape(N, C).index_select(0, dst), new_mean, new_var
+    m = mask.to(torch.float32)[:, None]
+    inv = torch.rsqrt(running_var[None, :] + eps)
+    out = (feats - running_mean[None, :]) * (inv * scale) + bias[None, :]
+    return out * m, running_mean, running_var
