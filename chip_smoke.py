@@ -106,8 +106,9 @@ Phases (any failure ends the run with a non-zero exit):
      launched other than once a call site for the batch; both batches
      once more through BlockMatmulProbe (the forward's per-pair dense
      products against one torch.bmm, bit for bit); the grouped k3 conv
-     against the parent tree's form (phase_grouped_ab: parent, change,
-     change, parent, twice; pairs/s one at a time and as one batch, feature
+     against its plain version's form, as the tree before the grouped
+     kernel ran it ("parent" in the lines; phase_grouped_ab: parent,
+     change, change, parent; pairs/s one at a time and as one batch, feature
      stage ms, every pair's NP / SP verdict the same in every round, the
      features at fp32 operands within 1e-3 x max of the parent's; at bf16
      their difference and bit-equality reported beside the per-tap
@@ -164,8 +165,9 @@ Phases (any failure ends the run with a non-zero exit):
      batch; bit for bit against the plain version on the CPU, two
      launches identical, its row segments equal to row_segments_plain's),
      gather_rows and its backward at the grouped convs' window gathers of
-     a B = 8 training forward and backward (window_gathers: the backward's
-     recompute gathers them; the conv with the most
+     a B = 8 training forward and backward as the parent tree trained
+     (window_gathers: its backward's recompute gathered them; this tree's
+     training gathers no window); the conv with the most
      table rows and the widest, bit for bit; the forward beside
      index_select and its bound), and at the UME shape and both window
      shapes the backward's time device alone, each of its launches',
@@ -181,14 +183,28 @@ Phases (any failure ends the run with a non-zero exit):
      11 conv layers on its real map at bf16, with dX through the inverted map against the plain
      version's), per layer the plan, device times of the function, of
      each launch and of the first port's CUDA-core kernel in the same
-     call, beside per-tap index_select + torch.mm and the bound; (b)
+     call, beside per-tap index_select + torch.mm and the bound; the
+     grouped k3 conv's backward at ResUNetSmall2's 18 layers of a B = 8
+     training forward (grouped_bwd_layer lines: dW by
+     sparse_conv_grouped_wgrad and, but for the stem, dX by
+     sparse_conv_grouped over the adjoint map, each against its plain
+     version on the card at fp32 (1e-5 x max) and bf16 (one bf16 ulp of
+     the entry or 1e-4 x max), two launches bit-identical, guards intact;
+     device times alone beside the parent tree's recompute, the per-tap
+     route on the same maps, the library route and the bound) and forced
+     cases (grouped_wgrad_forced: Cin 1 / 3 / 20 / 768, Cout 5 / 7 / 48 /
+     256, N_out above and below N_in, unused groups and rows, patho rows,
+     both slot orders, int32 / int64, an all-masked level); (b)
      ResUNetSmall2 (in-repo weights) at train_kitti_config's widths (B =
      8, 16384 voxels a cloud, 512 matches, 256 UME keypoints, max_nn 750,
      min_nn 300, r 5, bf16) on HDL-64 density pairs: step ms, peak
      memory, losses, nonfinite_grad and launches a step, then one step
      under torch.profiler (device busy ms, idle share, the top ops), then
-     ms a step and peak memory against the parent tree's grouped conv
-     (train_grouped_ab: parent, change, change, parent); one
+     against the parent tree's grouped conv backward (its recompute;
+     train_grouped_ab: parent, change, change, parent: ms a step, peak
+     memory, launches and window gathers a step, losses, and one
+     profiled step each: kernels, aten::mm calls, device busy); the
+     counted steps must gather no window; one
      pair card vs CPU at fp32 (losses 1e-3 relative, every gradient leaf
      elementwise within 1e-4 of its max |grad|); (c) ResUNet (seeded
      random parameters, k7 stem, k5 layers) at B = 2, the three conv
@@ -216,7 +232,7 @@ Phases (any failure ends the run with a non-zero exit):
      Hungarian);
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model (and with the
-     parent tree's grouped conv, "grouped_parent"), the
+     plain version's grouped conv, "grouped_parent"), the
      conv_impl="scan" model and ResUNet (seeded random parameters), the
      last two also with the old conv kernels (OldConvKernels): per
      pipeline stage (register_pair_e2e's
@@ -225,7 +241,7 @@ Phases (any failure ends the run with a non-zero exit):
      as an estimate combining two runs, of phase 5's unprofiled wall;
      kernel launches and the top ops by device time; then phase 5d's
      two batches through register_pairs_batched (models "batched", B = 4,
-     and "batched_x2", B = 8; per pair), again with the parent tree's
+     and "batched_x2", B = 8; per pair), again with the plain version's
      grouped conv ("batched_parent", "batched_x2_parent").
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
@@ -270,6 +286,13 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
     "sparse_conv_grouped": ("umeregrobust_tpu_torch/csrc/"
                             "sparse_conv_grouped.cu",
                             "tools/exp_gather2.py:107"),
+    # its weight gradient (training; dX runs sparse_conv_grouped over the
+    # adjoint map): it takes the backward of the window gathers (the
+    # gather_rows_backward kernel after the plain version's recompute)
+    # into its products
+    "sparse_conv_grouped_wgrad": ("umeregrobust_tpu_torch/csrc/"
+                                  "sparse_conv_grouped_wgrad.cu",
+                                  "tools/exp_gather2.py:107"),
 }
 FORWARD_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
                    "gather_rows", "sparse_conv_tapsplit", "sparse_conv_rowtile")
@@ -1653,7 +1676,8 @@ def phase_conv_layers(dev, pair, weights):
 def capture_grouped_layers(model, run):
     """Every grouped k3 conv of one feature stage of `model`, run by
     `run()`: (parameter name, features, weights, GroupedMap, pairs, the
-    output level's mask) in launch order (the conv itself runs as it
+    output level's mask, the adjoint (map, reverse_taps) the model hands
+    the conv's backward) in launch order (the conv itself runs as it
     would; a layer named conv{k}, block{k}.*, conv{k}_tr or block{k}_tr.*
     writes level k - 1)."""
     import re
@@ -1671,13 +1695,14 @@ def capture_grouped_layers(model, run):
         return fwd(self, geom, *a, **kw)
 
     def record(feats, w, gmap, bias=None, compute_dtype=torch.float32,
-               pairs=1):
+               pairs=1, adjoint=None):
         name = names.get(w.data_ptr(), "?")
         got.append((name, feats.to(torch.float32).contiguous(),
                     w.detach().contiguous(), gmap, pairs,
-                    levels[int(re.search(r"\d+", name).group()) - 1]))
+                    levels[int(re.search(r"\d+", name).group()) - 1],
+                    adjoint))
         return conv(feats, w, gmap, bias=bias, compute_dtype=compute_dtype,
-                    pairs=pairs)
+                    pairs=pairs, adjoint=adjoint)
 
     resunet.sparse_conv_grouped, resunet.ResUNet.forward = record, forward
     try:
@@ -1768,6 +1793,30 @@ def grouped_check(f, w, gmap, bias=None):
     return res
 
 
+def forced_grouped_map(rng, dev, n_in, n_out, idx, p=0.5, patho=0.05,
+                       transposed=False, edit=None):
+    """A random GroupedMap with the map's invariant (masks[2] off where
+    patho is set): centres in [0, n_in + 4), each slot on with
+    probability p, patho rows with probability `patho`, the transposed
+    slot order if asked, centres of type idx; `edit(center, masks, pat)`
+    changes the numpy arrays first."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.sparse import GroupedMap
+
+    center = rng.integers(0, n_in + 4, (9, n_out))
+    masks = rng.random((9, 3, n_out)) < p
+    pat = (rng.random((9, n_out)) < patho) & ~masks[:, 2]
+    if edit is not None:
+        edit(center, masks, pat)
+    return GroupedMap(
+        center=torch.as_tensor(center, device=dev).to(idx),
+        masks=torch.as_tensor(masks, device=dev),
+        patho=torch.as_tensor(pat, device=dev),
+        worder=torch.tensor([2, 1, 0] if transposed else [0, 1, 2],
+                            device=dev))
+
+
 def grouped_forced_cases(dev):
     """The grouped kernel on forced maps (random centres, masks and patho
     rows with the map's invariant: masks[2] off where patho is set):
@@ -1778,23 +1827,12 @@ def grouped_forced_cases(dev):
     and bf16 (grouped_check). Returns (cases, all passed)."""
     import torch
 
-    from umeregrobust_tpu_torch.ops.sparse import GroupedMap
-
     rng = np.random.default_rng(17)
 
     def case(n_in, n_out, cin, cout, idx, p=0.5, patho=0.05,
              transposed=False, bias=False, edit=None):
-        center = rng.integers(0, n_in + 4, (9, n_out))
-        masks = rng.random((9, 3, n_out)) < p
-        pat = (rng.random((9, n_out)) < patho) & ~masks[:, 2]
-        if edit is not None:
-            edit(center, masks, pat)
-        gmap = GroupedMap(
-            center=torch.as_tensor(center, device=dev).to(idx),
-            masks=torch.as_tensor(masks, device=dev),
-            patho=torch.as_tensor(pat, device=dev),
-            worder=torch.tensor([2, 1, 0] if transposed else [0, 1, 2],
-                                device=dev))
+        gmap = forced_grouped_map(rng, dev, n_in, n_out, idx, p, patho,
+                                  transposed, edit)
         f = torch.as_tensor(rng.standard_normal((n_in, cin)),
                             dtype=torch.float32, device=dev)
         w = torch.as_tensor(rng.standard_normal((27, cin, cout))
@@ -1939,7 +1977,7 @@ def phase_grouped_layers(dev, pairs, weights):
     layers = capture_grouped_layers(model, lambda: pair_features_e2e(
         model, caps, *pair_args(pairs[0]), device=dev))
     rows = []
-    for name, f, w, gmap, _, _ in layers:
+    for name, f, w, gmap, _, _, _ in layers:
         rows.append(grouped_layer_row(name, f, w, gmap))
         emit({"phase": "grouped_layer", "model": "ResUNetSmall2", **rows[-1]})
     del layers
@@ -1948,7 +1986,7 @@ def phase_grouped_layers(dev, pairs, weights):
     ones = [capture_grouped_layers(model, lambda p=p: pair_features_e2e(
         model, caps, *pair_args(p), device=dev)) for p in pairs]
     per_layer = []
-    for j, (name, f4, w, g4, B, m4) in enumerate(batch):
+    for j, (name, f4, w, g4, B, m4, _) in enumerate(batch):
         out4 = kern(f4, w, g4, None, bf)
         outs1 = [kern(o[j][1], w, o[j][3], None, bf) for o in ones]
         per_layer.append(dict(
@@ -3054,12 +3092,13 @@ class OldConvKernels:
 
 
 
-class ParentGroupedConv:
-    """Within the block the backbone's grouped k3 convs run as the parent
-    tree ran them: `sparse_conv_grouped_plain` (9 window gathers through
-    the gather_rows kernel and per-pair cuBLAS products a conv; in
-    training autograd through it keeps the windows). A measurement aid for
-    an A/B in one call; the port never runs so on the card."""
+class PlainGroupedConv:
+    """Within the block the backbone's grouped k3 convs run as the tree
+    before the grouped kernel ran them: `sparse_conv_grouped_plain` (9
+    window gathers through the gather_rows kernel and per-pair cuBLAS
+    products a conv; in training autograd through it keeps the windows).
+    A measurement aid for an A/B in one call; the port never runs so on
+    the card."""
 
     def __enter__(self):
         import umeregrobust_tpu_torch.models.resunet as resunet
@@ -3067,7 +3106,69 @@ class ParentGroupedConv:
             sparse_conv_grouped_plain)
 
         self.mod, self.conv = resunet, resunet.sparse_conv_grouped
-        resunet.sparse_conv_grouped = sparse_conv_grouped_plain
+
+        def plain(*a, adjoint=None, **kw):
+            return sparse_conv_grouped_plain(*a, **kw)
+
+        resunet.sparse_conv_grouped = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sparse_conv_grouped = self.conv
+
+
+class ParentRecomputeGroupedConv:
+    """Within the block the backbone's grouped k3 convs run as the parent
+    tree trained them: the forward kernel, and a backward that recomputes
+    `sparse_conv_grouped_plain` on the saved inputs and differentiates it
+    (its window gathers through gather_rows, their backward through
+    gather_rows_backward, the products through per-pair cuBLAS calls). A
+    measurement aid for an A/B in one call; the port never runs so."""
+
+    def __enter__(self):
+        import torch
+
+        import umeregrobust_tpu_torch.models.resunet as resunet
+        from umeregrobust_tpu_torch.ops.cuda_grouped import (
+            sparse_conv_grouped_kernel)
+        from umeregrobust_tpu_torch.ops.sparse import (
+            sparse_conv_grouped_plain)
+
+        class Recompute(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, feats, weights, bias, gmap, compute_dtype,
+                        pairs):
+                ctx.save_for_backward(feats, weights, bias)
+                ctx.gmap, ctx.compute_dtype = gmap, compute_dtype
+                ctx.pairs = pairs
+                return sparse_conv_grouped_kernel(
+                    feats.to(torch.float32).contiguous(),
+                    weights.contiguous(), gmap, bias, compute_dtype)
+
+            @staticmethod
+            def backward(ctx, g):
+                saved = ctx.saved_tensors
+                need = ctx.needs_input_grad[:3]
+                with torch.enable_grad():
+                    leaves = [None if x is None else
+                              x.detach().requires_grad_(nd)
+                              for x, nd in zip(saved, need)]
+                    out = sparse_conv_grouped_plain(
+                        leaves[0], leaves[1], ctx.gmap, leaves[2],
+                        ctx.compute_dtype, ctx.pairs)
+                    want = [x for x, nd in zip(leaves, need) if nd]
+                    got = iter(torch.autograd.grad(out, want, g)
+                               if want else ())
+                return (*(next(got) if nd else None for nd in need), None,
+                        None, None)
+
+        def recompute(feats, w, gmap, bias=None,
+                      compute_dtype=torch.float32, pairs=1, adjoint=None):
+            return Recompute.apply(feats, w, bias, gmap, compute_dtype,
+                                   pairs)
+
+        self.mod, self.conv = resunet, resunet.sparse_conv_grouped
+        resunet.sparse_conv_grouped = recompute
         return self
 
     def __exit__(self, *exc):
@@ -3079,8 +3180,9 @@ GROUPED_AB_FEATURE_LIMIT = 1e-3  # x max |feature|, fp32 operands
 
 def phase_grouped_ab(dev, model, caps, cfg, pairs, scan_model):
     """This tree's grouped k3 conv (the sparse_conv_grouped kernel) against
-    the parent tree's form (ParentGroupedConv), alternated in one call in
-    the order parent, change, change, parent, twice, after a warm-up of
+    its plain version's form ("parent": PlainGroupedConv, as the tree
+    before the grouped kernel ran it), alternated in one call in the
+    order parent, change, change, parent, after a warm-up of
     each. A round: the pairs one at a time through register_pair_e2e
     (pair i seeded i; pairs/s and each pair's NP / SP verdict), each
     pair's feature stage alone (pair_features_e2e; ms, host clock round a
@@ -3107,7 +3209,7 @@ def phase_grouped_ab(dev, model, caps, cfg, pairs, scan_model):
     bargs = stacked_args(pairs)
 
     def form(kind):
-        return ParentGroupedConv() if kind == "parent" else \
+        return PlainGroupedConv() if kind == "parent" else \
             contextlib.nullcontext()
 
     def features(dt=torch.bfloat16, m=model):
@@ -3160,7 +3262,7 @@ def phase_grouped_ab(dev, model, caps, cfg, pairs, scan_model):
             feats32[kind] = features(torch.float32)
             one_round()
     scan = features(m=scan_model)
-    for kind in ("parent", "change", "change", "parent") * 2:
+    for kind in ("parent", "change", "change", "parent"):
         with form(kind):
             rounds.append(dict(form=kind, **one_round()))
     same = [bool(torch.equal(a, b))
@@ -3718,10 +3820,13 @@ def gather_backward_row(dev, batch, windows):
 def window_gathers(dev, batch, weights):
     """The grouped k3 convs' window gathers of one ResUNetSmall2 training
     forward and backward at train_kitti_config (B = 8, bf16 operands;
-    tables of 3 Cin columns, fp32): the forward runs the grouped kernel,
-    and its backward recomputes the plain version, whose window gathers
-    these are. Every gather of the conv with the most table rows and of
-    the conv with the widest table: `gather_rows` against its plain
+    tables of 3 Cin columns, fp32) as the parent tree trained
+    (ParentRecomputeGroupedConv: the forward kernel, a backward that
+    recomputes the plain version, whose window gathers these are; this
+    tree's training gathers no window, so they stand here as large
+    shapes of both gather kernels). Every gather of the conv with the
+    most table rows and of the conv with the widest table: `gather_rows`
+    against its plain
     version on the CPU and `gather_rows_backward` (a seeded cotangent)
     against its plain version on the CPU, bit for bit, two launches of
     each identical; the forward's device time (CUDA graph) of the first
@@ -3743,10 +3848,12 @@ def window_gathers(dev, batch, weights):
 
     sparse.gather_padded = record
     try:
-        src, tgt, _ = cloud_features(model, batch_to_device(batch, dev),
-                                     _capacities(TrainConfig(), model.arch),
-                                     torch.bfloat16, train=True)
-        (torch.sum(src) + torch.sum(tgt)).backward()
+        with ParentRecomputeGroupedConv():
+            src, tgt, _ = cloud_features(
+                model, batch_to_device(batch, dev),
+                _capacities(TrainConfig(), model.arch), torch.bfloat16,
+                train=True)
+            (torch.sum(src) + torch.sum(tgt)).backward()
     finally:
         sparse.gather_padded = orig
     del src, tgt, model
@@ -3921,57 +4028,357 @@ def wgrad_forced_cases(dev):
     return rows
 
 
+GROUPED_BWD_FP32_LIMIT = 1e-5  # x max |plain|
+GROUPED_BWD_BF16_LIMIT = 1e-4  # x max |plain|, or one bf16 ulp of the entry
+
+
+def grouped_bwd_check(fn, ref, cd):
+    """fn() (a backward kernel's wrapper) against `ref` (its plain version
+    on the card, the same arithmetic) at compute dtype cd: fp32 within
+    GROUPED_BWD_FP32_LIMIT x max |ref|; bf16 (the result rounded to bf16:
+    a last-bit difference of the fp32 sums may land one bf16 ulp away)
+    each entry within the larger of one bf16 ulp of it and
+    GROUPED_BWD_BF16_LIMIT x max |ref|; two launches bit-identical, the
+    first launch's outputs and scratch between guards that must stay
+    unwritten (guarded_empty)."""
+    import torch
+
+    with guarded_empty() as made:
+        a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    diff = (a - ref).abs()
+    if cd == torch.float32:
+        lim = torch.full_like(ref, GROUPED_BWD_FP32_LIMIT * scale)
+    else:
+        _, e = torch.frexp(ref)
+        lim = torch.clamp(torch.ldexp(torch.ones_like(ref), e - 8),
+                          min=GROUPED_BWD_BF16_LIMIT * scale)
+    over = float((diff / torch.clamp(lim, min=1e-30)).max())
+    twice, guards = bool(torch.equal(a, b)), guards_intact(made)
+    return dict(max_abs_err=float(diff.max()), scale=scale,
+                max_err_over_limit=over, two_launches_identical=twice,
+                guards_intact=guards,
+                ok=over <= 1.0 and twice and guards
+                and bool(torch.isfinite(a).all()))
+
+
+def grouped_wgrad_bound(f, dy, gmap):
+    """(bound ms, bound_by) of one grouped conv's weight gradient.
+    Operations: 2 x 3 Cin x Cout a window that some slot uses; bytes: the
+    fp32 X rows some slot reads and dY rows of used windows as they lie,
+    the map, and dW (27, Cin, Cout) fp32 written once."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.sparse import ungroup_kernel_map
+
+    Cin, Cout = f.shape[1], dy.shape[1]
+    used_rows = gmap.masks.any(1) | gmap.patho
+    used = int(used_rows.sum())
+    nbr = ungroup_kernel_map(gmap)
+    rows_read = int(torch.unique(nbr[(nbr >= 0)
+                                     & (nbr < f.shape[0])]).numel())
+    map_bytes = sum(x.numel() * x.element_size()
+                    for x in (gmap.center, gmap.masks, gmap.patho))
+    n_bytes = (rows_read * Cin * 4 + int(used_rows.any(0).sum()) * Cout * 4
+               + map_bytes + 27 * Cin * Cout * 4)
+    return bound_ms(n_bytes, 2 * used * 3 * Cin * Cout, BF16_PEAK)
+
+
+def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
+    """One grouped k3 layer's backward at its training shape (seeded dY):
+    dW (sparse_conv_grouped_wgrad) and, where the layer's input needs a
+    gradient (not the stem), dX (sparse_conv_grouped_dx: the forward
+    kernel over the adjoint map, the weights transposed and, for a self
+    map, the taps reversed), each
+    at fp32 and bf16 against its plain version on the card
+    (grouped_bwd_check); at bf16 device times alone (CUDA graph) of each,
+    beside the parent tree's backward (autograd through
+    sparse_conv_grouped_plain recomputed: what the change replaced; host
+    clock round a synchronize), the per-tap route on ungroup_kernel_map
+    of the same map (PerTapConv.backward: invert_map_batch, the per-tap
+    forward kernel over it, sparse_conv_wgrad), the library route (a
+    gather of the 27 tap rows and one torch.mm a direction; timed only)
+    and the bound of each direction (grouped_bound's formula for dX,
+    grouped_wgrad_bound for dW)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_conv, cuda_grouped
+    from umeregrobust_tpu_torch.ops.cuda_grouped import (
+        sparse_conv_grouped_dx as grouped_dx, sparse_conv_grouped_wgrad)
+    from umeregrobust_tpu_torch.ops.sparse import (
+        _per_tap, invert_map_batch, round_to, sparse_conv_grouped_plain,
+        sparse_conv_grouped_wgrad_plain, ungroup_kernel_map)
+
+    bf = torch.bfloat16
+    _, Cin, Cout = w.shape
+    N_in, N_out = f.shape[0], gmap.center.shape[1]
+    adj, rev = adjoint
+    need_dx = name != "conv1"  # the stem's input is the constant feature
+    dy = torch.randn(N_out, Cout, generator=g, device=f.device)
+    wv = (w.flip(0) if rev else w).transpose(1, 2)
+    checks = {}
+    for cd in (torch.float32, bf):
+        tag = str(cd)[6:]
+        checks[f"dw_{tag}"] = grouped_bwd_check(
+            lambda: sparse_conv_grouped_wgrad(f, dy, gmap, cd),
+            sparse_conv_grouped_wgrad_plain(f, dy, gmap, cd), cd)
+        if need_dx:
+            checks[f"dx_{tag}"] = grouped_bwd_check(
+                lambda: grouped_dx(dy, w, adj, rev, cd),
+                round_to(sparse_conv_grouped_plain(dy, wv, adj, None, cd,
+                                                   pairs), cd), cd)
+
+    def dw_kernel():
+        return sparse_conv_grouped_wgrad(f, dy, gmap, bf)
+
+    def dx_kernel():
+        return grouped_dx(dy, w, adj, rev, bf)
+
+    fx = f.clone().requires_grad_(need_dx)
+    wx = w.clone().requires_grad_()
+
+    def recompute():  # the parent tree's backward of this layer
+        out = sparse_conv_grouped_plain(fx, wx, gmap, None, bf, pairs)
+        return torch.autograd.grad(out, [fx, wx] if need_dx else [wx], dy)
+
+    nbr = ungroup_kernel_map(gmap)
+    ok_in = (nbr >= 0) & (nbr < N_in)
+
+    def per_tap():  # PerTapConv.backward on the ungrouped map
+        dw = cuda_conv.sparse_conv_wgrad(f, dy, nbr, bf)
+        if not need_dx:
+            return dw
+        inv = invert_map_batch(torch.where(ok_in, nbr, -1), N_in)
+        return dw, _per_tap(dy, w.transpose(1, 2), inv, bf, pairs)
+
+    dw_ms = graph_ms(dw_kernel, reps=5, inner=10)
+    dx_ms = graph_ms(dx_kernel, reps=5, inner=10) if need_dx else 0.0
+    bw, bw_by = grouped_wgrad_bound(f, dy, gmap)
+    bx, bx_by = (grouped_bound(dy, wv, adj)[:2] if need_dx else (0.0, None))
+    row = dict(
+        layer=name, cin=Cin, cout=Cout, rows_in=N_in, rows_out=N_out,
+        windows_used=int((gmap.masks.any(1) | gmap.patho).sum()),
+        dx=need_dx, reverse_taps=rev,
+        wgrad_plan=cuda_grouped.wgrad_plan(N_out, Cin, Cout, bf)._asdict(),
+        checks=checks,
+        max_abs_err=checks["dw_bfloat16"]["max_abs_err"],
+        max_err_over_limit=max(c["max_err_over_limit"]
+                               for c in checks.values()),
+        two_launches_identical=all(c["two_launches_identical"]
+                                   for c in checks.values()),
+        guards_intact=all(c["guards_intact"] for c in checks.values()),
+        ok=all(c["ok"] for c in checks.values()),
+        dw_ms=time_ms(dw_kernel, reps=10), dw_kernel_ms=dw_ms,
+        dx_kernel_ms=dx_ms, kernel_ms=dw_ms + dx_ms,
+        dw_plain_ms=time_ms(lambda: sparse_conv_grouped_wgrad_plain(
+            f, dy, gmap, bf), reps=3, warmup=1),
+        recompute_ms=time_ms(recompute, reps=3, warmup=1),
+        per_tap_ms=graph_ms(per_tap, reps=5, inner=5),
+        dw_bound_ms=bw, dw_bound_by=bw_by, dx_bound_ms=bx, dx_bound_by=bx_by,
+        bound_ms=bw + bx, bound_by=bw_by if bw >= bx else bx_by)
+    # the library route: X's (dY's, over the adjoint) 27 tap rows gathered
+    # into one bf16 tensor, then one torch.mm a direction
+    fb = torch.nn.functional.pad(f.to(bf), (0, 0, 0, 1))
+    yb = torch.nn.functional.pad(dy.to(bf), (0, 0, 0, 1))
+    idx = torch.where(ok_in, nbr, N_in).T.contiguous()  # (N_out, 27)
+    nadj = ungroup_kernel_map(adj)
+    idx_a = torch.where((nadj >= 0) & (nadj < N_out), nadj,
+                        N_out).T.contiguous()  # (N_in, 27)
+    wt = wv.reshape(27 * Cout, Cin).to(bf)
+
+    def library_dw():
+        return torch.mm(fb[idx].reshape(N_out, 27 * Cin).T, yb[:N_out])
+
+    def library_dx():
+        return torch.mm(yb[idx_a].reshape(N_in, 27 * Cout), wt)
+
+    if max(N_out * 27 * Cin, N_in * 27 * Cout) * 2 > IM2COL_LIMIT:
+        row.update(library_dw_ms=None, library_dx_ms=None, library_ms=None)
+    else:
+        lw = graph_ms(library_dw, reps=5, inner=5)
+        lx = graph_ms(library_dx, reps=5, inner=5) if need_dx else 0.0
+        row.update(library_dw_ms=lw, library_dx_ms=lx, library_ms=lw + lx)
+    return row
+
+
+def grouped_bwd_layers(dev, batch, weights):
+    """Every grouped k3 conv of a ResUNetSmall2 training forward (the
+    in-repo weights) at train_kitti_config (B = 8), captured with the
+    adjoint the model hands its backward: one grouped_bwd_row each."""
+    import torch
+
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, _capacities, batch_to_device, cloud_features)
+
+    model = load_model(weights, ARCHS["ResUNetSmall2"], device=dev)
+    bt = batch_to_device(batch, dev)
+    layers = capture_grouped_layers(model, lambda: cloud_features(
+        model, bt, _capacities(TrainConfig(), model.arch), torch.bfloat16,
+        train=True))
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = []
+    for name, f, w, gmap, pairs, _, adjoint in layers:
+        rows.append(grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g))
+        emit({"phase": "grouped_bwd_layer", "model": "ResUNetSmall2",
+              "B": TRAIN_B, **rows[-1]})
+    return rows
+
+
+def grouped_wgrad_forced_cases(dev):
+    """The grouped backward's kernels on forced maps (forced_grouped_map):
+    Cin 1 / 3 / 20 / 768, Cout 5 / 7 / 48 / 256, N_out above and below
+    N_in, more splits than one, a group no window uses and a stretch of
+    rows that use none (skipped steps), many patho rows, both slot
+    orders, int32 and int64 centres, and an all-masked level (dW and dX
+    exact zeros): sparse_conv_grouped_wgrad and the dX route
+    (sparse_conv_grouped_dx, taps reversed in every other case) against
+    their plain versions at fp32 and bf16 (grouped_bwd_check)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.cuda_grouped import (
+        sparse_conv_grouped_dx as grouped_dx, sparse_conv_grouped_wgrad)
+    from umeregrobust_tpu_torch.ops.sparse import (
+        round_to, sparse_conv_grouped_plain, sparse_conv_grouped_wgrad_plain)
+
+    rng = np.random.default_rng(23)
+
+    def unused(center, masks, pat):  # group 4 unused, rows 1000-8999 too
+        masks[4], pat[4] = False, False
+        masks[:, :, 1000:9000], pat[:, 1000:9000] = False, False
+
+    i32, i64 = torch.int32, torch.int64
+    cases = {  # n_in, n_out, cin, cout, centres, map options
+        "cin1_cout48_nout_gt_nin": (3000, 9000, 1, 48, i64, {}),
+        "cin3_cout7_nout_lt_nin": (5000, 2000, 3, 7, i32, {}),
+        "cin20_cout5_transposed": (4000, 4000, 20, 5, i64,
+                                   dict(transposed=True)),
+        "cin768_cout256": (400, 300, 768, 256, i32, dict(p=0.2)),
+        "unused_group_and_rows": (2000, 20000, 32, 48, i64,
+                                  dict(edit=unused)),
+        "patho_rows": (1500, 1500, 24, 32, i64, dict(p=0.3, patho=0.6)),
+        "all_masked": (800, 900, 16, 32, i32, dict(p=0.0, patho=0.0)),
+        "many_splits": (30000, 70000, 8, 16, i64, dict(transposed=True)),
+    }
+    res, ok_all = {}, True
+    for j, (label, (n_in, n_out, cin, cout, idx, opt)) in enumerate(
+            cases.items()):
+        gmap = forced_grouped_map(rng, dev, n_in, n_out, idx, **opt)
+        f = torch.as_tensor(rng.standard_normal((n_in, cin)),
+                            dtype=torch.float32, device=dev)
+        dy = torch.as_tensor(rng.standard_normal((n_out, cout)),
+                             dtype=torch.float32, device=dev)
+        w = torch.as_tensor(rng.standard_normal((27, cin, cout))
+                            / np.sqrt(27 * cin), dtype=torch.float32,
+                            device=dev)
+        rev = j % 2 == 1
+        wv = (w.flip(0) if rev else w).transpose(1, 2)
+        # the dX route's input: n_in rows of Cout, through the same map
+        x = torch.as_tensor(rng.standard_normal((n_in, cout)),
+                            dtype=torch.float32, device=dev)
+        r = {}
+        for cd in (torch.float32, torch.bfloat16):
+            tag = str(cd)[6:]
+            r[f"dw_{tag}"] = grouped_bwd_check(
+                lambda: sparse_conv_grouped_wgrad(f, dy, gmap, cd),
+                sparse_conv_grouped_wgrad_plain(f, dy, gmap, cd), cd)
+            r[f"dx_{tag}"] = grouped_bwd_check(
+                lambda: grouped_dx(x, w, gmap, rev, cd),
+                round_to(sparse_conv_grouped_plain(x, wv, gmap, None, cd),
+                         cd), cd)
+        if label == "all_masked":  # nothing is read: exact zeros
+            for cd in (torch.float32, torch.bfloat16):
+                dw = sparse_conv_grouped_wgrad(f, dy, gmap, cd)
+                dx = grouped_dx(x, w, gmap, False, cd)
+                r[f"dw_{str(cd)[6:]}"]["ok"] &= not bool(dw.any()
+                                                         or dx.any())
+        ok = all(v["ok"] for v in r.values())
+        ok_all &= ok
+        res[label] = dict(
+            shape=f"{cin}->{cout}, {n_in}->{n_out} rows, "
+                  f"{str(idx)[6:]} centres, reverse_taps {rev}",
+            ok=ok, **r)
+    return res, ok_all
+
+
 def train_steps(trainer, batch, steps):
     """One warm-up step, then `steps` counted ones (launch counts set to 0
     just before them): per step ms (host clock round a synchronize),
-    losses and metrics; peak device memory; launches a step."""
+    losses and metrics; peak device memory; launches a step; the grouped
+    convs' window gathers a step (calls of ops/sparse.py's gather_padded,
+    which only the grouped conv's plain version makes)."""
     import torch
 
+    from umeregrobust_tpu_torch.ops import sparse
     from umeregrobust_tpu_torch.train.trainer import batch_to_device
 
     bt = batch_to_device(batch, trainer.device)
     warm = trainer.train_step(bt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    orig, windows = sparse.gather_padded, []
+
+    def counted(*a, **kw):
+        windows.append(1)
+        return orig(*a, **kw)
+
     reset_launch_counts()
     rows = []
-    for _ in range(steps):
-        t0 = time.time()
-        m = trainer.train_step(bt)
-        torch.cuda.synchronize()
-        rows.append(dict(ms=(time.time() - t0) * 1e3, **m))
+    sparse.gather_padded = counted
+    try:
+        for _ in range(steps):
+            t0 = time.time()
+            m = trainer.train_step(bt)
+            torch.cuda.synchronize()
+            rows.append(dict(ms=(time.time() - t0) * 1e3, **m))
+    finally:
+        sparse.gather_padded = orig
     lc = launch_counts()
     return dict(warmup=warm, steps=rows,
                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                 launches=lc, launches_per_step={k: v / steps
-                                                for k, v in lc.items()})
+                                                for k, v in lc.items()},
+                window_gathers_per_step=len(windows) / steps)
 
 
 def train_ab(trainer, batch, steps=2):
-    """ResUNetSmall2 training with the grouped kernel (the change) against
-    the parent tree's form (ParentGroupedConv: autograd through the plain
-    version, which keeps its windows for the backward), alternated parent,
-    change, change, parent: per turn train_steps (a warm-up step, then
-    `steps`): ms a step, peak device memory, launches a step."""
+    """ResUNetSmall2 training with the grouped backward's kernels (the
+    change) against the parent tree's form (ParentRecomputeGroupedConv:
+    the forward kernel, a backward that recomputes the plain version),
+    alternated parent, change, change, parent: per turn train_steps (a
+    warm-up step, then `steps`: ms a step, peak device memory, launches
+    and window gathers a step, the losses), then one step under
+    torch.profiler (profile_step: kernels a step, aten::mm calls, device
+    busy ms) in the first turn of each form. The trainer's weights move
+    on with every step, so each turn's losses are of its own steps."""
     import contextlib
 
     rows = []
-    for kind in ("parent", "change", "change", "parent"):
-        with (ParentGroupedConv() if kind == "parent"
+    for i, kind in enumerate(("parent", "change", "change", "parent")):
+        with (ParentRecomputeGroupedConv() if kind == "parent"
               else contextlib.nullcontext()):
             r = train_steps(trainer, batch, steps)
+            prof = profile_step(trainer, batch) if i < 2 else {}
         rows.append(dict(form=kind, ms=[st["ms"] for st in r["steps"]],
+                         total_loss=[st["total_loss"] for st in r["steps"]],
                          max_memory_allocated_bytes=r[
                              "max_memory_allocated_bytes"],
-                         launches_per_step=r["launches_per_step"]))
+                         launches_per_step=r["launches_per_step"],
+                         window_gathers_per_step=r["window_gathers_per_step"],
+                         **{k: prof[k] for k in (
+                             "wall_ms", "device_busy_ms", "kernels",
+                             "mm_calls", "device_idle_share") if k in prof}))
     return rows
 
 
 def profile_step(trainer, batch, top=8):
     """One train step under torch.profiler: its wall ms (host clock round
     a synchronize), the device's busy ms (the sum of its kernels'
-    times), the CUDA kernels launched, and the `top` ops by self device
-    time."""
+    times), the CUDA kernels launched, the aten::mm calls, and the `top`
+    ops by self device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3988,8 +4395,10 @@ def profile_step(trainer, batch, top=8):
     ks = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(k.time_range.elapsed_us() for k in ks) / 1e3
-    ops = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    avgs = prof.key_averages()
+    ops = sorted(avgs, key=lambda a: -a.self_device_time_total)
     return dict(wall_ms=wall, device_busy_ms=busy, kernels=len(ks),
+                mm_calls=sum(a.count for a in avgs if a.key == "aten::mm"),
                 device_idle_share=max(0.0, 1.0 - busy / wall),
                 top_device_ops=[dict(op=a.key[:80], count=a.count,
                                      device_ms=a.self_device_time_total / 1e3)
@@ -4077,7 +4486,8 @@ def write_train_tree(root, n_train, n_val):
 
 
 def phase_train(dev, t_start):
-    """Phase 5i: (a) the backward kernels' checks and times; (b)
+    """Phase 5j: (a) the backward kernels' checks and times (the grouped
+    conv's: grouped_bwd_layers, grouped_wgrad_forced_cases); (b)
     ResUNetSmall2 (the in-repo weights) at train_kitti_config's widths:
     B = 8, 16384 voxels a cloud, 512 matches, 256 UME keypoints, max_nn
     750, min_nn 300, r 5, bf16 operands, TRAIN_STEPS steps on HDL-64
@@ -4156,6 +4566,56 @@ def phase_train(dev, t_start):
         forced=forced,
         ok=all(r["ok"] for r in rows) and all(c["ok"] for c in forced)
         and out["stress"]["ok"])
+
+    # the grouped k3 conv's backward: dW's kernel, dX through the forward
+    # kernel over the adjoint map, at the 18 layers' B = 8 training shapes
+    t0 = time.time()
+    g_rows = grouped_bwd_layers(dev, batch, weights)
+    g_forced, g_forced_ok = grouped_wgrad_forced_cases(dev)
+    g_seconds = time.time() - t0
+    emit({"phase": "grouped_wgrad_forced", "ok": g_forced_ok, **g_forced})
+    dx_rows = [r for r in g_rows if r["dx"]]
+    lib = [r["library_ms"] for r in g_rows]
+    out["grouped_bwd"] = dict(
+        layers=len(g_rows), dx_layers=len(dx_rows),
+        dx_kernel_ms=sum(r["dx_kernel_ms"] for r in dx_rows),
+        dx_bound_ms=sum(r["dx_bound_ms"] for r in dx_rows),
+        dx_max_abs_err=max(r["checks"]["dx_bfloat16"]["max_abs_err"]
+                           for r in dx_rows),
+        kernel_ms=sum(r["kernel_ms"] for r in g_rows),
+        recompute_ms=sum(r["recompute_ms"] for r in g_rows),
+        per_tap_ms=sum(r["per_tap_ms"] for r in g_rows),
+        library_ms=None if None in lib else sum(lib),
+        bound_ms=sum(r["bound_ms"] for r in g_rows),
+        max_err_over_limit=max(r["max_err_over_limit"] for r in g_rows),
+        forced_ok=g_forced_ok, seconds=g_seconds,
+        ok=len(g_rows) == 18 and len(dx_rows) == 17
+        and all(r["ok"] for r in g_rows) and g_forced_ok)
+    emit({"phase": "grouped_bwd_summary", "model": "ResUNetSmall2",
+          "B": TRAIN_B, **out["grouped_bwd"],
+          "seconds_total": time.time() - t_start})
+    kern["sparse_conv_grouped_wgrad"] = dict(
+        shape=f"ResUNetSmall2's 18 grouped k3 layers at train_kitti_config "
+              f"(B = {TRAIN_B}, bf16): " + "; ".join(
+                  f"{r['layer']} {r['cin']}->{r['cout']}, {r['rows_in']}->"
+                  f"{r['rows_out']} rows, {r['windows_used']} windows"
+                  for r in g_rows),
+        max_abs_err=max(r["max_abs_err"] for r in g_rows),
+        max_rel_err=max(r["checks"]["dw_bfloat16"]["max_abs_err"]
+                        / max(r["checks"]["dw_bfloat16"]["scale"], 1e-30)
+                        for r in g_rows),
+        max_err_over_limit=max(r["max_err_over_limit"] for r in g_rows),
+        ms=sum(r["dw_ms"] for r in g_rows),
+        kernel_ms=sum(r["dw_kernel_ms"] for r in g_rows),
+        plain_ms=sum(r["dw_plain_ms"] for r in g_rows),
+        bound_ms=sum(r["dw_bound_ms"] for r in g_rows),
+        bound_by=max(g_rows, key=lambda r: r["dw_bound_ms"])["dw_bound_by"],
+        library_ms=(None if None in lib else
+                    sum(r["library_dw_ms"] for r in g_rows)),
+        backward_kernel_ms=out["grouped_bwd"]["kernel_ms"],
+        recompute_ms=out["grouped_bwd"]["recompute_ms"],
+        per_tap_ms=out["grouped_bwd"]["per_tap_ms"],
+        forced=g_forced, ok=out["grouped_bwd"]["ok"])
 
     # (b) ResUNetSmall2 at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
@@ -4870,6 +5330,8 @@ def main() -> int:
           "library": os.path.relpath(str(_build.build_library()), ROOT),
           "ptxas_sparse_conv_taps": ptxas_report(),
           "ptxas_sparse_conv_grouped": ptxas_report("sparse_conv_grouped.cu"),
+          "ptxas_sparse_conv_grouped_wgrad": ptxas_report(
+              "sparse_conv_grouped_wgrad.cu"),
           "ptxas_nn1_argmin": ptxas_report("nn1_argmin.cu"),
           "ptxas_gather_rows_backward": {
               k: v for k, v in ptxas_report("gather_rows.cu").items()
@@ -5116,6 +5578,12 @@ def main() -> int:
     kern.update(train_kern)
     kern["gather_rows"]["ok"] = (kern["gather_rows"]["ok"]
                                  and train_res["windows"]["ok"])
+    gb = train_res["grouped_bwd"]  # its dX route: this kernel, adjoint map
+    kern["sparse_conv_grouped"].update(
+        train_dx_kernel_ms=gb["dx_kernel_ms"],
+        train_dx_bound_ms=gb["dx_bound_ms"],
+        train_dx_max_abs_err=gb["dx_max_abs_err"],
+        ok=kern["sparse_conv_grouped"]["ok"] and gb["ok"])
 
     # --- 5k. the parallel layer, the hash grid and the native host ops
     emit({"phase": "parallel_start", "seconds_total": time.time() - t_start})
@@ -5134,7 +5602,7 @@ def main() -> int:
              **par_paths}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
-        with ParentGroupedConv():  # the parent tree's grouped conv
+        with PlainGroupedConv():  # the plain version's grouped conv
             run(pairs[0], 0)  # warm-up
             phase_profile(run, pairs, cfg, None, "grouped_parent")
         phase_profile(lambda p, i: run(p, i, scan_model), pairs, cfg,
@@ -5165,7 +5633,7 @@ def main() -> int:
                           "resunet_old_conv_kernels")
         del res_model
         # phase 5d's two batches (its seeds and budget), one batch each,
-        # then again with the parent tree's grouped conv
+        # then again with the plain version's grouped conv
         for parent in (False, True):
             for label, tag, batch in (("regimes", "batched", pairs),
                                       ("regimes_x2", "batched_x2",
@@ -5178,7 +5646,7 @@ def main() -> int:
                         generators=[torch.Generator(device=dev).manual_seed(
                             i) for i in range(len(batch))])
 
-                with (ParentGroupedConv() if parent
+                with (PlainGroupedConv() if parent
                       else contextlib.nullcontext()):
                     if parent:
                         run_all()  # warm-up
@@ -5258,6 +5726,10 @@ def main() -> int:
         if not all(np.isfinite(st["total_loss"])
                    for st in train_res[k]["steps"]):
             failures.append(f"train {k}: a non-finite loss")
+    if train_res["small2"]["window_gathers_per_step"] != 0:
+        failures.append("train small2: the grouped convs gathered "
+                        f"{train_res['small2']['window_gathers_per_step']} "
+                        "windows a step, not 0")
     if not train_res["card_vs_cpu"]["ok"]:
         failures.append("train: card and CPU losses differ beyond 1e-3, or "
                         f"a gradient leaf beyond {GRAD_LEAF_TOL} of its max")
@@ -5277,15 +5749,18 @@ def main() -> int:
                "rtume": ("ume_moments_fused",),
                "family": FORWARD_KERNELS,
                "train_small2": ("gather_rows", "gather_rows_backward",
-                                "sparse_conv_grouped"),
+                                "sparse_conv_grouped",
+                                "sparse_conv_grouped_wgrad"),
                "train_resunet": ("gather_rows", "gather_rows_backward",
                                  "sparse_conv_rowtile", "sparse_conv_tapsplit",
                                  "sparse_conv_wgrad"),
                "train_cli": ("gather_rows", "gather_rows_backward",
-                             "sparse_conv_grouped"),
+                             "sparse_conv_grouped",
+                             "sparse_conv_grouped_wgrad"),
                "parallel_sp": ("ume_moments_fused",),
                "parallel_dp": ("gather_rows", "gather_rows_backward",
-                               "sparse_conv_grouped"),
+                               "sparse_conv_grouped",
+                               "sparse_conv_grouped_wgrad"),
                **{f"widths_{k}": ("ume_moments_fused", "corr_scores_fused",
                                   "gather_rows", "sparse_conv_grouped")
                   for k in wide},

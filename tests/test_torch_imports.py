@@ -255,11 +255,15 @@ def test_load_library_raises_without_nvcc(no_nvcc):
     lambda d: sparse_conv_grouped(
         torch.zeros(8, 4, device=d), torch.zeros(27, 4, 6, device=d),
         _grouped_map(d)),
+    lambda d: cuda_grouped.sparse_conv_grouped_wgrad(
+        torch.zeros(8, 4, device=d), torch.zeros(8, 6, device=d),
+        _grouped_map(d), compute_dtype=torch.bfloat16),
 ], ids=["nn1_argmin", "ume_moments_fused", "ume_moments_fused_caps",
         "corr_scores_fused", "gather_rows", "gather_padded",
         "sparse_conv_rowtile", "sparse_conv_tapsplit", "sparse_conv",
         "conv_entries", "gather_rows_backward", "sparse_conv_wgrad",
-        "sparse_conv_grouped_kernel", "sparse_conv_grouped"])
+        "sparse_conv_grouped_kernel", "sparse_conv_grouped",
+        "sparse_conv_grouped_wgrad"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
@@ -311,7 +315,8 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
     assert sorted(kernels) == sorted([
         "nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
         "sparse_conv_rowtile", "sparse_conv_tapsplit",
-        "gather_rows_backward", "sparse_conv_wgrad", "sparse_conv_grouped"])
+        "gather_rows_backward", "sparse_conv_wgrad", "sparse_conv_grouped",
+        "sparse_conv_grouped_wgrad"])
     entry = {"ume_moments_fused": "umr_ume_moments",
              "corr_scores_fused": "umr_corr_scores"}
     for name, (source, replaces) in kernels.items():

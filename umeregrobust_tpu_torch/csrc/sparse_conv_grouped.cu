@@ -53,11 +53,17 @@
 // fp32 operands take an FMA tile of the same order (64 x 64 outputs a
 // block, 16 K entries a step, each output one fmaf chain over g, then k
 // ascending; no TF32).
+// In training the same kernel gives the input's gradient: dX is dY's conv
+// over the adjoint map (the pyramid builds it beside the map) with each
+// tap's weights transposed, and for a self map the taps reversed; the
+// `dx_taps` argument makes the weight copy read them so, and rounds dX to
+// bf16 in the epilogue. The weights' gradient is
+// sparse_conv_grouped_wgrad.cu.
 #include "common.cuh"
+#include "grouped_window.cuh"
 
 namespace {
 
-constexpr int kGroups = 9;
 constexpr int kBM = 128;  // output rows a block (also 64 and 32: small grids)
 constexpr int kBN = 64;   // output channels a block
 constexpr int kKC = 64;   // K entries a step (four k16 products)
@@ -72,22 +78,6 @@ constexpr int kFM = 64;        // FMA tile: output rows a block
 constexpr int kFN = 64;        //   output channels a block
 constexpr int kFK = 16;        //   K entries a step
 
-// The 3 input rows of window (g, row), -1 where the slot reads zeros.
-template <typename IdxT>
-__device__ __forceinline__ void window_rows(
-    const IdxT* __restrict__ center, const unsigned char* __restrict__ masks,
-    const unsigned char* __restrict__ patho, int g, int64_t row,
-    int64_t N_in, int64_t N_out, int (&src)[3]) {
-  const int64_t c = (int64_t)center[(int64_t)g * N_out + row] - 1;
-  const unsigned char* m = masks + (int64_t)g * 3 * N_out + row;
-  int64_t r[3] = {m[0] ? c - 1 : -1, m[N_out] ? c : -1,
-                  m[2 * N_out] ? c + 1
-                               : (patho[(int64_t)g * N_out + row] ? c : -1)};
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-    src[s] = (r[s] >= 0 && r[s] < N_in) ? (int)r[s] : -1;
-}
-
 // Bit g of the result: some row of [row0, row0 + rows) uses group g.
 __device__ __forceinline__ unsigned used_groups(
     const unsigned char* __restrict__ masks,
@@ -100,26 +90,26 @@ __device__ __forceinline__ unsigned used_groups(
     const int g = e / rows;
     const int64_t row = row0 + e % rows;
     if (row >= N_out) continue;
-    const unsigned char* m = masks + (int64_t)g * 3 * N_out + row;
-    if (m[0] | m[N_out] | m[2 * N_out] | patho[(int64_t)g * N_out + row])
-      mine |= 1u << g;
+    if (window_used(masks, patho, g, row, N_out)) mine |= 1u << g;
   }
   if (mine) atomicOr(s_used, mine);
   __syncthreads();
   return *s_used;
 }
 
-// Features -> bf16 rows (N_in, Cin8); weights (27, Cin, Cout) f32 ->
-// slot-ordered bf16 (9, K3 = 3 Cin8, Cout8): row g K3 + s Cin8 + c holds
-// weights[3 g + worder[s]][c] for c < Cin, zeros past Cin and past Cout.
-// One thread a 16-byte piece.
+// Features -> bf16 rows (N_in, Cin8); weights -> slot-ordered bf16 (9,
+// K3 = 3 Cin8, Cout8): row g K3 + s Cin8 + c holds W[3 g + worder[s]][c]
+// for c < Cin, zeros past Cin and past Cout, where W is w (dx_taps 0),
+// or for a backward's dX, w holding (27, Cout, Cin), W[k] = w[k]^T
+// (dx_taps 1) or w[26 - k]^T (dx_taps 2). One thread a 16-byte piece.
 __global__ void grouped_prep_kernel(const float* __restrict__ feats,
                                     __nv_bfloat16* __restrict__ xb,
                                     int64_t x_pieces, int Cin,
                                     const float* __restrict__ w,
                                     const long long* __restrict__ worder,
                                     __nv_bfloat16* __restrict__ wb,
-                                    int64_t w_pieces, int Cout) {
+                                    int64_t w_pieces, int Cout,
+                                    int dx_taps) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t < x_pieces) {
     to_bf16_piece(feats, xb, t, Cin);
@@ -132,11 +122,20 @@ __global__ void grouped_prep_kernel(const float* __restrict__ feats,
   const int K3 = 3 * Cin8;
   const int g = (int)(row / K3), k = (int)(row % K3);
   const int s = k / Cin8, c = k - s * Cin8;
+  int tap = 3 * g + (int)worder[s];
+  if (dx_taps == 2) tap = 26 - tap;
   float v[8];
-  const float* src = w + ((int64_t)(3 * g + (int)worder[s]) * Cin + c) * Cout;
+  if (dx_taps != 0) {
+    const float* src = w + (int64_t)tap * Cout * Cin + c;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    v[j] = (c < Cin && n0 + j < Cout) ? src[n0 + j] : 0.f;
+    for (int j = 0; j < 8; ++j)
+      v[j] = (c < Cin && n0 + j < Cout) ? src[(int64_t)(n0 + j) * Cin] : 0.f;
+  } else {
+    const float* src = w + ((int64_t)tap * Cin + c) * Cout;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = (c < Cin && n0 + j < Cout) ? src[n0 + j] : 0.f;
+  }
   *reinterpret_cast<uint4*>(wb + row * Cout8 + n0) =
       make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                  pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
@@ -154,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
                        const unsigned char* __restrict__ patho,
                        const float* __restrict__ bias,
                        float* __restrict__ out, int64_t N_in, int64_t N_out,
-                       int Cin8, int Cout, int Cout8) {
+                       int Cin8, int Cout, int Cout8, int round_out) {
   constexpr int WM = BM / 32, WN = 8 / WM, CW = kBN / WN, NI = CW / 8;
   constexpr int AP = BM / 32;  // A pieces a thread a step
   constexpr int kStage = BM * kLdA + kKC * kLdB;  // bf16 a stage
@@ -295,6 +294,10 @@ __global__ void __launch_bounds__(kThreads)
           if (col < Cout) v0 += bias[col];
           if (col + 1 < Cout) v1 += bias[col + 1];
         }
+        if (round_out) {  // a gradient, held in fp32 at bf16 precision
+          v0 = __bfloat162float(__float2bfloat16_rn(v0));
+          v1 = __bfloat162float(__float2bfloat16_rn(v1));
+        }
         if (pairs && col + 1 < Cout) {
           *reinterpret_cast<float2*>(dst + col) = make_float2(v0, v1);
         } else {
@@ -317,7 +320,7 @@ __global__ void __launch_bounds__(kThreads)
                        const long long* __restrict__ worder,
                        const float* __restrict__ bias,
                        float* __restrict__ out, int64_t N_in, int64_t N_out,
-                       int Cin, int Cout) {
+                       int Cin, int Cout, int dx_taps) {
   __shared__ float sA[kFK][kFM + 4];
   __shared__ __align__(16) float sB[kFK][kFN];
   __shared__ int s_win[3][kFM];
@@ -355,9 +358,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = tid; e < kFK * kFN; e += kThreads) {
         const int j = e >> 6, n = e & 63, k = k0 + j;
         const int s = k / Cin, c = k - s * Cin;
-        const int tap = 3 * g + (s == 0 ? w0 : s == 1 ? w1 : w2);
+        int tap = 3 * g + (s == 0 ? w0 : s == 1 ? w1 : w2);
+        if (dx_taps == 2) tap = 26 - tap;
         sB[j][n] = (k < K3 && n0 + n < Cout)
-                       ? w[((int64_t)tap * Cin + c) * Cout + n0 + n]
+                       ? w[dx_taps != 0
+                               ? ((int64_t)tap * Cout + n0 + n) * Cin + c
+                               : ((int64_t)tap * Cin + c) * Cout + n0 + n]
                        : 0.f;
       }
       __syncthreads();
@@ -394,7 +400,7 @@ int launch_mma(const __nv_bfloat16* xh, const __nv_bfloat16* wh,
                const IdxT* ctr, const unsigned char* masks,
                const unsigned char* patho, const float* bias, float* out,
                int64_t N_in, int64_t N_out, int Cin8, int Cout, int Cout8,
-               cudaStream_t st) {
+               int round_out, cudaStream_t st) {
   const size_t smem = (size_t)kStages * (BM * kLdA + kKC * kLdB) * 2;
   const int code = (int)cudaFuncSetAttribute(
       grouped_mma_kernel<IdxT, BM>,
@@ -402,7 +408,8 @@ int launch_mma(const __nv_bfloat16* xh, const __nv_bfloat16* wh,
   if (code != 0) return code;
   dim3 grid((unsigned)((N_out + BM - 1) / BM), (Cout + kBN - 1) / kBN);
   grouped_mma_kernel<IdxT, BM><<<grid, kThreads, smem, st>>>(
-      xh, wh, ctr, masks, patho, bias, out, N_in, N_out, Cin8, Cout, Cout8);
+      xh, wh, ctr, masks, patho, bias, out, N_in, N_out, Cin8, Cout, Cout8,
+      round_out);
   return 0;
 }
 
@@ -412,13 +419,13 @@ int launch_grouped(const float* feats, const float* w, const void* center,
                    const long long* worder, const float* bias, void* xb,
                    void* wb, float* out, int64_t N_in, int64_t N_out,
                    int Cin, int Cout, bool bf16, int tile_rows,
-                   cudaStream_t st) {
+                   int dx_taps, cudaStream_t st) {
   const IdxT* ctr = static_cast<const IdxT*>(center);
   if (!bf16) {
     dim3 grid((unsigned)((N_out + kFM - 1) / kFM), (Cout + kFN - 1) / kFN);
     grouped_fma_kernel<IdxT><<<grid, kThreads, 0, st>>>(
         feats, w, ctr, masks, patho, worder, bias, out, N_in, N_out, Cin,
-        Cout);
+        Cout, dx_taps);
     return static_cast<int>(cudaGetLastError());
   }
   const int Cin8 = round8(Cin), Cout8 = round8(Cout);
@@ -427,16 +434,18 @@ int launch_grouped(const float* feats, const float* w, const void* center,
   const int64_t px = N_in * (Cin8 / 8);
   const int64_t pw = (int64_t)kGroups * 3 * Cin8 * (Cout8 / 8);
   grouped_prep_kernel<<<(unsigned)((px + pw + 255) / 256), 256, 0, st>>>(
-      feats, xh, px, Cin, w, worder, wh, pw, Cout);
+      feats, xh, px, Cin, w, worder, wh, pw, Cout, dx_taps);
+  const int round_out = dx_taps != 0;  // a gradient: rounded as autograd
+                                       // through the operands' rounding
   const int code =
       tile_rows == 32
           ? launch_mma<IdxT, 32>(xh, wh, ctr, masks, patho, bias, out, N_in,
-                                 N_out, Cin8, Cout, Cout8, st)
+                                 N_out, Cin8, Cout, Cout8, round_out, st)
       : tile_rows == 64
           ? launch_mma<IdxT, 64>(xh, wh, ctr, masks, patho, bias, out, N_in,
-                                 N_out, Cin8, Cout, Cout8, st)
+                                 N_out, Cin8, Cout, Cout8, round_out, st)
           : launch_mma<IdxT, kBM>(xh, wh, ctr, masks, patho, bias, out, N_in,
-                                  N_out, Cin8, Cout, Cout8, st);
+                                  N_out, Cin8, Cout, Cout8, round_out, st);
   if (code != 0) return code;
   return static_cast<int>(cudaGetLastError());
 }
@@ -450,7 +459,11 @@ int launch_grouped(const float* feats, const float* w, const void* center,
 // rounded to bf16, with caller-allocated scratch xb (max(N_in, 1),
 // round8(Cin)) and wb (9, 3 round8(Cin), round8(Cout)) bf16, on row
 // tiles of tile_rows (128, 64 or 32; a row's sums run in the same order
-// on any); bf16 0: fp32 operands (xb, wb, tile_rows unused).
+// on any); bf16 0: fp32 operands (xb, wb, tile_rows unused). dx_taps 0:
+// the conv; 1 or 2: a backward's dX, dY's conv over the adjoint map, with
+// weights (27, Cout, Cin) of the forward read as each tap transposed (2:
+// also the taps reversed, a self map's adjoint) by the weight copy, and
+// with bf16 the output rounded to bf16 (held in fp32).
 UMR_EXPORT int umr_sparse_conv_grouped(const float* feats, const float* w,
                                        const void* center,
                                        const unsigned char* masks,
@@ -460,20 +473,20 @@ UMR_EXPORT int umr_sparse_conv_grouped(const float* feats, const float* w,
                                        float* out, long long N_in,
                                        long long N_out, int Cin, int Cout,
                                        int idx64, int bf16, int tile_rows,
-                                       void* stream) {
+                                       int dx_taps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N_in < 0 || N_out < 1 || N_in >= (1ll << 31) - 8 ||
       N_out >= (1ll << 31) - kBM || Cin < 1 || Cout < 1 ||
       3ll * round8(Cin) >= (1ll << 31) - kKC ||
-      (Cout + kBN - 1) / kBN > 65535 ||
+      (Cout + kBN - 1) / kBN > 65535 || dx_taps < 0 || dx_taps > 2 ||
       (bf16 && (xb == nullptr || wb == nullptr ||
                 (tile_rows != 32 && tile_rows != 64 && tile_rows != kBM))))
     return (int)cudaErrorInvalidValue;
   if (idx64)
     return launch_grouped<int64_t>(feats, w, center, masks, patho, worder,
                                    bias, xb, wb, out, N_in, N_out, Cin, Cout,
-                                   bf16 != 0, tile_rows, st);
+                                   bf16 != 0, tile_rows, dx_taps, st);
   return launch_grouped<int32_t>(feats, w, center, masks, patho, worder, bias,
                                  xb, wb, out, N_in, N_out, Cin, Cout,
-                                 bf16 != 0, tile_rows, st);
+                                 bf16 != 0, tile_rows, dx_taps, st);
 }

@@ -10,7 +10,8 @@ L2 normalisation. The geometry (coordinate pyramid + kernel maps) is built
 once per forward input by `build_unet_geometry`: all-k3 archs take the
 rank-join fast path, the others the generic exact-match join. k=3 layers
 run the grouped-window conv (`ops.sparse.sparse_conv_grouped`, the CUDA
-kernel of ops/cuda_grouped.py on the card), k5/k7 layers and
+kernels of ops/cuda_grouped.py on the card; each conv is handed the
+adjoint of its map, over which its backward's dX runs), k5/k7 layers and
 `conv_impl="scan"` the per-tap conv (`ops.sparse.sparse_conv`, the CUDA
 kernels of ops/cuda_conv.py on the card).
 """
@@ -328,13 +329,16 @@ def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
 
 
 def _conv(feats: torch.Tensor, w: torch.Tensor, nbr,
-          compute_dtype: torch.dtype, pairs: int = 1) -> torch.Tensor:
-    """Dispatch on the map's form: GroupedMap -> grouped-window conv, a
-    plain (K, N_out) table -> per-tap conv. pairs=B: every call is made
-    as for one pair's level (a pyramid of B pairs)."""
+          compute_dtype: torch.dtype, pairs: int = 1, adjoint=None
+          ) -> torch.Tensor:
+    """Dispatch on the map's form: GroupedMap -> grouped-window conv (with
+    `adjoint` = (the map's adjoint, reverse_taps), which its backward on
+    the card runs dX over), a plain (K, N_out) table -> per-tap conv.
+    pairs=B: every call is made as for one pair's level (a pyramid of B
+    pairs)."""
     if isinstance(nbr, GroupedMap):
         return sparse_conv_grouped(feats, w, nbr, compute_dtype=compute_dtype,
-                                   pairs=pairs)
+                                   pairs=pairs, adjoint=adjoint)
     return sparse_conv(feats, w, nbr, compute_dtype=compute_dtype,
                        pairs=pairs)
 
@@ -401,11 +405,13 @@ class _Block(nn.Module):
             self.norm2 = _Norm(c)
 
     def forward(self, x, mask, nbr, compute_dtype, pairs, bn, level):
-        out = self.norm1(_conv(x, self.conv1.w, nbr, compute_dtype, pairs),
-                         mask, bn, level)
+        adj = (nbr, True)  # a self map: its own adjoint, taps reversed
+        out = self.norm1(_conv(x, self.conv1.w, nbr, compute_dtype, pairs,
+                               adj), mask, bn, level)
         if hasattr(self, "conv2"):
             out = self.norm2(_conv(torch.relu(out), self.conv2.w, nbr,
-                                   compute_dtype, pairs), mask, bn, level)
+                                   compute_dtype, pairs, adj), mask, bn,
+                             level)
         return torch.relu(out + x) * mask.to(torch.float32)[:, None]
 
 
@@ -500,12 +506,16 @@ class ResUNet(nn.Module):
         else:
             enc_m, block_m, dec_m = (geom["enc_maps"], geom["block_maps"],
                                      geom["dec_maps"])
+        # each conv's adjoint map (its backward's dX runs over it): the
+        # stem's self map reversed, the encoder map into level i the
+        # decoder map out of it, a decoder map the encoder map it undoes
         skips = []
         out = in_feats[geom["order0"]]
         for i in range(L):
             mask = levels[i].mask
+            adj = (enc_m[0], True) if i == 0 else (dec_m[L - 1 - i], False)
             out = _conv(out, getattr(self, f"conv{i+1}").w, enc_m[i],
-                        compute_dtype, pairs)
+                        compute_dtype, pairs, adj)
             out = getattr(self, f"norm{i+1}")(out, mask, bn, i)
             out = getattr(self, f"block{i+1}")(out, mask, block_m[i],
                                                compute_dtype, pairs, bn, i)
@@ -515,7 +525,7 @@ class ResUNet(nn.Module):
             lvl = L - 2 - d
             mask = levels[lvl].mask
             out = _conv(out, getattr(self, f"conv{lvl+1}_tr").w, dec_m[d],
-                        compute_dtype, pairs)
+                        compute_dtype, pairs, (enc_m[L - 1 - d], False))
             out = getattr(self, f"norm{lvl+1}_tr")(out, mask, bn, lvl)
             out = getattr(self, f"block{lvl+1}_tr")(out, mask, block_m[lvl],
                                                     compute_dtype, pairs, bn,

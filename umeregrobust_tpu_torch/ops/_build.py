@@ -68,7 +68,10 @@ _SIGNATURES = {
                                    _INT, _INT, _INT, _INT, _VP],
     "umr_sparse_conv_grouped": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                 _VP, _LL, _LL, _INT, _INT, _INT, _INT, _INT,
-                                _VP],
+                                _INT, _VP],
+    "umr_sparse_conv_grouped_wgrad": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                      _VP, _VP, _LL, _LL, _INT, _INT, _INT,
+                                      _INT, _INT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

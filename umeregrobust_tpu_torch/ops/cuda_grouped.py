@@ -18,6 +18,16 @@ fp32 operands: an FMA tile of the same order. On a CPU tensor the
 wrapper runs the plain version
 (ops/sparse.sparse_conv_grouped_plain); on a CUDA tensor it launches the
 kernel or raises.
+
+The backward (ops/sparse.GroupedConv) runs on two kernels: the input's
+gradient is this kernel on dY over the adjoint map
+(`sparse_conv_grouped_dx`: each tap's weights transposed, for a self map
+the taps reversed, read so by the launch that makes the bf16 weight
+copy); the weights' gradient is `sparse_conv_grouped_wgrad`
+(csrc/sparse_conv_grouped_wgrad.cu: dW3[g] = sum_o x3_g[o]^T dY[o] on the
+tensor cores, a block a (64 window columns x 64 channels) tile of one
+group and a split of the output rows, the partials summed in split order
+by a second launch; `wgrad_plan` mirrors it).
 """
 from __future__ import annotations
 
@@ -27,11 +37,13 @@ import torch
 
 from umeregrobust_tpu_torch.ops import _build
 
-__all__ = ["sparse_conv_grouped_kernel", "grouped_plan", "GroupedPlan",
+__all__ = ["sparse_conv_grouped_kernel", "sparse_conv_grouped_dx",
+           "sparse_conv_grouped_wgrad",
+           "grouped_plan", "GroupedPlan", "wgrad_plan", "WgradPlan",
            "LAUNCHES"]
 
-# kernel launches by the wrapper (not by the plain version)
-LAUNCHES = {"sparse_conv_grouped": 0}
+# kernel launches by each wrapper (not by the plain versions)
+LAUNCHES = {"sparse_conv_grouped": 0, "sparse_conv_grouped_wgrad": 0}
 
 _GROUPS = 9
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -39,6 +51,8 @@ _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # kFK)
 _MMA_ROWS, _MMA_COLS, _MMA_K, _MMA_STAGES = (128, 64, 32), 64, 64, 4
 _FMA_ROWS, _FMA_COLS, _FMA_K = 64, 64, 16
+# the weight gradient's tiles (csrc kWM, kWN, kWR, kWSteps)
+_WG_ROWS, _WG_COLS, _WG_STEP, _WG_STEPS = 64, 64, 32, 256
 _SM_COUNT = 132  # H100 SXM
 
 
@@ -68,6 +82,23 @@ class GroupedPlan(NamedTuple):
     wb_elems: int
 
 
+class WgradPlan(NamedTuple):
+    """How the weight-gradient kernel runs a shape: kind "mma" (bf16
+    operands) or "fma" (fp32); split_rows output rows a split (a multiple
+    of 32); splits; grid (splits, 64 x 64 tiles of the (3 round8(Cin),
+    round8(Cout)) product, 9 groups); part_elems the fp32 scratch of the
+    splits' partials; xb_cols / yb_cols the bf16 copies' row widths (0
+    for fp32)."""
+
+    kind: str
+    split_rows: int
+    splits: int
+    grid: tuple
+    part_elems: int
+    xb_cols: int
+    yb_cols: int
+
+
 def grouped_plan(n_in: int, n_out: int, cin: int, cout: int,
                  compute_dtype: torch.dtype = torch.bfloat16) -> GroupedPlan:
     """The kernel's plan from the shapes alone (no host read)."""
@@ -89,9 +120,36 @@ def grouped_plan(n_in: int, n_out: int, cin: int, cout: int,
                        _GROUPS * k3 * cout8)
 
 
-def _checked(feats, weights, gmap, bias, compute_dtype):
+def wgrad_plan(n_out: int, cin: int, cout: int,
+               compute_dtype: torch.dtype = torch.bfloat16) -> WgradPlan:
+    """The weight-gradient kernel's plan from the shapes alone (no host
+    read): tiles of 64 window columns (3 round8(Cin) in all) x 64
+    channels (round8(Cout)) per group, and the output rows cut into
+    splits of `split_rows` (steps of 32 rows, at most 256 a split): the
+    fewest splits that give about two blocks an SM, at least one step a
+    split. The splits' order of sums, and so the bits, follow from the
+    shapes."""
+    cin8, cout8 = _round8(cin), _round8(cout)
+    k3 = 3 * cin8
+    tiles = -(-k3 // _WG_ROWS) * -(-cout8 // _WG_COLS)
+    steps = max(1, -(-n_out // _WG_STEP))
+    want = -(-2 * _SM_COUNT // (_GROUPS * tiles))
+    splits = max(-(-steps // _WG_STEPS), min(steps, want))
+    per = -(-steps // splits)  # steps a split
+    splits = -(-steps // per)
+    return WgradPlan(
+        "mma" if compute_dtype == torch.bfloat16 else "fma",
+        per * _WG_STEP, splits, (splits, tiles, _GROUPS),
+        splits * _GROUPS * k3 * cout8,
+        cin8 if compute_dtype == torch.bfloat16 else 0,
+        cout8 if compute_dtype == torch.bfloat16 else 0)
+
+
+def _checked(feats, weights, gmap, bias, compute_dtype, transpose=False):
     """Validate the kernel's inputs (shapes and types first, then the
-    library and the device); returns (lib, N_in, N_out, Cin, Cout)."""
+    library and the device); returns (lib, N_in, N_out, Cin, Cout) of the
+    conv the launch runs (with `transpose`, a dX: Cin and Cout of the
+    weights (27, Cin, Cout) swapped)."""
     dev = feats.device
     if compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"sparse_conv_grouped: compute_dtype fp32 or bf16, "
@@ -100,17 +158,12 @@ def _checked(feats, weights, gmap, bias, compute_dtype):
         raise ValueError(f"weights: expected (27, Cin, Cout), got "
                          f"{tuple(weights.shape)}")
     _, Cin, Cout = weights.shape
+    if transpose:
+        Cin, Cout = Cout, Cin
     _build.require(feats, "feats", torch.float32, (None, Cin), dev)
-    _build.require(weights, "weights", torch.float32, (27, Cin, Cout), dev)
-    if gmap.center.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"center: expected int32 or int64, got "
-                         f"{gmap.center.dtype}")
-    _build.require(gmap.center, "center", gmap.center.dtype, (_GROUPS, None),
-                   dev)
-    N_out = gmap.center.shape[1]
-    _build.require(gmap.masks, "masks", torch.bool, (_GROUPS, 3, N_out), dev)
-    _build.require(gmap.patho, "patho", torch.bool, (_GROUPS, N_out), dev)
-    _build.require(gmap.worder, "worder", torch.int64, (3,), dev)
+    _build.require(weights, "weights", torch.float32,
+                   tuple(weights.shape), dev)
+    N_out = _check_map(gmap, dev)
     if bias is not None:
         _build.require(bias, "bias", torch.float32, (Cout,), dev)
     N_in = feats.shape[0]
@@ -123,6 +176,20 @@ def _checked(feats, weights, gmap, bias, compute_dtype):
         raise ValueError(f"sparse_conv_grouped runs on CUDA or CPU tensors, "
                          f"not {dev}")
     return lib, N_in, N_out, Cin, Cout
+
+
+def _check_map(gmap, dev) -> int:
+    """Validate a GroupedMap on `dev`; returns N_out."""
+    if gmap.center.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"center: expected int32 or int64, got "
+                         f"{gmap.center.dtype}")
+    _build.require(gmap.center, "center", gmap.center.dtype, (_GROUPS, None),
+                   dev)
+    N_out = gmap.center.shape[1]
+    _build.require(gmap.masks, "masks", torch.bool, (_GROUPS, 3, N_out), dev)
+    _build.require(gmap.patho, "patho", torch.bool, (_GROUPS, N_out), dev)
+    _build.require(gmap.worder, "worder", torch.int64, (3,), dev)
+    return N_out
 
 
 def sparse_conv_grouped_kernel(feats: torch.Tensor, weights: torch.Tensor,
@@ -145,8 +212,42 @@ def sparse_conv_grouped_kernel(feats: torch.Tensor, weights: torch.Tensor,
 
         return sparse_conv_grouped_plain(feats, weights, gmap, bias,
                                          compute_dtype)
+    return _launch(feats, weights, gmap, bias, compute_dtype, 0)
+
+
+def sparse_conv_grouped_dx(dout: torch.Tensor, weights: torch.Tensor,
+                           adjoint, reverse_taps: bool,
+                           compute_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """The input's gradient of the grouped conv with `weights` (27, Cin,
+    Cout): dout (N_out, Cout) f32 (dY), `adjoint` the GroupedMap of the
+    forward map's adjoint (N_in output rows reading dY's rows) ->
+    (N_in, Cin) f32 = dY's conv over the adjoint map with each tap's
+    weights transposed, tap k taking W[k]^T, or W[26 - k]^T where
+    reverse_taps (a self map is its own adjoint with its taps reversed).
+    The same kernel as the forward, the weight view read by its own bf16
+    weight copy; dY rounded to compute_dtype, fp32 sums, the result
+    rounded to compute_dtype and held in fp32 (as autograd through the
+    forward's rounding of its operands gives it). Counted in LAUNCHES as
+    the forward; a CPU tensor takes the plain version (the plain forward
+    over the adjoint map)."""
+    if dout.device.type == "cpu":
+        from umeregrobust_tpu_torch.ops.sparse import (
+            round_to, sparse_conv_grouped_plain)
+
+        w = weights.flip(0) if reverse_taps else weights
+        return round_to(sparse_conv_grouped_plain(
+            dout, w.transpose(1, 2), adjoint, None, compute_dtype),
+            compute_dtype)
+    return _launch(dout, weights, adjoint, None, compute_dtype,
+                   2 if reverse_taps else 1)
+
+
+def _launch(feats, weights, gmap, bias, compute_dtype, dx_taps):
+    """One call of umr_sparse_conv_grouped (dx_taps 0: the conv; 1 / 2:
+    a dX, the weights read as each tap transposed, 2 also reversed)."""
     lib, N_in, N_out, Cin, Cout = _checked(feats, weights, gmap, bias,
-                                           compute_dtype)
+                                           compute_dtype, dx_taps != 0)
     dev = feats.device
     out = torch.empty((N_out, Cout), dtype=torch.float32, device=dev)
     if N_out == 0:
@@ -163,7 +264,75 @@ def sparse_conv_grouped_kernel(feats: torch.Tensor, weights: torch.Tensor,
         0 if xb is None else xb.data_ptr(), 0 if wb is None else wb.data_ptr(),
         out.data_ptr(), N_in, N_out, Cin, Cout,
         int(gmap.center.dtype == torch.int64), int(plan.kind == "mma"),
-        plan.tile_rows, _build.stream_of(dev))
+        plan.tile_rows, dx_taps, _build.stream_of(dev))
     _build.check(lib, code, "sparse_conv_grouped")
     LAUNCHES["sparse_conv_grouped"] += 1
     return out
+
+
+def sparse_conv_grouped_wgrad(feats: torch.Tensor, dout: torch.Tensor,
+                              gmap,
+                              compute_dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """The grouped conv's weight gradient: feats (N_in, Cin) f32 (the
+    forward's input), dout (N_out, Cout) f32 (dY), gmap the forward's
+    GroupedMap -> dW (27, Cin, Cout) f32 in lexicographic tap order,
+    dW3[g] = sum over rows o of x3_g[o]^T dY[o] with x3_g[o] the window
+    the forward reads. X and dY are rounded to compute_dtype (the
+    forward rounds X; dY's rounding is the backward's one rounding of its
+    own), products summed in fp32, the result rounded to compute_dtype
+    and held in fp32. One call: with bf16 three kernels (the bf16
+    copies, the tiles, the sum of the splits' partials in split order),
+    with fp32 two (an FMA tile, the sum); counted once in LAUNCHES. No
+    atomics: two launches give the same bits. A CPU tensor takes the
+    plain version (ops/sparse.sparse_conv_grouped_wgrad_plain) and counts
+    nothing; a CUDA tensor launches the kernels or raises."""
+    if feats.device.type == "cpu":
+        from umeregrobust_tpu_torch.ops.sparse import (
+            sparse_conv_grouped_wgrad_plain)
+
+        return sparse_conv_grouped_wgrad_plain(feats, dout, gmap,
+                                               compute_dtype)
+    dev = feats.device
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"sparse_conv_grouped_wgrad: compute_dtype fp32 or "
+                         f"bf16, got {compute_dtype}")
+    if feats.dim() != 2 or dout.dim() != 2:
+        raise ValueError(f"sparse_conv_grouped_wgrad: feats (N_in, Cin) and "
+                         f"dout (N_out, Cout), got {tuple(feats.shape)} and "
+                         f"{tuple(dout.shape)}")
+    (N_in, Cin), (N_out, Cout) = feats.shape, dout.shape
+    _build.require(feats, "feats", torch.float32, (N_in, Cin), dev)
+    if _check_map(gmap, dev) != N_out:
+        raise ValueError(f"dout: {N_out} rows, the map has "
+                         f"{gmap.center.shape[1]}")
+    _build.require(dout, "dout", torch.float32, (N_out, Cout), dev)
+    if min(Cin, Cout) < 1 or max(N_in, N_out) >= 2 ** 31 - 8192 \
+            or 3 * _round8(Cin) >= 2 ** 31 - 64:
+        raise ValueError(f"sparse_conv_grouped_wgrad: unsupported shape "
+                         f"Cin={Cin} Cout={Cout} N_in={N_in} N_out={N_out}")
+    lib = _build.load_library()  # raises if it cannot be built
+    if dev.type != "cuda":
+        raise ValueError(f"sparse_conv_grouped_wgrad runs on CUDA or CPU "
+                         f"tensors, not {dev}")
+    if N_out == 0:
+        return torch.zeros((27, Cin, Cout), dtype=torch.float32, device=dev)
+    plan = wgrad_plan(N_out, Cin, Cout, compute_dtype)
+    dw = torch.empty((27, Cin, Cout), dtype=torch.float32, device=dev)
+    part = torch.empty(plan.part_elems, dtype=torch.float32, device=dev)
+    xb = yb = None
+    if plan.kind == "mma":
+        xb = torch.empty(max(N_in, 1) * plan.xb_cols, dtype=torch.bfloat16,
+                         device=dev)
+        yb = torch.empty(N_out * plan.yb_cols, dtype=torch.bfloat16,
+                         device=dev)
+    code = lib.umr_sparse_conv_grouped_wgrad(
+        feats.data_ptr(), dout.data_ptr(), gmap.center.data_ptr(),
+        gmap.masks.data_ptr(), gmap.patho.data_ptr(), gmap.worder.data_ptr(),
+        0 if xb is None else xb.data_ptr(), 0 if yb is None else yb.data_ptr(),
+        part.data_ptr(), dw.data_ptr(), N_in, N_out, Cin, Cout,
+        int(gmap.center.dtype == torch.int64), int(plan.kind == "mma"),
+        plan.split_rows, _build.stream_of(dev))
+    _build.check(lib, code, "sparse_conv_grouped_wgrad")
+    LAUNCHES["sparse_conv_grouped_wgrad"] += 1
+    return dw

@@ -24,7 +24,9 @@ import torch
 from umeregrobust_tpu_torch.ops.cuda_conv import (
     choose_kernel, round_to, sparse_conv_rowtile, sparse_conv_tapsplit,
     sparse_conv_wgrad)
-from umeregrobust_tpu_torch.ops.cuda_grouped import sparse_conv_grouped_kernel
+from umeregrobust_tpu_torch.ops.cuda_grouped import (
+    sparse_conv_grouped_dx, sparse_conv_grouped_kernel,
+    sparse_conv_grouped_wgrad)
 from umeregrobust_tpu_torch.ops.neighbors import gather_padded
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, SENTINEL_HIGH, batched_sorted_lookup,
@@ -36,7 +38,8 @@ __all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
            "build_level_maps", "interface_candidates", "invert_map_batch",
            "code_window_table", "window_probe", "group_kernel_map",
            "ungroup_kernel_map", "sparse_conv", "sparse_conv_grouped",
-           "sparse_conv_grouped_plain", "GroupedConv", "cloud_order",
+           "sparse_conv_grouped_plain", "sparse_conv_grouped_wgrad_plain",
+           "GroupedConv", "cloud_order",
            "masked_batch_norm", "round_to", "matmul_by_pair", "PerTapConv"]
 
 # window-table pad word: above every valid code, distinct from both
@@ -368,6 +371,37 @@ def sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def _window_table(f: torch.Tensor, gmap: GroupedMap):
+    """(F3c, center): the centred window table of f (N_in + 3, 3 Cin),
+    row r = [f[r - 2] | f[r - 1] | f[r]] zero-extended, and the map's
+    centres into it, -1 (a zero row) for a window whose slots are all
+    masked off (a "no candidate" centre: the all-zero last row N_in + 2,
+    past the table where N_out > N_in, or a real row when N_out < N_in):
+    it contributes nothing, and a gather of -1 adds no cotangent (a
+    backward that adds rows sharing an index one after another would add
+    them all into a single row)."""
+    N_in, Cin = f.shape
+    z = torch.zeros((1, Cin), dtype=f.dtype, device=f.device)
+    F3c = torch.cat([torch.cat([z, z, f, z]), torch.cat([z, f, z, z]),
+                     torch.cat([f, z, z, z])], dim=1)
+    used = torch.any(gmap.masks, dim=1) | gmap.patho
+    center = torch.where(used & (gmap.center < N_in + 2), gmap.center,
+                         torch.full_like(gmap.center, -1))
+    return F3c, center
+
+
+def _group_windows(F3c: torch.Tensor, center: torch.Tensor, gmap: GroupedMap,
+                   g: int) -> torch.Tensor:
+    """x3 (N_out, 3 Cin): group g's windows [slot 0 | slot 1 | slot 2]
+    with masked slots zero and a patho row's slot-1 row in slot 2 (the
+    gather is gather_padded's: the gather_rows kernel on the card)."""
+    N_out, Cin = center.shape[1], F3c.shape[1] // 3
+    wide = gather_padded(F3c, center[g]).reshape(N_out, 3, Cin)
+    masked = wide * gmap.masks[g].T[:, :, None].to(F3c.dtype)
+    mid = masked[:, 2] + wide[:, 1] * gmap.patho[g][:, None].to(F3c.dtype)
+    return torch.cat([masked[:, 0], masked[:, 1], mid], dim=1)
+
+
 def sparse_conv_grouped_plain(feats: torch.Tensor, weights: torch.Tensor,
                               gmap: GroupedMap,
                               bias: Optional[torch.Tensor] = None,
@@ -379,91 +413,116 @@ def sparse_conv_grouped_plain(feats: torch.Tensor, weights: torch.Tensor,
     Cin, Cout); optional bias (Cout,). Returns (N_out, Cout) fp32.
     Operands are rounded to compute_dtype, products summed in fp32.
     pairs=B: the output rows are B equal blocks (pairs' levels), each
-    block's products one matmul (`matmul_by_pair`). The CPU's path, the
-    card's yardstick, and the recompute of `GroupedConv`'s backward."""
+    block's products one matmul (`matmul_by_pair`). The CPU's path (in
+    training differentiated by autograd) and the card's yardstick."""
     _, Cin, Cout = weights.shape
     G, _, N_out = gmap.masks.shape
-    N_in = feats.shape[0]
-    f = round_to(feats, compute_dtype)
-    z = torch.zeros((1, Cin), dtype=f.dtype, device=f.device)
-    F3c = torch.cat([torch.cat([z, z, f, z]), torch.cat([z, f, z, z]),
-                     torch.cat([f, z, z, z])], dim=1)  # (N_in + 3, 3 Cin)
+    F3c, center = _window_table(round_to(feats, compute_dtype), gmap)
     w3 = round_to(weights, compute_dtype).reshape(G, 3, Cin, Cout)[
         :, gmap.worder]
-    # a window whose slots are all masked off (a "no candidate" centre: the
-    # all-zero last row N_in + 2, past the table where N_out > N_in, or a
-    # real row when N_out < N_in) contributes nothing, so it gathers a zero
-    # row (-1) instead; the gather is gather_padded's (the gather_rows
-    # kernel on the card), whose backward then adds no cotangent for such
-    # windows: a backward that adds rows sharing an index one after
-    # another would add them all into a single row
-    used = torch.any(gmap.masks, dim=1) | gmap.patho
-    center = torch.where(used & (gmap.center < N_in + 2), gmap.center,
-                         torch.full_like(gmap.center, -1))
-    out = torch.zeros((N_out, Cout), dtype=torch.float32, device=f.device)
+    out = torch.zeros((N_out, Cout), dtype=torch.float32, device=F3c.device)
     for g in range(G):
-        wide = gather_padded(F3c, center[g]).reshape(N_out, 3, Cin)
-        masked = wide * gmap.masks[g].T[:, :, None].to(f.dtype)
-        mid = masked[:, 2] + wide[:, 1] * gmap.patho[g][:, None].to(f.dtype)
-        x3 = torch.cat([masked[:, 0], masked[:, 1], mid], dim=1)
-        out = out + matmul_by_pair(x3, w3[g].reshape(3 * Cin, Cout), pairs)
+        out = out + matmul_by_pair(_group_windows(F3c, center, gmap, g),
+                                   w3[g].reshape(3 * Cin, Cout), pairs)
     if bias is not None:
         out = out + bias.to(torch.float32)[None, :]
     return out
 
 
+def sparse_conv_grouped_wgrad_plain(feats: torch.Tensor, dout: torch.Tensor,
+                                    gmap: GroupedMap,
+                                    compute_dtype: torch.dtype = torch.float32
+                                    ) -> torch.Tensor:
+    """The plain version of the grouped conv's weight gradient (the
+    sparse_conv_grouped_wgrad kernel's arithmetic): groups in order, dW3[g]
+    = x3_g^T @ dY, one fp32 product over operands rounded to
+    compute_dtype (X as the forward rounds it, dY the backward's own
+    rounding), then dW (27, Cin, Cout) in lexicographic tap order
+    (dW[3 g + worder[s]] = dW3[g] slot s) rounded to compute_dtype and
+    held in fp32."""
+    Cin, Cout = feats.shape[1], dout.shape[1]
+    G = gmap.masks.shape[0]
+    F3c, center = _window_table(round_to(feats, compute_dtype), gmap)
+    dy = round_to(dout, compute_dtype)
+    dw3 = torch.stack([_group_windows(F3c, center, gmap, g).T @ dy
+                       for g in range(G)]).reshape(G, 3, Cin, Cout)
+    dw = torch.empty_like(dw3)
+    dw[:, gmap.worder] = dw3
+    return round_to(dw.reshape(3 * G, Cin, Cout), compute_dtype)
+
+
 class GroupedConv(torch.autograd.Function):
-    """The grouped k=3 conv on the card: the forward is the hand-written
-    kernel (`sparse_conv_grouped_kernel`, no window tensor in device
-    memory), and it keeps only feats, weights and the map. The backward
-    recomputes the plain version on the saved inputs and differentiates
-    it, so dX and dW are those of autograd through
-    `sparse_conv_grouped_plain` (its window gathers' backward is the
-    gather_rows_backward kernel), and no window tensor lives from the
-    forward to the backward."""
+    """The grouped k=3 conv on the card, forward and backward on
+    hand-written kernels; it keeps only feats, weights and the maps (no
+    window tensor). Forward: `sparse_conv_grouped_kernel`. Backward, with
+    `adjoint` = (the adjoint map, reverse_taps) from the caller (the
+    pyramid builds every map beside its adjoint; see
+    models/resunet.build_unet_geometry): dX = dY's conv over the adjoint
+    map with W[k]^T (W[26 - k]^T where reverse_taps: a self map is its
+    own adjoint with its taps reversed) by the same kernel; dW by
+    `sparse_conv_grouped_wgrad`; db = sum of dY over rows. dY enters the
+    products rounded to compute_dtype (the one rounding the backward adds),
+    products are summed in fp32, and dX and dW are rounded to
+    compute_dtype and held in fp32, as autograd through the forward's
+    rounding of its operands gives them. A backward that needs dX and was
+    given no adjoint raises. On CPU tensors the kernels' plain versions
+    run."""
 
     @staticmethod
-    def forward(ctx, feats, weights, bias, gmap, compute_dtype, pairs):
-        ctx.save_for_backward(feats, weights, bias)
-        ctx.gmap, ctx.compute_dtype, ctx.pairs = gmap, compute_dtype, pairs
+    def forward(ctx, feats, weights, bias, gmap, adjoint, compute_dtype):
+        ctx.save_for_backward(feats, weights)
+        ctx.gmap, ctx.adjoint = gmap, adjoint
+        ctx.compute_dtype = compute_dtype
         return sparse_conv_grouped_kernel(
             feats.to(torch.float32).contiguous(), weights.contiguous(), gmap,
             bias, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        feats, weights, bias = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            leaves = [None if x is None else x.detach().requires_grad_(n)
-                      for x, n in zip((feats, weights, bias), need)]
-            f, w, b = leaves
-            out = sparse_conv_grouped_plain(f, w, ctx.gmap, b,
-                                            ctx.compute_dtype, ctx.pairs)
-            want = [x for x, n in zip(leaves, need) if n]
-            got = iter(torch.autograd.grad(out, want, g) if want else ())
-        return (*(next(got) if n else None for n in need), None, None, None)
+        feats, weights = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        cd = ctx.compute_dtype
+        g = g.to(torch.float32).contiguous()
+        dx = dw = db = None
+        if need_x:
+            if ctx.adjoint is None:
+                raise ValueError(
+                    "GroupedConv: the input's gradient needs the adjoint map "
+                    "(adjoint=(GroupedMap, reverse_taps)); none was given")
+            adj, reverse = ctx.adjoint
+            dx = sparse_conv_grouped_dx(g, weights.contiguous(), adj,
+                                        reverse, cd)
+        if need_w:
+            dw = sparse_conv_grouped_wgrad(
+                feats.to(torch.float32).contiguous(), g, ctx.gmap, cd)
+        if need_b:
+            db = torch.sum(g, dim=0)
+        return dx, dw, db, None, None, None
 
 
 def sparse_conv_grouped(feats: torch.Tensor, weights: torch.Tensor,
                         gmap: GroupedMap,
                         bias: Optional[torch.Tensor] = None,
                         compute_dtype: torch.dtype = torch.float32,
-                        pairs: int = 1) -> torch.Tensor:
+                        pairs: int = 1,
+                        adjoint: Optional[Tuple[GroupedMap, bool]] = None
+                        ) -> torch.Tensor:
     """Sparse k=3 conv over a grouped-window map. feats (N_in, Cin),
     invalid rows zero; weights (27, Cin, Cout); optional bias (Cout,).
     Returns (N_out, Cout) fp32; operands rounded to compute_dtype,
     products summed in fp32. A CPU tensor takes the plain version
-    (`sparse_conv_grouped_plain`), a CUDA tensor the kernel through
-    `GroupedConv` (differentiable in feats, weights and bias), which sums
-    a row's products in an order set by the row alone, so pairs=B (the
-    output rows are B pairs' levels) gives each pair its one-pair bits on
-    the card; on the CPU each pair-sized block is one matmul."""
+    (`sparse_conv_grouped_plain`, differentiated by autograd), a CUDA
+    tensor the kernels through `GroupedConv` (differentiable in feats,
+    weights and bias; the input's gradient needs `adjoint` = (the map's
+    adjoint, whether its taps run reversed)), which sums a row's products
+    in an order set by the row alone, so pairs=B (the output rows are B
+    pairs' levels) gives each pair its one-pair bits on the card; on the
+    CPU each pair-sized block is one matmul."""
     if feats.device.type == "cpu":
         return sparse_conv_grouped_plain(feats, weights, gmap, bias,
                                          compute_dtype, pairs)
-    return GroupedConv.apply(feats, weights, bias, gmap, compute_dtype,
-                             pairs)
+    return GroupedConv.apply(feats, weights, bias, gmap, adjoint,
+                             compute_dtype)
 
 
 def _block_sums(x: torch.Tensor) -> torch.Tensor:
