@@ -54,17 +54,25 @@ Phases (any failure ends the run with a non-zero exit):
      (phase_grouped_layers): every grouped layer of a ResUNetSmall2
      one-pair forward (18; grouped_layer lines: against
      sparse_conv_grouped_plain on the card within 1e-4 (bf16) / 1e-5
-     (fp32) x max |out|, two launches bit-identical, the same bits on
-     row tiles of 128, 64 and 32 rows, the output and bf16 copies
-     between guards, device time alone at bf16 and fp32, one call
-     an event pair, the plain version's time, the bound, the library
-     route (a gather of the 27 tap rows + one torch.mm) and the per-tap
-     kernel on the same map), the same layers of the four regime pairs as
-     one B = 4 forward (each pair's rows the bits of its one-pair call),
-     and forced cases (grouped_forced: Cin 1 / 16 / 20 / 24 / 32 / 96 /
-     256 / 768, Cout 5 / 7 / 32 / 48 / 64 / 256, N_out < N_in and > N_in,
-     an unused tile and group, patho rows, the transposed slot order,
-     int32 and int64 centres, bias); then the pair axis at B = 4 (the
+     (fp32) x max |out|, two launches bit-identical, the same bits in
+     four row orders (the map's, code order, reversed, random), the
+     output and bf16 copies between guards, the plan (cluster, channel
+     tile) and the map's tiles against the windows they stage, device
+     time alone at bf16 and fp32 beside the parent tree's kernel
+     (csrc/bench/sparse_conv_grouped_parent.cu, built here) on the same
+     inputs, one call an event pair, the plain version's time, the bound,
+     the library route (a gather of the 27 tap rows + one torch.mm) and
+     the per-tap kernel on the same map), the row-order kernel
+     grouped_row_order on the pyramid's 13 maps (its order and tiles
+     equal to the plain version's, times, bound), the same layers of the
+     four regime pairs as one B = 4 forward (each pair's rows the bits of
+     its one-pair call; the parent's kernel timed beside), and forced
+     cases (grouped_forced: Cin 1 / 3 / 16 / 20 / 24 / 32 / 64 / 96 / 256
+     / 768, Cout 5 / 7 / 32 / 48 / 64 / 256, clusters of 1 to 4 CTAs,
+     N_out < N_in and > N_in, tiles whose rows use different groups, a
+     group whose one user the order puts in the last tile, an unused tile
+     and group, patho rows, the transposed slot order, int32 and int64
+     centres, bias); then the pair axis at B = 4 (the
      four regime pairs, phase_pair_axis):
      nn1_argmin, ume_moments_fused and corr_scores_fused (four stage
      shapes) with a leading pair axis, and gather_rows over the flattened
@@ -174,10 +182,13 @@ Phases (any failure ends the run with a non-zero exit):
      index_add_'s and the plain version's, the bound, the longest row
      segment and the count and placement in three forms, atomic rank /
      warp-aggregated / plain atomics (gather_backward_shape,
-     row_count_forms); both backward kernels launched back to back with
-     no synchronize, round after round with the ResUNet pyramid rebuilt
-     behind them, their outputs and scratch between guards that must
-     stay unwritten, every round's bits the first's (backward_stress);
+     row_count_forms); the backward kernels and ResUNetSmall2's grouped
+     convs at B = 8 (18 forwards, 17 dX, 18 weight gradients) launched
+     back to back with no synchronize, round after round with the ResUNet
+     pyramid rebuilt behind them, their outputs and scratch between
+     guards that must stay unwritten, every round's bits the first's,
+     then the grouped conv's weight-tile cache across an in-place update
+     of a layer's weights (backward_stress);
      sparse_conv_wgrad (forced maps at fp32 / bf16, among them channel
      counts that are no multiple of 8 and an odd Cout; each of ResUNet's
      11 conv layers on its real map at bf16, with dX through the inverted map against the plain
@@ -191,7 +202,10 @@ Phases (any failure ends the run with a non-zero exit):
      version on the card at fp32 (1e-5 x max) and bf16 (one bf16 ulp of
      the entry or 1e-4 x max), two launches bit-identical, guards intact;
      device times alone beside the parent tree's recompute, the per-tap
-     route on the same maps, the library route and the bound) and forced
+     route on the same maps, the library route and the bound; the layer's
+     B = 8 training forward against its plain version, its device time
+     and bound; the parent tree's grouped kernel's forward and dX on the
+     same inputs in the same call) and forced
      cases (grouped_wgrad_forced: Cin 1 / 3 / 20 / 768, Cout 5 / 7 / 48 /
      256, N_out above and below N_in, unused groups and rows, patho rows,
      both slot orders, int32 / int64, an all-masked level); (b)
@@ -293,6 +307,10 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
     "sparse_conv_grouped_wgrad": ("umeregrobust_tpu_torch/csrc/"
                                   "sparse_conv_grouped_wgrad.cu",
                                   "tools/exp_gather2.py:107"),
+    # the grouped conv's row order (its tile plan, once a map): part of the
+    # grouped conv's design, so it stands beside the same TPU-side source
+    "grouped_row_order": ("umeregrobust_tpu_torch/csrc/grouped_row_order.cu",
+                          "tools/exp_gather2.py:107"),
 }
 FORWARD_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
                    "gather_rows", "sparse_conv_tapsplit", "sparse_conv_rowtile")
@@ -1714,6 +1732,98 @@ def capture_grouped_layers(model, run):
     return got
 
 
+_PARENT_GROUPED = None
+
+
+def parent_grouped_library():
+    """csrc/bench/sparse_conv_grouped_parent.cu (the grouped conv's bf16
+    kernel before its Hopper redesign, the same-call yardstick), built
+    with the kernels' nvcc flags into the build directory and loaded;
+    once a process."""
+    global _PARENT_GROUPED
+    if _PARENT_GROUPED is None:
+        import ctypes
+
+        from umeregrobust_tpu_torch.ops import _build
+
+        src = _build.CSRC / "bench" / "sparse_conv_grouped_parent.cu"
+        lib = (_build.BUILD_DIR / "bench"
+               / f"libgrouped_parent.{os.getpid()}.so")
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, "-I",
+                            str(_build.CSRC), "-shared", str(src), "-o",
+                            str(lib), "-lcudart"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        if r.returncode != 0:
+            raise RuntimeError("sparse_conv_grouped_parent.cu did not build:"
+                               f"\n{r.stdout}")
+        cdll = ctypes.CDLL(str(lib))
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        cdll.umr_bench_grouped_parent.argtypes = (
+            [vp] * 10 + [ll, ll] + [i] * 6 + [vp])
+        cdll.umr_bench_grouped_parent.restype = i
+        _PARENT_GROUPED = cdll
+    return _PARENT_GROUPED
+
+
+def parent_grouped(f, w, gmap, dx_taps=0):
+    """The parent tree's bf16 grouped conv kernel on the same inputs (its
+    bf16 copies made in the call, its tile rule: 128-row tiles, or 64 /
+    32 where 128 would give fewer blocks than 132); dx_taps 1 / 2: its dX
+    route (w the forward's weights). Not counted in any launch count."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import _build
+
+    lib = parent_grouped_library()
+    _, Cin, Cout = w.shape
+    if dx_taps:
+        Cin, Cout = Cout, Cin
+    N_in, N_out = f.shape[0], gmap.center.shape[1]
+    cin8, cout8 = -(-Cin // 8) * 8, -(-Cout // 8) * 8
+    cols = -(-Cout // 64)
+    rows = next((r for r in (128, 64, 32) if -(-N_out // r) * cols >= 132),
+                32)
+    dev = f.device
+    out = torch.empty((N_out, Cout), dtype=torch.float32, device=dev)
+    xb = torch.empty(max(N_in, 1) * cin8, dtype=torch.bfloat16, device=dev)
+    wb = torch.empty(27 * cin8 * cout8, dtype=torch.bfloat16, device=dev)
+    code = lib.umr_bench_grouped_parent(
+        f.data_ptr(), w.data_ptr(), gmap.center.data_ptr(),
+        gmap.masks.data_ptr(), gmap.patho.data_ptr(), gmap.worder.data_ptr(),
+        0, xb.data_ptr(), wb.data_ptr(), out.data_ptr(), N_in, N_out, Cin,
+        Cout, int(gmap.center.dtype == torch.int64), 1, rows, dx_taps,
+        _build.stream_of(dev))
+    if code != 0:
+        raise RuntimeError(f"umr_bench_grouped_parent: CUDA error {code}")
+    return out
+
+
+def grouped_map_stats(gmap):
+    """The kernel's view of a map: its order's tiles, the windows they
+    stage (each tile's groups x 64 rows) against the windows some row
+    uses (and in code order), and whether the map's order and tiles are
+    grouped_row_order_plain's."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+
+    gm = cuda_grouped.with_row_order(gmap)
+    o, t = cuda_grouped.grouped_row_order_plain(gm)
+    used = int((gm.masks.any(1) | gm.patho).sum())
+    staged = int(sum(bin(int(x)).count("1") for x in gm.tiles.cpu()) * 64)
+    code_tiles = cuda_grouped.tiles_of_order(gm, torch.arange(
+        gm.masks.shape[-1], device=gm.masks.device))
+    staged_code = int(sum(bin(int(x)).count("1") for x in code_tiles.cpu())
+                      * 64)
+    return dict(tiles=int(gm.tiles.numel()), windows_staged=staged,
+                windows_staged_code_order=staged_code,
+                staged_over_used=staged / max(used, 1),
+                order_is_plain=bool(torch.equal(gm.order, o)
+                                    and torch.equal(gm.tiles, t)))
+
+
 def grouped_bound(f, w, gmap):
     """(bound ms, bound_by, windows used, input rows read) of one grouped
     conv at bf16 operands. Operations: 2 x 3 Cin x Cout a window that some
@@ -1740,22 +1850,38 @@ def grouped_bound(f, w, gmap):
 GROUPED_LIMITS = {"float32": 1e-5, "bfloat16": 1e-4}  # x max |plain|
 
 
-def grouped_tiles(f, w, gmap, bias=None):
-    """Whether the bf16 kernel gives the same bits on row tiles of 128, 64
-    and 32 rows (grouped_plan's choice forced each way)."""
+def order_forms(gmap):
+    """The map in four row orders, each with its tiles' groups
+    (cuda_grouped.tiles_of_order): its own order (the pyramid's, or
+    grouped_row_order's), code order, that order reversed, and a seeded
+    random permutation."""
     import torch
 
     from umeregrobust_tpu_torch.ops import cuda_grouped
 
-    plan, outs = cuda_grouped.grouped_plan, []
-    try:
-        for rows in (128, 64, 32):
-            cuda_grouped.grouped_plan = lambda *a, rows=rows: plan(
-                *a)._replace(tile_rows=rows)
-            outs.append(cuda_grouped.sparse_conv_grouped_kernel(
-                f, w, gmap, bias, torch.bfloat16))
-    finally:
-        cuda_grouped.grouped_plan = plan
+    gmap = cuda_grouped.with_row_order(gmap)
+    n, dev = gmap.masks.shape[-1], gmap.masks.device
+    g = torch.Generator(device="cpu").manual_seed(n)
+    orders = {"map": gmap.order,
+              "code": torch.arange(n, dtype=torch.int32, device=dev),
+              "reversed": gmap.order.flip(0).contiguous(),
+              "random": torch.randperm(n, generator=g).to(
+                  device=dev, dtype=torch.int32)}
+    return {k: gmap._replace(order=o, tiles=cuda_grouped.tiles_of_order(
+        gmap, o)) for k, o in orders.items()}
+
+
+def grouped_orders(f, w, gmap, bias=None):
+    """Whether the bf16 kernel gives the same bits in every row order of
+    order_forms (its tiles' groups, and so which rows share a tile,
+    change with the order; a row's sums must not)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops.cuda_grouped import (
+        sparse_conv_grouped_kernel)
+
+    outs = [sparse_conv_grouped_kernel(f, w, m, bias, torch.bfloat16)
+            for m in order_forms(gmap).values()]
     return all(torch.equal(outs[0], o) for o in outs[1:])
 
 
@@ -1765,7 +1891,7 @@ def grouped_check(f, w, gmap, bias=None):
     |plain|; only the fp32 summation order differs), two launches
     bit-identical, the first launch's output and bf16 copies between
     guards that must stay unwritten (guarded_empty); with bf16 operands
-    also the same bits on every row tile (grouped_tiles)."""
+    also the same bits in every row order (grouped_orders)."""
     import torch
 
     from umeregrobust_tpu_torch.ops.cuda_grouped import (
@@ -1783,11 +1909,11 @@ def grouped_check(f, w, gmap, bias=None):
         torch.cuda.synchronize()
         err = float((a - ref).abs().max())
         twice, guards = bool(torch.equal(a, b)), guards_intact(made)
-        tiles = dt == torch.float32 or grouped_tiles(f, w, gmap, bias)
+        orders = dt == torch.float32 or grouped_orders(f, w, gmap, bias)
         res[name] = dict(max_abs_err=err, limit=lim * scale, scale=scale,
                          two_launches_identical=twice, guards_intact=guards,
-                         tiles_identical=tiles,
-                         ok=err <= lim * scale and twice and guards and tiles
+                         orders_identical=orders,
+                         ok=err <= lim * scale and twice and guards and orders
                          and bool(torch.isfinite(a).all()))
         del made, a, b, ref
     return res
@@ -1820,11 +1946,14 @@ def forced_grouped_map(rng, dev, n_in, n_out, idx, p=0.5, patho=0.05,
 def grouped_forced_cases(dev):
     """The grouped kernel on forced maps (random centres, masks and patho
     rows with the map's invariant: masks[2] off where patho is set):
-    Cin 1 / 16 / 20 / 96 / 256 / 768, Cout 5 / 7 / 32 / 48 / 256, N_out <
-    N_in and N_out > N_in with centres past the table, a 128-row tile and
-    a group that no window uses, many patho rows, the transposed slot
-    order, int32 and int64 centres, with and without bias; each at fp32
-    and bf16 (grouped_check). Returns (cases, all passed)."""
+    Cin 1 / 3 / 16 / 20 / 24 / 32 / 64 / 96 / 256 / 768, Cout 5 / 7 / 32
+    / 48 / 64 / 256 (clusters of 1 to 4 CTAs), N_out < N_in and N_out >
+    N_in with centres past the table, tiles whose rows use different
+    groups, a group whose one user the order puts in the last tile, a
+    stretch of rows and a group that no window uses, many patho rows, the
+    transposed slot order, int32 and int64 centres, with and without
+    bias; each at fp32 and bf16 (grouped_check: also every row order).
+    Returns (cases, all passed)."""
     import torch
 
     rng = np.random.default_rng(17)
@@ -1850,8 +1979,32 @@ def grouped_forced_cases(dev):
     def past_table(center, masks, pat):  # "no candidate" centres past a
         center[:, ::3] = center.shape[1] + 2  # small table (N_out > N_in)
 
+    def mixed_masks(center, masks, pat):  # each row uses 1-3 groups of
+        n = center.shape[1]  # its own: a tile's rows differ in mask
+        keep = np.zeros((9, n), dtype=bool)
+        for k in range(3):
+            keep[rng.integers(0, 9, n), np.arange(n)] = True
+        masks &= keep[:, None, :]
+        pat &= keep
+        masks[:, 1] |= keep & ~masks.any(1) & ~pat  # every kept group used
+
+    def last_tile_only(center, masks, pat):  # group 8's one user is row 0,
+        masks[8], pat[8] = False, False  # which the order puts last (the
+        masks[8, 1, 0] = True  # highest mask), in the last tile
+        masks[:8, 1, :] = True
+
     i32, i64 = torch.int32, torch.int64
     cases = {
+        "mixed_masks_in_a_tile": case(900, 1000, 32, 64, i64,
+                                      edit=mixed_masks),
+        "group8_only_in_last_tile": case(600, 700, 24, 48, i32,
+                                         edit=last_tile_only),
+        # the cluster split (1, 1, 2, 3 and 4 CTAs a tile)
+        "cluster_cin1_cout5": case(2000, 2100, 1, 5, i32),
+        "cluster_cin3_cout7": case(1500, 1400, 3, 7, i64, bias=True),
+        "cluster_cin20_cout48": case(1200, 1300, 20, 48, i32),
+        "cluster_cin64_cout256": case(700, 600, 64, 256, i64),
+        "cluster_cin768_cout256": case(300, 350, 768, 256, i64, p=0.2),
         "cin1_cout32": case(3000, 3000, 1, 32, i64),
         "cin20_cout7_nout_lt_nin": case(1000, 700, 20, 7, i32, bias=True),
         "cin96_cout48_nout_gt_nin": case(500, 1300, 96, 48, i64,
@@ -1892,12 +2045,15 @@ def pair_rows_identical(out_b, mask_b, outs1, masks1):
 
 def grouped_layer_row(name, f, w, gmap):
     """One grouped k3 conv of the one-pair forward at its real shape:
-    grouped_check, the kernel's device time alone (CUDA graph) and one
-    call an event pair, the fp32 path's device time, the plain version's
-    time, the bound, the library route (one gather of the 27 tap rows
-    into a zero-padded (N_out, 27 Cin) bf16 tensor, then one torch.mm;
-    timed only) and the per-tap kernel that choose_kernel routes the same
-    map to (ungroup_kernel_map), as a second yardstick."""
+    grouped_check, the kernel's plan and map (grouped_map_stats), the
+    kernel's device time alone (CUDA graph) and one call an event pair,
+    the parent tree's kernel's device time alone in the same call
+    (parent_kernel_ms, parent_grouped) and its error, the fp32 path's
+    device time, the plain version's time, the bound, the library route
+    (one gather of the 27 tap rows into a zero-padded (N_out, 27 Cin)
+    bf16 tensor, then one torch.mm; timed only) and the per-tap kernel
+    that choose_kernel routes the same map to (ungroup_kernel_map), as a
+    second yardstick."""
     import torch
 
     from umeregrobust_tpu_torch.ops import cuda_conv, cuda_grouped
@@ -1914,6 +2070,9 @@ def grouped_layer_row(name, f, w, gmap):
     nbr = ungroup_kernel_map(gmap)
     tap_kind = cuda_conv.choose_kernel(N_out, Cout, 27)[0]
     tap = getattr(cuda_conv, "sparse_conv_" + tap_kind)
+    plan = cuda_grouped.grouped_plan(N_in, N_out, Cin, Cout, bf)
+    parent = parent_grouped(f, w, gmap)
+    ref = sparse_conv_grouped_plain(f, w, gmap, None, bf)
     row = dict(
         layer=name, cin=Cin, cout=Cout, rows_in=N_in, rows_out=N_out,
         windows_used=used, window_share=used / (9 * N_out),
@@ -1921,16 +2080,19 @@ def grouped_layer_row(name, f, w, gmap):
         limit=chk["bfloat16"]["limit"],
         max_abs_err_fp32=chk["float32"]["max_abs_err"],
         limit_fp32=chk["float32"]["limit"],
+        parent_max_abs_err=float((parent - ref).abs().max()),
         two_launches_identical=all(v["two_launches_identical"]
                                    for v in chk.values()),
-        tile_rows=cuda_grouped.grouped_plan(N_in, N_out, Cin, Cout,
-                                            bf).tile_rows,
-        tiles_identical=chk["bfloat16"]["tiles_identical"],
+        cluster=plan.cluster, tile_cols=plan.tile_cols,
+        k_steps=plan.k_steps, grid=plan.grid, **grouped_map_stats(gmap),
+        orders_identical=chk["bfloat16"]["orders_identical"],
         guards_intact=all(v["guards_intact"] for v in chk.values()),
         ok=all(v["ok"] for v in chk.values()),
         ms=time_ms(lambda: kern(f, w, gmap, None, bf), reps=10),
         kernel_ms=graph_ms(lambda: kern(f, w, gmap, None, bf), reps=5,
                            inner=10),
+        parent_kernel_ms=graph_ms(lambda: parent_grouped(f, w, gmap),
+                                  reps=5, inner=10),
         kernel_ms_fp32=graph_ms(lambda: kern(f, w, gmap, None, f32), reps=3,
                                 inner=5),
         plain_ms=time_ms(lambda: sparse_conv_grouped_plain(
@@ -1980,6 +2142,16 @@ def phase_grouped_layers(dev, pairs, weights):
     for name, f, w, gmap, _, _, _ in layers:
         rows.append(grouped_layer_row(name, f, w, gmap))
         emit({"phase": "grouped_layer", "model": "ResUNetSmall2", **rows[-1]})
+    # the 18 launches' device time by kernel: the feature rounding (one
+    # launch a call; folding it into the A load would save at most its
+    # share) and the conv
+    split = kernel_split_ms(lambda: [kern(f, w, gmap, None, bf) for
+                                     _, f, w, gmap, _, _, _ in layers],
+                            calls=5)
+    maps = list({id(m): m for _, _, _, m, _, _, _ in layers}.values())
+    order_row = grouped_order_row(maps)
+    emit({"phase": "grouped_row_order", "model": "ResUNetSmall2",
+          **order_row})
     del layers
     batch = capture_grouped_layers(model, lambda: pair_features_batched(
         model, caps, *stacked_args(pairs), device=dev))
@@ -1994,6 +2166,8 @@ def phase_grouped_layers(dev, pairs, weights):
                 out4, m4, outs1, [o[j][5] for o in ones]),
             kernel_ms_batched=graph_ms(lambda: kern(f4, w, g4, None, bf),
                                        reps=5, inner=10),
+            parent_kernel_ms_batched=graph_ms(
+                lambda: parent_grouped(f4, w, g4), reps=5, inner=10),
             kernel_ms_b1=sum(graph_ms(lambda o=o: kern(
                 o[j][1], w, o[j][3], None, bf), reps=3, inner=10)
                 for o in ones),
@@ -2001,8 +2175,8 @@ def phase_grouped_layers(dev, pairs, weights):
     del batch, ones, model
     forced, forced_ok = grouped_forced_cases(dev)
     emit({"phase": "grouped_forced", "ok": forced_ok, **forced})
-    keys = ("ms", "kernel_ms", "kernel_ms_fp32", "plain_ms", "bound_ms",
-            "per_tap_kernel_ms")
+    keys = ("ms", "kernel_ms", "parent_kernel_ms", "kernel_ms_fp32",
+            "plain_ms", "bound_ms", "per_tap_kernel_ms")
     lib = [r["library_ms"] for r in rows]
     summary = dict(
         layers=len(rows), **{k: sum(r[k] for r in rows) for k in keys},
@@ -2014,9 +2188,14 @@ def phase_grouped_layers(dev, pairs, weights):
         max_err_over_limit=max(r["max_abs_err"] / r["limit"] for r in rows),
         layers_slower_than_per_tap=[r["layer"] for r in rows if
                                     r["kernel_ms"] > r["per_tap_kernel_ms"]],
+        layers_slower_than_parent=[r["layer"] for r in rows if
+                                   r["kernel_ms"] > r["parent_kernel_ms"]],
+        kernel_split_ms=split,
         B=len(pairs),
         bit_identical_to_b1=all(p["bit_identical_to_b1"] for p in per_layer),
         kernel_ms_batched=sum(p["kernel_ms_batched"] for p in per_layer),
+        parent_kernel_ms_batched=sum(p["parent_kernel_ms_batched"]
+                                     for p in per_layer),
         kernel_ms_b1_pairs=sum(p["kernel_ms_b1"] for p in per_layer),
         bound_ms_batched=sum(p["bound_ms_batched"] for p in per_layer),
         batched_layers=per_layer, forced_ok=forced_ok,
@@ -2024,7 +2203,54 @@ def phase_grouped_layers(dev, pairs, weights):
         and all(p["bit_identical_to_b1"] for p in per_layer))
     emit({"phase": "grouped_layers_summary", "model": "ResUNetSmall2",
           **summary})
-    return dict(rows=rows, **summary)
+    return dict(rows=rows, order=order_row, **summary)
+
+
+def grouped_order_row(maps):
+    """The row-order kernel (grouped_row_order) on each distinct map of a
+    one-pair pyramid: order and tiles equal to grouped_row_order_plain's
+    (mismatches counted), two launches identical; summed over the maps,
+    one call an event pair (ms), the device's time alone (kernel_ms), the
+    plain version's time, and the bound (each map's masks and patho bytes
+    read once, order and tiles written once). The sort alone by one
+    PyTorch call (a stable argsort of precomputed keys) is reported as
+    argsort_ms; no single call computes the whole function."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+
+    res = dict(maps=len(maps), rows=[], mismatches=0, max_abs_err=0.0,
+               ms=0.0, kernel_ms=0.0, plain_ms=0.0, argsort_ms=0.0,
+               bound_ms=0.0, two_launches_identical=True)
+    for m in maps:
+        n = m.masks.shape[-1]
+        o1, t1 = cuda_grouped.grouped_row_order(m)
+        o2, t2 = cuda_grouped.grouped_row_order(m)
+        op, tp = cuda_grouped.grouped_row_order_plain(m)
+        torch.cuda.synchronize()
+        bad = int((o1 != op).sum()) + int((t1 != tp).sum())
+        res["max_abs_err"] = max(res["max_abs_err"], float(
+            (o1.long() - op.long()).abs().max()))
+        key = cuda_grouped.row_keys_plain(m)
+        b, _ = bound_ms(n * (27 + 9) + 4 * n + 4 * t1.numel(), 0)
+        r = dict(rows=n, tiles=int(t1.numel()), mismatches=bad,
+                 ms=time_ms(lambda: cuda_grouped.grouped_row_order(m),
+                            reps=10),
+                 kernel_ms=graph_ms(lambda: cuda_grouped.grouped_row_order(
+                     m), reps=5, inner=10),
+                 plain_ms=time_ms(lambda: cuda_grouped.grouped_row_order_plain(
+                     m), reps=5, warmup=1),
+                 argsort_ms=graph_ms(lambda: torch.argsort(key, stable=True),
+                                     reps=5, inner=10),
+                 bound_ms=b)
+        res["rows"].append(r)
+        res["mismatches"] += bad
+        res["two_launches_identical"] &= bool(torch.equal(o1, o2)
+                                              and torch.equal(t1, t2))
+        for k in ("ms", "kernel_ms", "plain_ms", "argsort_ms", "bound_ms"):
+            res[k] += r[k]
+    res["ok"] = res["mismatches"] == 0 and res["two_launches_identical"]
+    return res
 
 
 def pair_args(p):
@@ -2147,7 +2373,7 @@ def verdict(T, gt):
 
 
 MAIN_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
-                "gather_rows", "sparse_conv_grouped")
+                "gather_rows", "sparse_conv_grouped", "grouped_row_order")
 
 
 def phase_batched(dev, model, caps, cfg, batch, seeds, label):
@@ -3624,20 +3850,26 @@ def guards_intact(made):
 
 
 def backward_stress(dev, batch, windows, rounds=STRESS_ROUNDS):
-    """The two backward kernels launched back to back with no synchronize,
-    as training launches them, `rounds` times: ResUNet's 11 wgrad layers
-    (B = 2, bf16) and gather_rows_backward at the UME shape and both
-    window shapes, each twice a round, with the ResUNet pyramid and conv
-    maps built again right behind them (the geometry's own torch indexing
-    runs while they may still run). Every output and scratch tensor the
-    wrappers allocate lies between guards (guarded_empty) that must come
-    back unchanged, the inputs must come back unchanged, the two launches
-    of a round and every round must give the first round's bits, and the
-    rebuilt maps must equal the first ones."""
+    """The backward kernels launched back to back with no synchronize, as
+    training launches them, `rounds` times: ResUNet's 11 wgrad layers
+    (B = 2, bf16), gather_rows_backward at the UME shape and both window
+    shapes, and ResUNetSmall2's grouped convs at B = 8 (bf16: the 18
+    forwards, the 17 dX over the adjoint maps, the 18
+    sparse_conv_grouped_wgrad), each twice a round, with the ResUNet
+    pyramid and conv maps built again right behind them (the geometry's
+    own torch indexing runs while they may still run). Every output and
+    scratch tensor the wrappers allocate lies between guards
+    (guarded_empty) that must come back unchanged, the inputs must come
+    back unchanged, the two launches of a round and every round must give
+    the first round's bits, and the rebuilt maps must equal the first
+    ones. Then the grouped conv's weight-tile cache (grouped_cache_check):
+    a layer's weights updated in place between two calls must give the
+    plain version's output for the new weights, forward and dX."""
     import torch
 
     from umeregrobust_tpu_torch.models.resunet import ARCHS, init_resunet
-    from umeregrobust_tpu_torch.ops import cuda_conv, cuda_gather
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.ops import cuda_conv, cuda_gather, cuda_grouped
     from umeregrobust_tpu_torch.train.trainer import (
         TrainConfig, _capacities, batch_to_device, cloud_features)
 
@@ -3665,8 +3897,19 @@ def backward_stress(dev, batch, windows, rounds=STRESS_ROUNDS):
     convs = [(f, torch.randn(nbr.shape[1], w.shape[2], generator=g).to(dev),
               nbr) for _, f, w, nbr, _ in layers]
     maps0 = [nbr for _, _, _, nbr, _ in layers]
+    small = load_model(os.path.join(ROOT, "weights", "synthetic_pretrain.pkl"),
+                       ARCHS["ResUNetSmall2"], device=dev)
+    grouped = [(name, f, w, gmap, adj,
+                torch.randn(gmap.center.shape[1], w.shape[2],
+                            generator=g).to(dev))
+               for name, f, w, gmap, _, _, adj in capture_grouped_layers(
+                   small, lambda: cloud_features(
+                       small, batch_to_device(batch, dev),
+                       _capacities(TrainConfig(), small.arch), bf,
+                       train=True))]
     ins = [t for c in convs for t in c] + [t for d, i, _ in gathers
                                            for t in (d, i)]
+    ins += [t for _, f, w, _, _, dy in grouped for t in (f, w, dy)]
     keep = [t.clone() for t in ins]
     first, rows = None, []
     for r in range(rounds):
@@ -3677,6 +3920,14 @@ def backward_stress(dev, batch, windows, rounds=STRESS_ROUNDS):
                          for f, dy, nbr in convs]
                 outs += [cuda_gather.gather_rows_backward(d, i, n)
                          for d, i, n in gathers]
+                for name, f, w, gmap, (adj, rev), dy in grouped:
+                    outs.append(cuda_grouped.sparse_conv_grouped_kernel(
+                        f, w, gmap, None, bf))
+                    if name != "conv1":  # the stem's input needs no dX
+                        outs.append(cuda_grouped.sparse_conv_grouped_dx(
+                            dy, w, adj, rev, bf))
+                    outs.append(cuda_grouped.sparse_conv_grouped_wgrad(
+                        f, dy, gmap, bf))
         layers = pyramid()  # synchronizes at its end
         half = len(outs) // 2
         first = first or outs[:half]
@@ -3693,9 +3944,63 @@ def backward_stress(dev, batch, windows, rounds=STRESS_ROUNDS):
         del made, outs
     ok = all(all(v for k, v in row.items()
                  if k not in ("round", "guarded_tensors")) for row in rows)
+    cache = grouped_cache_check(grouped, g)
     return dict(rounds=rounds, layers=len(convs), gathers=len(gathers),
-                guard_bytes=GUARD_BYTES, per_round=rows,
-                seconds=time.time() - t0, ok=ok)
+                grouped_layers=len(grouped), guard_bytes=GUARD_BYTES,
+                per_round=rows, weight_cache=cache,
+                seconds=time.time() - t0, ok=ok and cache["ok"])
+
+
+def grouped_cache_check(grouped, g):
+    """The grouped conv's bf16 weight tiles are cached a parameter
+    version: on one layer of `grouped` (name, feats, weights, map,
+    adjoint, dY), a copy of the weights is used, then updated in place as
+    the optimizer does (sub_), then used again. The second call must make
+    new tiles (one build for the forward's layout, one for dX's), give
+    the plain version's output for the new weights (GROUPED_LIMITS, and
+    one bf16 ulp for dX) and differ from the first; a third call must
+    make none."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+    from umeregrobust_tpu_torch.ops.sparse import (
+        sparse_conv_grouped_dx_plain, sparse_conv_grouped_plain)
+
+    bf = torch.bfloat16
+    name, f, w, gmap, (adj, rev), dy = next(x for x in grouped
+                                             if x[0] == "block3.conv1")
+    wc = w.clone()
+
+    def both():
+        return (cuda_grouped.sparse_conv_grouped_kernel(f, wc, gmap, None, bf),
+                cuda_grouped.sparse_conv_grouped_dx(dy, wc, adj, rev, bf))
+
+    fa, xa = both()
+    builds = dict(cuda_grouped.WEIGHT_TILE_BUILDS)
+    with torch.no_grad():
+        wc.sub_(1e-2 * torch.randn(wc.shape, generator=g).to(wc.device))
+    fb, xb = both()
+    made = {k: v - builds[k]
+            for k, v in cuda_grouped.WEIGHT_TILE_BUILDS.items()}
+    both()
+    again = {k: v - builds[k] - made[k]
+             for k, v in cuda_grouped.WEIGHT_TILE_BUILDS.items()}
+    torch.cuda.synchronize()
+    ref_f = sparse_conv_grouped_plain(f, wc, gmap, None, bf)
+    ref_x = sparse_conv_grouped_dx_plain(dy, wc, adj, rev, bf)
+    err_f = float((fb - ref_f).abs().max())
+    lim_f = GROUPED_LIMITS["bfloat16"] * float(ref_f.abs().max())
+    dx_chk = grouped_bwd_check(lambda: xb, ref_x, bf)
+    res = dict(layer=name, tile_builds_on_update=made,
+               tile_builds_after=again, fwd_err=err_f, fwd_limit=lim_f,
+               dx_max_err_over_limit=dx_chk["max_err_over_limit"],
+               fwd_changed=not bool(torch.equal(fa, fb)),
+               dx_changed=not bool(torch.equal(xa, xb)))
+    res["ok"] = (err_f <= lim_f and dx_chk["max_err_over_limit"] <= 1.0
+                 and res["fwd_changed"] and res["dx_changed"]
+                 and made[0] == 1 and made[2 if rev else 1] == 1
+                 and sum(again.values()) == 0)
+    return res
 
 
 def gather_backward_shape(label, d, idx, N):
@@ -4101,15 +4406,19 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
     forward kernel over it, sparse_conv_wgrad), the library route (a
     gather of the 27 tap rows and one torch.mm a direction; timed only)
     and the bound of each direction (grouped_bound's formula for dX,
-    grouped_wgrad_bound for dW)."""
+    grouped_wgrad_bound for dW); the layer's training forward (the
+    forward kernel at these shapes, fwd_kernel_ms, fwd_bound_ms, against
+    its plain version at bf16) and the parent tree's kernel forward and
+    dX on the same inputs in the same call (parent_grouped)."""
     import torch
 
     from umeregrobust_tpu_torch.ops import cuda_conv, cuda_grouped
     from umeregrobust_tpu_torch.ops.cuda_grouped import (
         sparse_conv_grouped_dx as grouped_dx, sparse_conv_grouped_wgrad)
     from umeregrobust_tpu_torch.ops.sparse import (
-        _per_tap, invert_map_batch, round_to, sparse_conv_grouped_plain,
-        sparse_conv_grouped_wgrad_plain, ungroup_kernel_map)
+        _per_tap, invert_map_batch, sparse_conv_grouped_dx_plain,
+        sparse_conv_grouped_plain, sparse_conv_grouped_wgrad_plain,
+        ungroup_kernel_map)
 
     bf = torch.bfloat16
     _, Cin, Cout = w.shape
@@ -4127,8 +4436,7 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
         if need_dx:
             checks[f"dx_{tag}"] = grouped_bwd_check(
                 lambda: grouped_dx(dy, w, adj, rev, cd),
-                round_to(sparse_conv_grouped_plain(dy, wv, adj, None, cd,
-                                                   pairs), cd), cd)
+                sparse_conv_grouped_dx_plain(dy, w, adj, rev, cd, pairs), cd)
 
     def dw_kernel():
         return sparse_conv_grouped_wgrad(f, dy, gmap, bf)
@@ -4157,6 +4465,27 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
     dx_ms = graph_ms(dx_kernel, reps=5, inner=10) if need_dx else 0.0
     bw, bw_by = grouped_wgrad_bound(f, dy, gmap)
     bx, bx_by = (grouped_bound(dy, wv, adj)[:2] if need_dx else (0.0, None))
+    # the training forward of this layer (the same kernel, B = 8 shapes)
+    # against its plain version, and the parent tree's kernel on the same
+    # inputs in this call, forward and dX
+    fwd = cuda_grouped.sparse_conv_grouped_kernel(f, w, gmap, None, bf)
+    fwd_ref = sparse_conv_grouped_plain(f, w, gmap, None, bf, pairs)
+    fwd_err = float((fwd - fwd_ref).abs().max())
+    fwd_scale = float(fwd_ref.abs().max())
+    del fwd, fwd_ref
+    fwd_ms = graph_ms(lambda: cuda_grouped.sparse_conv_grouped_kernel(
+        f, w, gmap, None, bf), reps=5, inner=10)
+    parent_fwd_ms = graph_ms(lambda: parent_grouped(f, w, gmap), reps=5,
+                             inner=10)
+    parent_dx_ms = (graph_ms(lambda: parent_grouped(dy, w, adj,
+                                                    2 if rev else 1),
+                             reps=5, inner=10) if need_dx else 0.0)
+    checks["fwd_bfloat16"] = dict(
+        max_abs_err=fwd_err, scale=fwd_scale,
+        max_err_over_limit=fwd_err / max(GROUPED_LIMITS["bfloat16"]
+                                         * fwd_scale, 1e-30),
+        two_launches_identical=True, guards_intact=True,
+        ok=fwd_err <= GROUPED_LIMITS["bfloat16"] * fwd_scale)
     row = dict(
         layer=name, cin=Cin, cout=Cout, rows_in=N_in, rows_out=N_out,
         windows_used=int((gmap.masks.any(1) | gmap.patho).sum()),
@@ -4172,6 +4501,9 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
         ok=all(c["ok"] for c in checks.values()),
         dw_ms=time_ms(dw_kernel, reps=10), dw_kernel_ms=dw_ms,
         dx_kernel_ms=dx_ms, kernel_ms=dw_ms + dx_ms,
+        parent_dx_kernel_ms=parent_dx_ms, fwd_kernel_ms=fwd_ms,
+        fwd_parent_kernel_ms=parent_fwd_ms,
+        fwd_bound_ms=grouped_bound(f, w, gmap)[0],
         dw_plain_ms=time_ms(lambda: sparse_conv_grouped_wgrad_plain(
             f, dy, gmap, bf), reps=3, warmup=1),
         recompute_ms=time_ms(recompute, reps=3, warmup=1),
@@ -4242,7 +4574,7 @@ def grouped_wgrad_forced_cases(dev):
     from umeregrobust_tpu_torch.ops.cuda_grouped import (
         sparse_conv_grouped_dx as grouped_dx, sparse_conv_grouped_wgrad)
     from umeregrobust_tpu_torch.ops.sparse import (
-        round_to, sparse_conv_grouped_plain, sparse_conv_grouped_wgrad_plain)
+        sparse_conv_grouped_dx_plain, sparse_conv_grouped_wgrad_plain)
 
     rng = np.random.default_rng(23)
 
@@ -4275,7 +4607,6 @@ def grouped_wgrad_forced_cases(dev):
                             / np.sqrt(27 * cin), dtype=torch.float32,
                             device=dev)
         rev = j % 2 == 1
-        wv = (w.flip(0) if rev else w).transpose(1, 2)
         # the dX route's input: n_in rows of Cout, through the same map
         x = torch.as_tensor(rng.standard_normal((n_in, cout)),
                             dtype=torch.float32, device=dev)
@@ -4287,8 +4618,7 @@ def grouped_wgrad_forced_cases(dev):
                 sparse_conv_grouped_wgrad_plain(f, dy, gmap, cd), cd)
             r[f"dx_{tag}"] = grouped_bwd_check(
                 lambda: grouped_dx(x, w, gmap, rev, cd),
-                round_to(sparse_conv_grouped_plain(x, wv, gmap, None, cd),
-                         cd), cd)
+                sparse_conv_grouped_dx_plain(x, w, gmap, rev, cd), cd)
         if label == "all_masked":  # nothing is read: exact zeros
             for cd in (torch.float32, torch.bfloat16):
                 dw = sparse_conv_grouped_wgrad(f, dy, gmap, cd)
@@ -4579,7 +4909,13 @@ def phase_train(dev, t_start):
     out["grouped_bwd"] = dict(
         layers=len(g_rows), dx_layers=len(dx_rows),
         dx_kernel_ms=sum(r["dx_kernel_ms"] for r in dx_rows),
+        parent_dx_kernel_ms=sum(r["parent_dx_kernel_ms"] for r in dx_rows),
         dx_bound_ms=sum(r["dx_bound_ms"] for r in dx_rows),
+        fwd_kernel_ms=sum(r["fwd_kernel_ms"] for r in g_rows),
+        fwd_parent_kernel_ms=sum(r["fwd_parent_kernel_ms"] for r in g_rows),
+        fwd_bound_ms=sum(r["fwd_bound_ms"] for r in g_rows),
+        fwd_max_err_over_limit=max(r["checks"]["fwd_bfloat16"][
+            "max_err_over_limit"] for r in g_rows),
         dx_max_abs_err=max(r["checks"]["dx_bfloat16"]["max_abs_err"]
                            for r in dx_rows),
         kernel_ms=sum(r["kernel_ms"] for r in g_rows),
@@ -5360,10 +5696,21 @@ def main() -> int:
                   f"{r['layer']} {r['cin']}->{r['cout']}, {r['rows_in']}->"
                   f"{r['rows_out']} rows" for r in grouped["rows"]),
         **{k: grouped[k] for k in (
-            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_kernel_ms", "per_tap_kernel_ms", "B",
-            "kernel_ms_batched", "bound_ms_batched", "bit_identical_to_b1")},
+            "ms", "kernel_ms", "parent_kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_kernel_ms",
+            "per_tap_kernel_ms", "B", "kernel_ms_batched",
+            "parent_kernel_ms_batched", "bound_ms_batched",
+            "bit_identical_to_b1")},
         kernel_ms_b1=grouped["kernel_ms"])
+    od = grouped["order"]
+    kern["grouped_row_order"] = dict(
+        ok=od["ok"], max_abs_err=od["max_abs_err"],
+        shape=f"the {od['maps']} grouped maps of a ResUNetSmall2 one-pair "
+              "pyramid: " + ", ".join(str(r["rows"]) for r in od["rows"])
+              + " rows",
+        **{k: od[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                              "argsort_ms")},
+        bound_by="bytes", library_ms=None)
     for name in ("sparse_conv_rowtile", "sparse_conv_tapsplit"):
         kind = name[len("sparse_conv_"):]
         mine = [r for r in conv_layers["ResUNet"]["rows"]
@@ -5581,8 +5928,12 @@ def main() -> int:
     gb = train_res["grouped_bwd"]  # its dX route: this kernel, adjoint map
     kern["sparse_conv_grouped"].update(
         train_dx_kernel_ms=gb["dx_kernel_ms"],
+        train_dx_parent_kernel_ms=gb["parent_dx_kernel_ms"],
         train_dx_bound_ms=gb["dx_bound_ms"],
         train_dx_max_abs_err=gb["dx_max_abs_err"],
+        train_fwd_kernel_ms=gb["fwd_kernel_ms"],
+        train_fwd_parent_kernel_ms=gb["fwd_parent_kernel_ms"],
+        train_fwd_bound_ms=gb["fwd_bound_ms"],
         ok=kern["sparse_conv_grouped"]["ok"] and gb["ok"])
 
     # --- 5k. the parallel layer, the hash grid and the native host ops
@@ -5750,19 +6101,22 @@ def main() -> int:
                "family": FORWARD_KERNELS,
                "train_small2": ("gather_rows", "gather_rows_backward",
                                 "sparse_conv_grouped",
-                                "sparse_conv_grouped_wgrad"),
+                                "sparse_conv_grouped_wgrad",
+                                "grouped_row_order"),
                "train_resunet": ("gather_rows", "gather_rows_backward",
                                  "sparse_conv_rowtile", "sparse_conv_tapsplit",
                                  "sparse_conv_wgrad"),
                "train_cli": ("gather_rows", "gather_rows_backward",
                              "sparse_conv_grouped",
-                             "sparse_conv_grouped_wgrad"),
+                             "sparse_conv_grouped_wgrad",
+                             "grouped_row_order"),
                "parallel_sp": ("ume_moments_fused",),
                "parallel_dp": ("gather_rows", "gather_rows_backward",
                                "sparse_conv_grouped",
                                "sparse_conv_grouped_wgrad"),
                **{f"widths_{k}": ("ume_moments_fused", "corr_scores_fused",
-                                  "gather_rows", "sparse_conv_grouped")
+                                  "gather_rows", "sparse_conv_grouped",
+                                  "grouped_row_order")
                   for k in wide},
                "scan": ("nn1_argmin", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",

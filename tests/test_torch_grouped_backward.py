@@ -25,8 +25,9 @@ from umeregrobust_tpu_torch.models.resunet import (
     ARCHS, build_unet_geometry, init_resunet)
 from umeregrobust_tpu_torch.ops import _build, cuda_grouped
 from umeregrobust_tpu_torch.ops.sparse import (
-    GroupedConv, GroupedMap, invert_map_batch, sparse_conv_grouped_plain,
-    sparse_conv_grouped_wgrad_plain, ungroup_kernel_map)
+    GroupedConv, GroupedMap, invert_map_batch, round_to,
+    sparse_conv_grouped_plain, sparse_conv_grouped_wgrad_plain,
+    ungroup_kernel_map)
 
 CAPS = (192, 160, 128, 96, 64)
 TIGHT = (192, 40, 16, 8, 4)  # every level past the first truncated
@@ -101,7 +102,7 @@ def maps():
 def _jax_map(gmap):
     return JGroupedMap(*(jnp.asarray(n(x).astype(np.int32))
                          if x.dtype == torch.int64 else jnp.asarray(n(x))
-                         for x in gmap))
+                         for x in gmap[:4]))
 
 
 def _inputs(seed, n_in, n_out, cin, cout, bias):
@@ -146,6 +147,46 @@ def test_backward_plain_versions_match_jax_vjp(maps, which, cin, cout, bias,
     _close(dw, grads[1], 1e-5)
     if b is not None:
         _close(dy.sum(0), grads[2], 1e-5)
+
+
+# The bf16 backward against JAX's autodiff (ROADMAP Queue 3 item 13, for
+# this conv). dX: jax.vjp of the JAX package's grouped conv at
+# compute_dtype=bfloat16 takes dY unrounded, as the port's dX route now
+# does (dY's hi and lo bf16 parts on the card), but rounds each group's
+# window cotangent to bf16 and adds the groups' and the three column
+# blocks' shares in bf16 (the transposes of its gather and
+# concatenations), where the port sums every product in fp32 and rounds
+# dX once: entries land up to about one bf16 ulp of max |dX| apart
+# (2^-8; measured up to 5.8e-3 x max here, and up to 7.4e-3 with dY
+# rounded, as the route had it before). dW: the weight-gradient kernel
+# (left as it is, bits and all) takes dY rounded to bf16, which JAX's
+# autodiff does not: that rounding is the whole gap (without it the two
+# are bit for bit the same; with it up to 7.0e-3 x max here).
+BF16_JAX_LIMIT = 2 ** -7
+
+
+@pytest.mark.parametrize("pairs", [1, 2])
+@pytest.mark.parametrize("which", ["self", "strided", "transposed"])
+def test_bf16_backward_against_jax_vjp(maps, which, pairs):
+    gmap, adj, reverse, n_in = maps[pairs][which]
+    n_out = gmap.center.shape[1]
+    f, w, _, dy = _inputs(pairs * 10 + len(which), n_in, n_out, 20, 48,
+                          False)
+    jm = _jax_map(gmap)
+    _, vjp = jax.vjp(lambda a, b: jax_grouped(a, b, jm,
+                                              compute_dtype=jnp.bfloat16),
+                     jnp.asarray(f), jnp.asarray(w))
+    jdx, jdw = (np.asarray(x) for x in vjp(jnp.asarray(dy)))
+    bf = torch.bfloat16
+    dx = n(cuda_grouped.sparse_conv_grouped_dx(t(dy), t(w), adj, reverse,
+                                               bf))
+    dw = n(cuda_grouped.sparse_conv_grouped_wgrad(t(f), t(dy), gmap, bf))
+    _close(dx, jdx, BF16_JAX_LIMIT)
+    _close(dw, jdw, BF16_JAX_LIMIT)
+    # dW's gap is dY's rounding alone
+    unrounded = n(round_to(sparse_conv_grouped_wgrad_plain(
+        round_to(t(f), bf), t(dy), gmap), bf))
+    np.testing.assert_array_equal(unrounded, jdw)
 
 
 def _patch_grouped(monkeypatch):

@@ -68,7 +68,7 @@ def _inputs(seed, n_in, cin, cout, bias):
 def _jax_map(gmap):
     return JGroupedMap(*(jnp.asarray(n(x).astype(np.int32))
                          if x.dtype == torch.int64 else jnp.asarray(n(x))
-                         for x in gmap))
+                         for x in gmap[:4]))
 
 
 @pytest.mark.parametrize("pairs", [1, 2])
@@ -98,10 +98,11 @@ def test_plain_version_matches_jax(maps, cin, cout, bias, which, dtype, tol,
 
 # GroupedConv's backward against autograd through the plain version, x
 # max |autograd's|: fp32, the same sums in another order; bf16, dY rounded
-# to bf16 before the products (the backward's own rounding: up to 2^-9 of
-# each dY entry, ~2^-9 x max after the sums' cancellations), and dX, dW
-# rounded to bf16 as autograd rounds them, so a value near a rounding
-# boundary may land one bf16 ulp (2^-8 of its size) away
+# to bf16 before dW's products (the weight-gradient kernel's own rounding:
+# up to 2^-9 of each dY entry, ~2^-9 x max after the sums' cancellations;
+# dX takes dY unrounded, as autograd does), and dX, dW rounded to bf16 as
+# autograd rounds them, so a value near a rounding boundary may land one
+# bf16 ulp (2^-8 of its size) away
 BACKWARD_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 
 
@@ -111,8 +112,9 @@ BACKWARD_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 def test_recompute_backward_is_autograd_of_the_plain_version(
         maps, which, dtype, bias):
     # GroupedConv on CPU tensors runs the card's backward route with its
-    # kernels' plain versions (dX: the forward over the adjoint map with
-    # the weights transposed; dW: sparse_conv_grouped_wgrad_plain; db: a
+    # kernels' plain versions (dX: sparse_conv_grouped_dx_plain, the
+    # forward over the adjoint map with the weights transposed and dY
+    # unrounded; dW: sparse_conv_grouped_wgrad_plain; db: a
     # sum of dY): the forward, bit for bit, and dX, dW and db, within
     # BACKWARD_LIMITS, are autograd's through the plain version (the form
     # the backward recomputed before it had kernels of its own)
@@ -220,37 +222,71 @@ def _kernel_constants():
             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
 
 
-@pytest.mark.parametrize("n_in,n_out,cin,cout,want_steps,want_rows", [
-    (32768, 32768, 1, 32, 1, 128),  # the stem: K = 3 x 8, one chunk
-    (32768, 20480, 32, 64, 2, 128),  # 160 blocks of 128 rows
-    (20480, 32768, 128, 64, 6, 128),
-    (2560, 8192, 256, 128, 12, 64),  # conv3_tr: 128 blocks of 128 rows
-    (512, 512, 256, 256, 12, 32),  # 64 blocks of 32 rows
-    (400, 400, 768, 48, 36, 32),  # ResUNetSmall's widest decoder input
-    (100, 260, 20, 5, 2, 32),  # 3 x 24 = 72 K entries: 2 chunks
+@pytest.mark.parametrize("n_in,n_out,cin,cout,want_steps,want_cols,"
+                         "want_cluster", [
+    (32768, 32768, 1, 32, 1, 32, 1),  # the stem: K = 3 x 8, one chunk
+    (32768, 20480, 32, 64, 2, 64, 1),  # 9 x 2 steps a tile: one CTA
+    (20480, 32768, 128, 64, 6, 64, 1),  # conv1_tr: 54 steps, one CTA
+    (2560, 8192, 256, 128, 12, 128, 2),  # conv3_tr: 216 steps, two CTAs
+    (512, 512, 256, 256, 12, 128, 4),  # block5: 432 steps, four CTAs
+    (2560, 2560, 128, 128, 6, 128, 1),  # block4: 108 steps
+    (512, 512, 128, 256, 6, 128, 2),  # conv5
+    (400, 400, 768, 48, 36, 64, 3),  # ResUNetSmall's widest decoder input
+    (100, 260, 20, 5, 2, 32, 1),  # 3 x 24 = 72 K entries: 2 chunks
 ])
 def test_plan_is_a_rule_on_shapes(n_in, n_out, cin, cout, want_steps,
-                                  want_rows):
+                                  want_cols, want_cluster):
     const = _kernel_constants()
     plan = cuda_grouped.grouped_plan(n_in, n_out, cin, cout, torch.bfloat16)
-    assert (plan.tile_cols, plan.k_chunk) == (const["kBN"], const["kKC"])
-    assert plan.kind == "mma" and plan.k_steps == want_steps
-    # 128-row tiles, or the largest of 64 and 32 whose grid fills the SMs
-    assert plan.tile_rows == want_rows
-    assert plan.tile_rows == const["kBM"] or -(-n_out // (2 * want_rows)) \
-        * -(-cout // 64) < 132
+    assert plan.kind == "mma" and not plan.split
+    # 64-row tiles of the map's order (the order kernel's tile too)
+    assert (plan.tile_rows, plan.k_chunk) == (const["kBM"], const["kKC"])
+    assert _order_constants()["kTileRows"] == const["kBM"]
+    assert plan.k_steps == want_steps
     cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
     assert (plan.k_steps - 1) * plan.k_chunk < 3 * cin8 <= \
         plan.k_steps * plan.k_chunk
-    assert plan.grid == (-(-n_out // want_rows), -(-cout // 64))
-    assert plan.xb_elems == n_in * cin8 and plan.wb_elems == 27 * cin8 * cout8
-    # the stages of A (rows x (chunk + 8)) and weights (chunk x (64 + 8))
-    # in bf16, within the 227 KB a block may have (dynamic shared memory)
-    assert plan.smem_bytes == 2 * const["kStages"] * (
-        want_rows * (const["kKC"] + 8) + const["kKC"] * (const["kBN"] + 8))
+    # the channel tile: the least of 32, 64 and 128 that holds round8(Cout),
+    # 128 past it
+    assert plan.tile_cols == want_cols
+    assert plan.tile_cols == next((c for c in (32, 64, 128) if cout8 <= c),
+                                  128)
+    # the cluster: a tile's work (9 k_steps ceil(Cout / 64) steps) over
+    # about one CTA a 128 steps, at most kMaxCluster; Cin and Cout alone
+    # fix it (it sets the order of a row's sums), never N_out
+    assert plan.cluster == want_cluster
+    assert 1 <= plan.cluster <= const["kMaxCluster"]
+    assert all(cuda_grouped.grouped_plan(m, m2, cin, cout).cluster
+               == plan.cluster for m, m2 in ((1, 1), (10 ** 6, 3 * 10 ** 6)))
+    col_tiles = -(-cout // plan.tile_cols)
+    assert plan.grid == (-(-n_out // 64) * plan.cluster, col_tiles)
+    assert plan.xb_elems == n_in * cin8
+    assert plan.wt_elems == 9 * want_steps * col_tiles * plan.tile_cols * 64
+    assert plan.wt_elems == cuda_grouped.weight_tiles_plain(
+        torch.zeros(27, cin, cout)).numel()
+    # the stages of A (64 rows x 64 bf16) and weights (64 x cols bf16), the
+    # barriers and 1 KB to align, within the 227 KB a block may have
+    stage = 2 * const["kBM"] * const["kKC"] + 2 * plan.tile_cols * 64
+    assert plan.smem_bytes == 1024 + const["kStages"] * (stage + 16)
     assert plan.smem_bytes <= 232448
+    # a dX's plan: dY's hi and lo parts double A and the feature copy
+    dx = cuda_grouped.grouped_plan(n_in, n_out, cin, cout, torch.bfloat16,
+                                   split=True)
+    assert dx.split and dx.xb_elems == 2 * plan.xb_elems
+    assert dx.smem_bytes - plan.smem_bytes == \
+        const["kStages"] * 2 * const["kBM"] * const["kKC"]
+    assert dx.smem_bytes <= 232448
+    assert dx._replace(split=False, xb_elems=plan.xb_elems,
+                       smem_bytes=plan.smem_bytes) == plan
     fma = cuda_grouped.grouped_plan(n_in, n_out, cin, cout, torch.float32)
     assert (fma.kind, fma.tile_rows, fma.tile_cols, fma.k_chunk) == (
         "fma", const["kFM"], const["kFN"], const["kFK"])
     assert fma.k_steps == -(-3 * cin // 16) and fma.xb_elems == 0
-    assert fma.smem_bytes <= 48 * 1024
+    assert fma.cluster == 1 and fma.smem_bytes <= 48 * 1024
+
+
+def _order_constants():
+    src = (ROOT / "umeregrobust_tpu_torch" / "csrc"
+           / "grouped_row_order.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}

@@ -258,12 +258,18 @@ def test_load_library_raises_without_nvcc(no_nvcc):
     lambda d: cuda_grouped.sparse_conv_grouped_wgrad(
         torch.zeros(8, 4, device=d), torch.zeros(8, 6, device=d),
         _grouped_map(d), compute_dtype=torch.bfloat16),
+    lambda d: cuda_grouped.grouped_row_order(_grouped_map(d))[0],
+    lambda d: cuda_grouped.weight_tiles(torch.zeros(27, 4, 6, device=d)),
+    lambda d: cuda_grouped.sparse_conv_grouped_dx(
+        torch.zeros(8, 6, device=d), torch.zeros(27, 4, 6, device=d),
+        _grouped_map(d), True, compute_dtype=torch.bfloat16),
 ], ids=["nn1_argmin", "ume_moments_fused", "ume_moments_fused_caps",
         "corr_scores_fused", "gather_rows", "gather_padded",
         "sparse_conv_rowtile", "sparse_conv_tapsplit", "sparse_conv",
         "conv_entries", "gather_rows_backward", "sparse_conv_wgrad",
         "sparse_conv_grouped_kernel", "sparse_conv_grouped",
-        "sparse_conv_grouped_wgrad"])
+        "sparse_conv_grouped_wgrad", "grouped_row_order", "weight_tiles",
+        "sparse_conv_grouped_dx"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
@@ -316,7 +322,7 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
         "nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
         "sparse_conv_rowtile", "sparse_conv_tapsplit",
         "gather_rows_backward", "sparse_conv_wgrad", "sparse_conv_grouped",
-        "sparse_conv_grouped_wgrad"])
+        "sparse_conv_grouped_wgrad", "grouped_row_order"])
     entry = {"ume_moments_fused": "umr_ume_moments",
              "corr_scores_fused": "umr_corr_scores"}
     for name, (source, replaces) in kernels.items():
@@ -350,6 +356,23 @@ def test_pair_axis_entries_have_their_ctypes_signature(fn, source):
     for p, ct in zip(params, sig):
         want = (_build._VP if "*" in p else _build._FLT
                 if p.startswith("float") else _build._INT)
+        assert ct is want, (fn, p)
+
+
+@pytest.mark.parametrize("fn,source", [
+    ("umr_sparse_conv_grouped", "sparse_conv_grouped.cu"),
+    ("umr_grouped_weight_tiles", "sparse_conv_grouped.cu"),
+    ("umr_grouped_row_order", "grouped_row_order.cu")])
+def test_grouped_entries_have_their_ctypes_signature(fn, source):
+    # _SIGNATURES lists every argument of the grouped conv's C entries
+    # with its ctypes type: pointers void*, sizes that may pass 2^31 long
+    # long, the rest int
+    params = _c_params((PKG / "csrc" / source).read_text(), fn)
+    sig = _build._SIGNATURES[fn]
+    assert len(sig) == len(params)
+    for p, ct in zip(params, sig):
+        want = (_build._VP if "*" in p else _build._LL
+                if p.startswith("long long") else _build._INT)
         assert ct is want, (fn, p)
 
 

@@ -631,7 +631,7 @@ def test_grouped_conv_backward_matches_jax_grad(small2_maps, which):
     g = rng.normal(size=(gmap.center.shape[1], 20)).astype(np.float32)
     jmap = JGroupedMap(*(jnp.asarray(n(f).astype(np.int32))
                          if f.dtype == torch.int64 else jnp.asarray(n(f))
-                         for f in gmap))
+                         for f in gmap[:4]))
     want = jax.grad(lambda p, q: jnp.sum(jax_grouped(p, q, jmap)
                                          * jnp.asarray(g)), argnums=(0, 1))(
         jnp.asarray(x), jnp.asarray(w))

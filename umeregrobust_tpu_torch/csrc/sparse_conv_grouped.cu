@@ -20,63 +20,268 @@
 // map, the weights once and the fp32 output once, at 3.35 TB/s. On
 // ResUNetSmall2's 18 layers at one pair both bounds are a few hundredths
 // of a ms a layer (chip_smoke.py's grouped_layer rows compute them from
-// the maps), so the kernel is set by how well it keeps loads in flight,
-// not by either peak.
+// the maps): the kernel is set by how many gathered loads it keeps in
+// flight and by how long its chains of dependent steps are, not by either
+// peak. The first design (csrc/bench/sparse_conv_grouped_parent.cu) walked
+// up to 9 groups x 12 K chunks in a row on 16-80 blocks at one pair,
+// staged zero windows for every group some row of a 128-row tile used
+// (transposed convs use 7-19% of their windows), and remade the bf16
+// weight copy every call.
 //
-// Design (bf16 operands):
-//  - one launch rounds the features to bf16 rows of round8(Cin) columns
-//    and the weights to slot-ordered bf16 (9, 3 round8(Cin), round8(Cout))
-//    (`cp.async` cannot convert), made per call: the wrapper does not
-//    cache them, so a parameter changed by training is always read anew;
-//  - output-stationary blocks of 128 rows x 64 channels, 8 warps each 32 x
-//    32, fp32 sums in registers until the one write (bias in the epilogue,
-//    no atomics, no scratch). Where 128-row tiles would leave SMs idle
-//    (the small levels: 16-80 blocks) the tiles have 64 or 32 rows: such
-//    a layer is bound by the tensor rate of the SMs its blocks occupy;
-//  - the groups run in order g = 0..8, each as K chunks of 64 in
-//    ascending order over [slot 0 | slot 1 | slot 2] (each slot
-//    round8(Cin) wide, zero past Cin); a group that no row of the tile
-//    uses is skipped (a block-wide vote: it would add exact zeros);
-//  - a chunk's A tile is staged with 16-byte `cp.async` pieces straight
-//    from the window rows (a masked slot or an out-of-range row is a
-//    zero-fill, src-size 0), its weight tile likewise, four stages deep
-//    (108 KB of dynamic shared memory, two blocks an SM), so the next
-//    three steps' copies, group g + 1's included, overlap this step's
-//    `mma.sync.m16n8k16` products: a step waits on the latency of
-//    gathered rows, so the steps are long and many are in flight; staged
-//    rows are 8 bf16 longer than the chunk so that ldmatrix rows fall in
-//    distinct banks;
-//  - a row's sums run over the same (group, chunk) sequence whatever its
-//    tile, its tile's size, the batch or the other rows (a skipped group
-//    adds only zeros),
-//    so a pair of a batch gets its one-pair bits and two launches agree.
-// fp32 operands take an FMA tile of the same order (64 x 64 outputs a
-// block, 16 K entries a step, each output one fmaf chain over g, then k
-// ascending; no TF32).
+// Design (bf16 operands), Hopper:
+//  - rows in the map's order (grouped_row_order.cu: output rows sorted by
+//    their 9-bit used-group mask, one stable counting sort a map, and each
+//    64-row tile's mask), so a tile's rows mostly use the same groups and
+//    a tile stages and multiplies only the groups in its mask; a row is
+//    read through the order and written to its own place;
+//  - a tile's groups split over the CTAs of a thread-block cluster (1-4,
+//    fixed by Cin and Cout in the wrapper's plan: about a CTA a 128 K
+//    steps of a tile's work), CTA j taking groups
+//    [ceil(9 j / CS), ceil(9 (j + 1) / CS)); the partial sums meet in the
+//    first CTA with work through distributed shared memory, added in CTA
+//    order, and a tile whose groups all fall to one CTA needs no
+//    exchange (the sorted tiles of transposed maps mostly);
+//  - a CTA is one consumer warpgroup on wgmma.m64nNk16 (N the channel
+//    tile: 32, 64 or 128 by Cout; fp32 sums in registers) and one producer
+//    warpgroup, over a ring of four stages with full / empty mbarriers:
+//    the producers first find every window row of the CTA's groups in one
+//    burst of independent map reads (into shared memory), then stage each
+//    step's 64 window rows x 64 K entries with 16-byte cp.async pieces,
+//    eight lanes a 128-byte row (the rows are a gather, which TMA cannot
+//    do; masked slots and rows out of range are zero-fills) whose
+//    completion arrives on the stage's barrier, and the step's weight tile
+//    by one TMA bulk copy; both land in the 128-byte swizzled K-major
+//    layout that wgmma reads;
+//  - the weights are tiled once a parameter version (the wrapper caches
+//    the bf16 copy, keyed on the tensor's storage and version counter):
+//    tap order within a group, (group, K chunk, channel tile) blocks of
+//    N x 64 bf16 already swizzled, so one bulk copy a step moves a block;
+//    the producer puts slot s of a window at the K place of its tap
+//    (worder), so one copy serves maps of either slot order;
+//  - the features are rounded to bf16 rows of round8(Cin) columns by one
+//    small launch a call (cp.async cannot convert);
+//  - a row's sum runs over its CTA's groups ascending, K ascending in 16s,
+//    then the CTAs' partials in CTA order, the bias, and for a gradient
+//    the bf16 rounding: the same sequence whatever its tile, the order,
+//    the batch or the other rows (a group a row does not use adds exact
+//    zeros), so a pair of a batch gets its one-pair bits and two launches
+//    agree.
+// fp32 operands take an FMA tile (64 x 64 outputs a block, 16 K entries a
+// step, each output one fmaf chain over g, then k ascending; no TF32) in
+// code order, no order or cluster.
 // In training the same kernel gives the input's gradient: dX is dY's conv
 // over the adjoint map (the pyramid builds it beside the map) with each
 // tap's weights transposed, and for a self map the taps reversed; the
-// `dx_taps` argument makes the weight copy read them so, and rounds dX to
-// bf16 in the epilogue. The weights' gradient is
+// `dx_taps` argument makes the weight tiles read them so, takes dY
+// unrounded as JAX's autodiff of the forward's bf16 casts does (dY = hi +
+// lo, two bf16 parts, each step's products on both: SPLIT), and rounds dX
+// to bf16 in the epilogue. The weights' gradient is
 // sparse_conv_grouped_wgrad.cu.
 #include "common.cuh"
 #include "grouped_window.cuh"
 
 namespace {
 
-constexpr int kBM = 128;  // output rows a block (also 64 and 32: small grids)
-constexpr int kBN = 64;   // output channels a block
-constexpr int kKC = 64;   // K entries a step (four k16 products)
+constexpr int kBM = 64;        // output rows a tile (wgmma M; the order's)
+constexpr int kKC = 64;        // K entries a step (one 128-byte row)
 constexpr int kStages = 4;
-constexpr int kThreads = 256;
-constexpr int kLdA = kKC + 8;  // bf16 a staged A row (144 B)
-constexpr int kLdB = kBN + 8;  // bf16 a staged weight row (144 B)
+constexpr int kConsumers = 128;  // a consumer warpgroup
+constexpr int kProducers = 128;  // a producer warpgroup
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kStageA = kBM * kKC * 2;  // bytes
+constexpr int kMaxCluster = 4;  // CTAs a tile's groups are split over
 constexpr size_t kMaxSmem = 232448;  // bytes a block may have on the H100
-static_assert((size_t)kStages * (kBM * kLdA + kKC * kLdB) * 2 + 96 <= kMaxSmem,
-              "the stages fit a block's shared memory");
 constexpr int kFM = 64;        // FMA tile: output rows a block
 constexpr int kFN = 64;        //   output channels a block
 constexpr int kFK = 16;        //   K entries a step
+constexpr int kFThreads = 256;
+
+// A's bytes a stage: the window rows' bf16 chunk, or for a split A (a dX:
+// dY as the sum of two bf16 parts, hi and lo) both parts' chunks
+__host__ __device__ constexpr int stage_a(bool split) {
+  return (split ? 2 : 1) * kStageA;
+}
+template <int BN, bool SPLIT>
+constexpr size_t wgmma_smem() {  // the stages, the barriers, 1 KB to align
+  return 1024 + (size_t)kStages * (stage_a(SPLIT) + BN * kKC * 2) +
+         16 * kStages;
+}
+// blocks an SM holds (shared memory and registers)
+__host__ __device__ constexpr int min_blocks(int BN, bool split) {
+  return BN == 128 ? (split ? 1 : 2) : (split ? 2 : 3);
+}
+static_assert(wgmma_smem<128, true>() <= kMaxSmem, "the stages fit a block");
+
+// ---- Hopper pieces: mbarriers, bulk copies, clusters, wgmma
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], "
+      "%1;\n}\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// Arrives on `bar` when the thread's earlier cp.async copies have landed
+// (counted in the barrier's arrivals: noinc).
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits for the phase of `bar` with this parity to complete. A wait that
+// never ends is a fault of the kernel: it traps (the launch fails) rather
+// than hold the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2;\nselp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 26)) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ float ld_cluster_f32(uint32_t local,
+                                                uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// A shared-memory matrix descriptor: K-major rows of 128 bytes, 128-byte
+// swizzle, 8-row groups 1024 bytes apart (the tile's base 1024-aligned).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static constexpr int kRegs = 32;
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static constexpr int kRegs = 16;
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static constexpr int kRegs = 64;
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+        "1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// Keeps the compiler from moving accumulator reads and writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The first group of CTA j of a cluster of cs: groups [g0(j), g0(j + 1)),
+// and those groups as a mask.
+__host__ __device__ inline int split_first(int j, int cs) {
+  return (kGroups * j + cs - 1) / cs;
+}
+__device__ __forceinline__ unsigned split_mask(int j, int cs) {
+  return ((1u << split_first(j + 1, cs)) - 1u) &
+         ~((1u << split_first(j, cs)) - 1u);
+}
 
 // Bit g of the result: some row of [row0, row0 + rows) uses group g.
 __device__ __forceinline__ unsigned used_groups(
@@ -97,221 +302,275 @@ __device__ __forceinline__ unsigned used_groups(
   return *s_used;
 }
 
-// Features -> bf16 rows (N_in, Cin8); weights -> slot-ordered bf16 (9,
-// K3 = 3 Cin8, Cout8): row g K3 + s Cin8 + c holds W[3 g + worder[s]][c]
-// for c < Cin, zeros past Cin and past Cout, where W is w (dx_taps 0),
-// or for a backward's dX, w holding (27, Cout, Cin), W[k] = w[k]^T
-// (dx_taps 1) or w[26 - k]^T (dx_taps 2). One thread a 16-byte piece.
-__global__ void grouped_prep_kernel(const float* __restrict__ feats,
-                                    __nv_bfloat16* __restrict__ xb,
-                                    int64_t x_pieces, int Cin,
-                                    const float* __restrict__ w,
-                                    const long long* __restrict__ worder,
-                                    __nv_bfloat16* __restrict__ wb,
-                                    int64_t w_pieces, int Cout,
-                                    int dx_taps) {
+// Features -> bf16 rows (N_in, Cin8); split: rows (N_in, 2 Cin8) of hi =
+// bf16(x) then lo = bf16(x - hi) (hi + lo carries x to 2^-16 of itself:
+// a dX's dY enters the products unrounded, as JAX's autodiff takes the
+// cotangent). One thread a 16-byte piece (of hi and lo).
+__global__ void grouped_features_kernel(const float* __restrict__ feats,
+                                        __nv_bfloat16* __restrict__ xb,
+                                        int64_t pieces, int Cin, int split) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < x_pieces) {
+  if (t >= pieces) return;
+  if (!split) {
     to_bf16_piece(feats, xb, t, Cin);
     return;
   }
-  if (t >= x_pieces + w_pieces) return;
-  const int Cin8 = round8(Cin), Cout8 = round8(Cout), P = Cout8 / 8;
-  const int64_t u = t - x_pieces, row = u / P;
-  const int n0 = (int)(u - row * P) * 8;
-  const int K3 = 3 * Cin8;
-  const int g = (int)(row / K3), k = (int)(row % K3);
-  const int s = k / Cin8, c = k - s * Cin8;
-  int tap = 3 * g + (int)worder[s];
-  if (dx_taps == 2) tap = 26 - tap;
-  float v[8];
-  if (dx_taps != 0) {
-    const float* src = w + (int64_t)tap * Cout * Cin + c;
+  const int C8 = round8(Cin), P = C8 / 8;
+  const int64_t r = t / P;
+  const int c0 = (int)(t - r * P) * 8;
+  float hi[8], lo[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      v[j] = (c < Cin && n0 + j < Cout) ? src[(int64_t)(n0 + j) * Cin] : 0.f;
-  } else {
-    const float* src = w + ((int64_t)tap * Cin + c) * Cout;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      v[j] = (c < Cin && n0 + j < Cout) ? src[n0 + j] : 0.f;
+  for (int u = 0; u < 8; ++u) {
+    const float v = c0 + u < Cin ? feats[r * Cin + c0 + u] : 0.f;
+    hi[u] = __bfloat162float(__float2bfloat16_rn(v));
+    lo[u] = v - hi[u];  // exact in fp32
   }
-  *reinterpret_cast<uint4*>(wb + row * Cout8 + n0) =
+  __nv_bfloat16* dst = xb + r * 2 * C8 + c0;
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack_bf16(hi[0], hi[1]), pack_bf16(hi[2], hi[3]),
+                 pack_bf16(hi[4], hi[5]), pack_bf16(hi[6], hi[7]));
+  *reinterpret_cast<uint4*>(dst + C8) =
+      make_uint4(pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]),
+                 pack_bf16(lo[4], lo[5]), pack_bf16(lo[6], lo[7]));
+}
+
+// The weight tiles: block (g, kc, nt) of BN x 64 bf16 at ((g nK + kc) nNT
+// + nt) BN 64, its row n the K entries kc 64 + [0, 64) of channel nt BN +
+// n, 16-byte piece j of the row at place j ^ (n % 8) (the 128-byte
+// swizzle). K entry p Cin8 + c of group g is W[3 g + p][c] (tap order),
+// zero past Cin, past K3 and past Cout; W is w (dx_taps 0), or for a
+// backward's dX, w holding (27, Cout, Cin), W[k] = w[k]^T (dx_taps 1) or
+// w[26 - k]^T (dx_taps 2). One thread a 16-byte piece.
+__global__ void grouped_weight_tiles_kernel(const float* __restrict__ w,
+                                            __nv_bfloat16* __restrict__ wt,
+                                            int64_t pieces, int Cin,
+                                            int Cout, int nK, int BN,
+                                            int nNT, int dx_taps) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= pieces) return;
+  const int per_block = BN * (kKC / 8);
+  const int64_t b = t / per_block;
+  const int in = (int)(t - b * per_block), n = in >> 3, j = in & 7;
+  const int nt = (int)(b % nNT), kc = (int)((b / nNT) % nK);
+  const int g = (int)(b / ((int64_t)nNT * nK));
+  const int Cin8 = round8(Cin), ng = nt * BN + n;
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int k = kc * kKC + 8 * j + e, p = k / Cin8, c = k - p * Cin8;
+    int tap = 3 * g + p;
+    if (dx_taps == 2) tap = 26 - tap;
+    const bool ok = p < 3 && c < Cin && ng < Cout;
+    v[e] = !ok ? 0.f
+           : dx_taps != 0 ? w[((int64_t)tap * Cout + ng) * Cin + c]
+                          : w[((int64_t)tap * Cin + c) * Cout + ng];
+  }
+  *reinterpret_cast<uint4*>(wt + b * per_block * 8 + n * kKC +
+                            ((j ^ (n & 7)) * 8)) =
       make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                  pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
-// The bf16 kernel on BM-row tiles (128, 64 or 32: the wrapper takes the
-// largest whose grid fills the SMs). 8 warps: BM / 32 along the rows (32
-// rows each), the rest along the 64 channels (CW each).
-template <typename IdxT, int BM>
-__global__ void __launch_bounds__(kThreads)
-    grouped_mma_kernel(const __nv_bfloat16* __restrict__ xb,
-                       const __nv_bfloat16* __restrict__ wb,
-                       const IdxT* __restrict__ center,
-                       const unsigned char* __restrict__ masks,
-                       const unsigned char* __restrict__ patho,
-                       const float* __restrict__ bias,
-                       float* __restrict__ out, int64_t N_in, int64_t N_out,
-                       int Cin8, int Cout, int Cout8, int round_out) {
-  constexpr int WM = BM / 32, WN = 8 / WM, CW = kBN / WN, NI = CW / 8;
-  constexpr int AP = BM / 32;  // A pieces a thread a step
-  constexpr int kStage = BM * kLdA + kKC * kLdB;  // bf16 a stage
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
-  __shared__ int s_glist[kGroups];
-  __shared__ unsigned s_used;
+// The bf16 kernel on tiles of 64 rows x BN channels. blockIdx.x = tile cs
+// + CTA rank, blockIdx.y = channel tile; clusters of cs CTAs along x.
+// SPLIT: the input rows are hi | lo bf16 parts (grouped_features_kernel),
+// each step's products hi's then lo's on the same weight tile.
+template <typename IdxT, int BN, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, min_blocks(BN, SPLIT))
+    grouped_wgmma_kernel(const __nv_bfloat16* __restrict__ xb,
+                         const __nv_bfloat16* __restrict__ wt,
+                         const IdxT* __restrict__ center,
+                         const unsigned char* __restrict__ masks,
+                         const unsigned char* __restrict__ patho,
+                         const long long* __restrict__ worder,
+                         const int* __restrict__ order,
+                         const int* __restrict__ tiles,
+                         const float* __restrict__ bias,
+                         float* __restrict__ out, int64_t N_in, int64_t N_out,
+                         int Cin8, int Cout, int nK, int nNT, int cs,
+                         int round_out) {
+  constexpr int kA = stage_a(SPLIT);  // bytes
+  constexpr int kStage = kA + BN * kKC * 2;
+  constexpr int R = Wgmma<BN>::kRegs;
+  const int xrow = SPLIT ? 2 * Cin8 : Cin8;  // bf16 an input row
+  __shared__ int s_win[kGroups][3][kBM];  // window rows at K place p
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kStages * kStage;  // full, then empty
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t row0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * kBN;
-  const int K3 = 3 * Cin8;
-  const int nK = (K3 + kKC - 1) / kKC;
+  const int rank = (int)cluster_rank();
+  const int64_t tile = blockIdx.x / cs;
+  const int nt = blockIdx.y;
+  const int64_t row0 = tile * kBM;
+  const unsigned tmask = (unsigned)tiles[tile];
+  const unsigned mine = tmask & split_mask(rank, cs);
+  const int nsteps = __popc(mine) * nK;
+  unsigned workers = 0u;  // the cluster's CTAs with groups of this tile
+  for (int j = 0; j < cs; ++j)
+    if (tmask & split_mask(j, cs)) workers |= 1u << j;
+  const int writer = workers ? __ffs(workers) - 1 : 0;
 
-  const unsigned used = used_groups(masks, patho, row0, BM, N_out, &s_used);
-  int ng = 0;
-  for (int g = 0; g < kGroups; ++g)
-    if ((used >> g) & 1u) {
-      if (tid == 0) s_glist[ng] = g;
-      ++ng;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, kProducers + 1);  // the producers' copies
+                                                // + the bulk copy's tx
+      mbar_init(bars + 8 * (kStages + s), kConsumers / 32);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int nsteps = ng * nK;
 
-  // a stage: A [BM][kLdA], then the weights [kKC][kLdB]
-  auto sA = [&](int b, int r, int c) {
-    return stages + (size_t)b * kStage + r * kLdA + c;
-  };
-  auto sB = [&](int b, int r, int c) {
-    return stages + (size_t)b * kStage + BM * kLdA + r * kLdB + c;
-  };
-  // copies: A pieces (rows ra + 32 h; 8 columns q8), weight pieces (rows
-  // ra + 32 h; 8 channels q8)
-  const int ra = tid >> 3, q8 = (tid & 7) * 8;
-  int win[AP][3];
-  int win_g = -1;
-  auto issue = [&](int step) {
-    const int gi = step / nK, kc = step - gi * nK, g = s_glist[gi];
-    if (g != win_g) {
+  float acc[R];
 #pragma unroll
-      for (int h = 0; h < AP; ++h) {
-        const int64_t row = row0 + ra + 32 * h;
-        if (row < N_out) {
-          window_rows(center, masks, patho, g, row, N_in, N_out, win[h]);
-        } else {
-          win[h][0] = win[h][1] = win[h][2] = -1;
-        }
-      }
-      win_g = g;
-    }
-    const int b = step % kStages;
-    const int kcol = kc * kKC + q8;
-    const int s = kcol / Cin8, c = kcol - s * Cin8;
-#pragma unroll
-    for (int h = 0; h < AP; ++h) {
-      const int src = s == 0 ? win[h][0] : s == 1 ? win[h][1]
-                      : s == 2 ? win[h][2] : -1;
-      cp_async16(smem_u32(sA(b, ra + 32 * h, q8)),
-                 src >= 0 ? (const void*)(xb + (int64_t)src * Cin8 + c)
-                          : (const void*)xb,
-                 src >= 0 ? 16 : 0);
-    }
-    const int n = n0 + q8;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int krow = kc * kKC + ra + 32 * h;
-      const bool wv = krow < K3 && n < Cout8;
-      cp_async16(smem_u32(sB(b, ra + 32 * h, q8)),
-                 wv ? (const void*)(wb + ((int64_t)g * K3 + krow) * Cout8 + n)
-                    : (const void*)wb,
-                 wv ? 16 : 0);
-    }
-  };
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
 
-  const int wm = warp % WM, wn = warp / WM;  // 32 rows x CW channels
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 8;
-  float acc[2][NI][4];
+  if (tid >= kConsumers) {
+    // ---- producers: thread pt stages 16-byte piece j = pt % 8 of tile
+    // rows pt / 8 + 16 i, i < 4 (a warp's copies are 4 whole 128-byte
+    // rows). First every window row of this CTA's groups is found, in one
+    // burst of independent loads, into s_win[gi] (gi: the group's place
+    // in `mine`), so no group waits on its map reads.
+    const int pt = tid - kConsumers, j = pt & 7, rb = pt >> 3;
+    const int w0 = (int)worder[0], w1 = (int)worder[1];
+    for (int e = pt; e < __popc(mine) * kBM; e += kProducers) {
+      const int gi = e / kBM, r = e % kBM;
+      unsigned m = mine;
+      for (int q = 0; q < gi; ++q) m &= m - 1u;
+      const int g = __ffs(m) - 1;
+      int win[3] = {-1, -1, -1};
+      if (row0 + r < N_out)
+        window_rows(center, masks, patho, g, (int64_t)order[row0 + r], N_in,
+                    N_out, win);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nsteps) issue(s);
-    cp_async_commit();
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // step's stage landed; step - 1's stage is read
-    if (step + kStages - 1 < nsteps) issue(step + kStages - 1);
-    cp_async_commit();
-    const int b = step % kStages;
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t bf[NI][2];
-      if constexpr (NI == 1) {
-        ldsm_x2_trans(bf[0], smem_u32(sB(b, kk + (lane & 15), wn * CW)));
-      } else {
-#pragma unroll
-        for (int j = 0; j < NI / 2; ++j) {  // channels 16 j + [0, 16)
-          uint32_t r[4];
-          ldsm_x4_trans(r, smem_u32(sB(b, kk + (lane & 15),
-                                       wn * CW + 16 * j + (lane >> 4) * 8)));
-          bf[2 * j][0] = r[0];
-          bf[2 * j][1] = r[1];
-          bf[2 * j + 1][0] = r[2];
-          bf[2 * j + 1][1] = r[3];
-        }
+      for (int p = 0; p < 3; ++p) {  // the slot of tap 3 g + p
+        const int sl = w0 == p ? 0 : w1 == p ? 1 : 2;
+        s_win[gi][p][r] = sl == 0 ? win[0] : sl == 1 ? win[1] : win[2];
       }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        uint32_t a[4];
-        ldsm_x4(a, smem_u32(sA(b, wm * 32 + mi * 16 + a_row, kk + a_col)));
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], a, bf[ni]);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kProducers) : "memory");
+    unsigned left = mine;
+    int g = -1, gi = -1, kc = nK;
+    for (int step = 0; step < nsteps; ++step) {
+      if (kc == nK) {  // the next group of this CTA's share
+        g = __ffs(left) - 1;
+        left &= left - 1u;
+        ++gi;
+        kc = 0;
       }
+      const int s = step % kStages;
+      const uint32_t full = bars + 8 * s, empty = bars + 8 * (kStages + s);
+      mbar_wait(empty, ((step / kStages) & 1) ^ 1);
+      const uint32_t sa = base + s * kStage;
+      const int k = kc * kKC + 8 * j, p = k / Cin8, c = k - p * Cin8;
+#pragma unroll
+      for (int i = 0; i < kBM / 16; ++i) {
+        const int r = rb + 16 * i;
+        const int src = p < 3 ? s_win[gi][p][r] : -1;
+        const __nv_bfloat16* x = xb + (int64_t)(src >= 0 ? src : 0) * xrow + c;
+        const uint32_t dst = sa + r * 128 + ((j ^ (r & 7)) * 16);
+        cp_async16(dst, src >= 0 ? (const void*)x : (const void*)xb,
+                   src >= 0 ? 16 : 0);
+        if (SPLIT)  // the lo part, one chunk further
+          cp_async16(dst + kStageA,
+                     src >= 0 ? (const void*)(x + Cin8) : (const void*)xb,
+                     src >= 0 ? 16 : 0);
+      }
+      if (pt == 0) {
+        constexpr uint32_t kBytes = BN * kKC * 2;
+        mbar_arrive_expect_tx(full, kBytes);
+        bulk_copy(sa + kA,
+                  wt + (((int64_t)g * nK + kc) * nNT + nt) * (BN * kKC),
+                  kBytes, full);
+      }
+      cp_async_arrive_noinc(full);
+      ++kc;
+    }
+  } else {
+    // ---- consumers: one warpgroup, 16 rows a warp
+    for (int step = 0; step < nsteps; ++step) {
+      const int s = step % kStages;
+      mbar_wait(bars + 8 * s, (step / kStages) & 1);
+      __syncwarp();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t sa = base + s * kStage;
+      const uint64_t da = sw128_desc(sa), db = sw128_desc(sa + kA);
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kKC / 16; ++kk)  // 32 bytes a k16 step
+        Wgmma<BN>::mma(acc, da + 2 * kk, db + 2 * kk);
+      if (SPLIT) {
+        const uint64_t dl = sw128_desc(sa + kStageA);
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk)
+          Wgmma<BN>::mma(acc, dl + 2 * kk, db + 2 * kk);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kStages + s));
     }
   }
-  cp_async_wait<0>();  // nothing in flight when the block ends
 
-  const int gq = lane >> 2, tq = lane & 3;
+  // ---- the partials meet in the first CTA with work (the writer), added
+  // in CTA order; a CTA without groups of the tile adds exact zeros and is
+  // left out, and where one CTA has them all it writes alone (every CTA
+  // of the cluster reads the same tile mask, so all take the same branch)
+  if (__popc(workers) > 1) {
+    float* red = reinterpret_cast<float*>(smem_raw +
+                                          (base - smem_u32(smem_raw)));
+    if (rank != writer && nsteps > 0 && tid < kConsumers) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) red[i * kConsumers + tid] = acc[i];
+    }
+    cluster_sync();
+    if (rank == writer && tid < kConsumers) {
+      for (int j = writer + 1; j < cs; ++j) {
+        if (!((workers >> j) & 1u)) continue;
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          acc[i] += ld_cluster_f32(base + 4u * (i * kConsumers + tid), j);
+      }
+    }
+    cluster_sync();  // no CTA leaves while its partial is read
+  }
+  if (rank != writer || tid >= kConsumers) return;
+
+  // ---- epilogue: D fragment i of thread (warp, lane): row 16 warp + lane
+  // / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2
   const bool pairs = (Cout & 1) == 0;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = row0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (r >= N_out) continue;
+    float* dst = out + (int64_t)order[r] * Cout;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t row = row0 + wm * 32 + mi * 16 + gq + 8 * h;
-      if (row >= N_out) continue;
-      float* dst = out + row * Cout;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = n0 + wn * CW + ni * 8 + 2 * tq;
-        float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        if (bias != nullptr) {
-          if (col < Cout) v0 += bias[col];
-          if (col + 1 < Cout) v1 += bias[col + 1];
-        }
-        if (round_out) {  // a gradient, held in fp32 at bf16 precision
-          v0 = __bfloat162float(__float2bfloat16_rn(v0));
-          v1 = __bfloat162float(__float2bfloat16_rn(v1));
-        }
-        if (pairs && col + 1 < Cout) {
-          *reinterpret_cast<float2*>(dst + col) = make_float2(v0, v1);
-        } else {
-          if (col < Cout) dst[col] = v0;
-          if (col + 1 < Cout) dst[col + 1] = v1;
-        }
+    for (int q = 0; q < R / 4; ++q) {
+      const int col = nt * BN + 8 * q + 2 * (lane & 3);
+      float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
+      if (bias != nullptr) {
+        if (col < Cout) v0 += bias[col];
+        if (col + 1 < Cout) v1 += bias[col + 1];
+      }
+      if (round_out) {  // a gradient, held in fp32 at bf16 precision
+        v0 = __bfloat162float(__float2bfloat16_rn(v0));
+        v1 = __bfloat162float(__float2bfloat16_rn(v1));
+      }
+      if (pairs && col + 1 < Cout) {
+        *reinterpret_cast<float2*>(dst + col) = make_float2(v0, v1);
+      } else {
+        if (col < Cout) dst[col] = v0;
+        if (col + 1 < Cout) dst[col + 1] = v1;
       }
     }
+  }
 }
 
 // fp32 operands: 64 x 64 outputs a block, 4 x 4 a thread, steps of 16 K
 // entries over (group, slot, input channel) in that order.
 template <typename IdxT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFThreads)
     grouped_fma_kernel(const float* __restrict__ feats,
                        const float* __restrict__ w,
                        const IdxT* __restrict__ center,
@@ -349,13 +608,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int k0 = 0; k0 < K3; k0 += kFK) {
       __syncthreads();  // windows written; the previous step is read
-      for (int e = tid; e < kFM * kFK; e += kThreads) {
+      for (int e = tid; e < kFM * kFK; e += kFThreads) {
         const int r = e >> 4, j = e & 15, k = k0 + j;
         const int s = k / Cin, c = k - s * Cin;
         const int src = k < K3 ? s_win[s][r] : -1;
         sA[j][r] = src >= 0 ? feats[(int64_t)src * Cin + c] : 0.f;
       }
-      for (int e = tid; e < kFK * kFN; e += kThreads) {
+      for (int e = tid; e < kFK * kFN; e += kFThreads) {
         const int j = e >> 6, n = e & 63, k = k0 + j;
         const int s = k / Cin, c = k - s * Cin;
         int tap = 3 * g + (s == 0 ? w0 : s == 1 ? w1 : w2);
@@ -395,98 +654,162 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename IdxT, int BM>
-int launch_mma(const __nv_bfloat16* xh, const __nv_bfloat16* wh,
-               const IdxT* ctr, const unsigned char* masks,
-               const unsigned char* patho, const float* bias, float* out,
-               int64_t N_in, int64_t N_out, int Cin8, int Cout, int Cout8,
-               int round_out, cudaStream_t st) {
-  const size_t smem = (size_t)kStages * (BM * kLdA + kKC * kLdB) * 2;
-  const int code = (int)cudaFuncSetAttribute(
-      grouped_mma_kernel<IdxT, BM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+inline int k_steps(int Cin) { return (3 * round8(Cin) + kKC - 1) / kKC; }
+
+template <typename IdxT, int BN, bool SPLIT>
+int launch_wgmma(const __nv_bfloat16* xb, const __nv_bfloat16* wt,
+                 const IdxT* ctr, const unsigned char* masks,
+                 const unsigned char* patho, const long long* worder,
+                 const int* order, const int* tiles, const float* bias,
+                 float* out, int64_t N_in, int64_t N_out, int Cin, int Cout,
+                 int cs, int round_out, cudaStream_t st) {
+  const size_t smem = wgmma_smem<BN, SPLIT>();
+  auto kernel = grouped_wgmma_kernel<IdxT, BN, SPLIT>;
+  int code = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (code != 0) return code;
-  dim3 grid((unsigned)((N_out + BM - 1) / BM), (Cout + kBN - 1) / kBN);
-  grouped_mma_kernel<IdxT, BM><<<grid, kThreads, smem, st>>>(
-      xh, wh, ctr, masks, patho, bias, out, N_in, N_out, Cin8, Cout, Cout8,
-      round_out);
-  return 0;
+  const int nK = k_steps(Cin);
+  const int nNT = (Cout + BN - 1) / BN;
+  const int64_t n_tiles = (N_out + kBM - 1) / kBM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_tiles * cs), (unsigned)nNT, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, xb, wt, ctr, masks, patho,
+                                 worder, order, tiles, bias, out, N_in, N_out,
+                                 round8(Cin), Cout, nK, nNT, cs, round_out);
+}
+
+template <typename IdxT, bool SPLIT>
+int launch_cols(int tile_cols, const __nv_bfloat16* xb,
+                const __nv_bfloat16* wt, const IdxT* ctr,
+                const unsigned char* masks, const unsigned char* patho,
+                const long long* worder, const int* order, const int* tiles,
+                const float* bias, float* out, int64_t N_in, int64_t N_out,
+                int Cin, int Cout, int cs, int round_out, cudaStream_t st) {
+  if (tile_cols == 32)
+    return launch_wgmma<IdxT, 32, SPLIT>(xb, wt, ctr, masks, patho, worder,
+                                         order, tiles, bias, out, N_in, N_out,
+                                         Cin, Cout, cs, round_out, st);
+  if (tile_cols == 64)
+    return launch_wgmma<IdxT, 64, SPLIT>(xb, wt, ctr, masks, patho, worder,
+                                         order, tiles, bias, out, N_in, N_out,
+                                         Cin, Cout, cs, round_out, st);
+  return launch_wgmma<IdxT, 128, SPLIT>(xb, wt, ctr, masks, patho, worder,
+                                        order, tiles, bias, out, N_in, N_out,
+                                        Cin, Cout, cs, round_out, st);
 }
 
 template <typename IdxT>
 int launch_grouped(const float* feats, const float* w, const void* center,
                    const unsigned char* masks, const unsigned char* patho,
-                   const long long* worder, const float* bias, void* xb,
-                   void* wb, float* out, int64_t N_in, int64_t N_out,
-                   int Cin, int Cout, bool bf16, int tile_rows,
+                   const long long* worder, const int* order,
+                   const int* tiles, const float* bias, void* xb,
+                   const void* wt, float* out, int64_t N_in, int64_t N_out,
+                   int Cin, int Cout, bool bf16, int tile_cols, int cluster,
                    int dx_taps, cudaStream_t st) {
   const IdxT* ctr = static_cast<const IdxT*>(center);
   if (!bf16) {
     dim3 grid((unsigned)((N_out + kFM - 1) / kFM), (Cout + kFN - 1) / kFN);
-    grouped_fma_kernel<IdxT><<<grid, kThreads, 0, st>>>(
+    grouped_fma_kernel<IdxT><<<grid, kFThreads, 0, st>>>(
         feats, w, ctr, masks, patho, worder, bias, out, N_in, N_out, Cin,
         Cout, dx_taps);
     return static_cast<int>(cudaGetLastError());
   }
-  const int Cin8 = round8(Cin), Cout8 = round8(Cout);
   __nv_bfloat16* xh = static_cast<__nv_bfloat16*>(xb);
-  __nv_bfloat16* wh = static_cast<__nv_bfloat16*>(wb);
-  const int64_t px = N_in * (Cin8 / 8);
-  const int64_t pw = (int64_t)kGroups * 3 * Cin8 * (Cout8 / 8);
-  grouped_prep_kernel<<<(unsigned)((px + pw + 255) / 256), 256, 0, st>>>(
-      feats, xh, px, Cin, w, worder, wh, pw, Cout, dx_taps);
-  const int round_out = dx_taps != 0;  // a gradient: rounded as autograd
-                                       // through the operands' rounding
+  const __nv_bfloat16* wh = static_cast<const __nv_bfloat16*>(wt);
+  // a gradient: dY unrounded (hi + lo parts), the result rounded as
+  // autograd through the operands' rounding gives it
+  const int grad = dx_taps != 0;
+  const int64_t px = N_in * (round8(Cin) / 8);
+  if (px > 0)
+    grouped_features_kernel<<<(unsigned)((px + 255) / 256), 256, 0, st>>>(
+        feats, xh, px, Cin, grad);
   const int code =
-      tile_rows == 32
-          ? launch_mma<IdxT, 32>(xh, wh, ctr, masks, patho, bias, out, N_in,
-                                 N_out, Cin8, Cout, Cout8, round_out, st)
-      : tile_rows == 64
-          ? launch_mma<IdxT, 64>(xh, wh, ctr, masks, patho, bias, out, N_in,
-                                 N_out, Cin8, Cout, Cout8, round_out, st)
-          : launch_mma<IdxT, kBM>(xh, wh, ctr, masks, patho, bias, out, N_in,
-                                  N_out, Cin8, Cout, Cout8, round_out, st);
+      grad ? launch_cols<IdxT, true>(tile_cols, xh, wh, ctr, masks, patho,
+                                     worder, order, tiles, bias, out, N_in,
+                                     N_out, Cin, Cout, cluster, grad, st)
+           : launch_cols<IdxT, false>(tile_cols, xh, wh, ctr, masks, patho,
+                                      worder, order, tiles, bias, out, N_in,
+                                      N_out, Cin, Cout, cluster, grad, st);
   if (code != 0) return code;
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The bf16 weight tiles of the grouped conv (see grouped_weight_tiles_kernel)
+// from weights (27, Cin, Cout) f32 (dx_taps 0; 1 or 2: the weights (27,
+// Cout, Cin) of the forward whose dX this conv is, each tap transposed,
+// 2 also the taps reversed) into wt, 9 k_steps(Cin) ceil(Cout / BN) blocks
+// of BN x 64 bf16 for channel tiles of BN (32, 64 or 128). One launch.
+UMR_EXPORT int umr_grouped_weight_tiles(const float* w, void* wt, int Cin,
+                                        int Cout, int BN, int dx_taps,
+                                        void* stream) {
+  if (Cin < 1 || Cout < 1 || dx_taps < 0 || dx_taps > 2 ||
+      (BN != 32 && BN != 64 && BN != 128) ||
+      3ll * round8(Cin) >= (1ll << 31) - kKC)
+    return (int)cudaErrorInvalidValue;
+  const int nK = k_steps(Cin);
+  const int nNT = (Cout + BN - 1) / BN;
+  const int64_t pieces = (int64_t)kGroups * nK * nNT * BN * (kKC / 8);
+  grouped_weight_tiles_kernel<<<(unsigned)((pieces + 255) / 256), 256, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<__nv_bfloat16*>(wt), pieces, Cin, Cout, nK, BN, nNT,
+      dx_taps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The grouped k=3 conv (see above). feats (N_in, Cin) f32, weights (27,
 // Cin, Cout) f32, center (9, N_out) int32 (idx64 0) or int64 (idx64 1),
 // masks (9, 3, N_out) and patho (9, N_out) bool bytes, worder (3,) int64,
 // bias (Cout,) f32 or null -> out (N_out, Cout) f32. bf16 1: operands
-// rounded to bf16, with caller-allocated scratch xb (max(N_in, 1),
-// round8(Cin)) and wb (9, 3 round8(Cin), round8(Cout)) bf16, on row
-// tiles of tile_rows (128, 64 or 32; a row's sums run in the same order
-// on any); bf16 0: fp32 operands (xb, wb, tile_rows unused). dx_taps 0:
+// rounded to bf16: order (N_out,) int32 the rows in the map's order and
+// tiles (ceil(N_out / 64),) int32 each 64-row tile's used groups
+// (grouped_row_order.cu), wt the weight tiles (umr_grouped_weight_tiles,
+// the same dx_taps and tile_cols), scratch xb (max(N_in, 1), round8(Cin))
+// bf16 (twice as wide for a dX: dY's hi and lo parts), tiles of 64 rows x
+// tile_cols (32, 64 or 128) channels, a tile's groups split over clusters
+// of `cluster` CTAs (1 to 4; the wrapper's plan fixes both from Cin and
+// Cout; the cluster sets the order of a row's sums); bf16 0: fp32
+// operands (order, tiles, xb, wt, tile_cols, cluster unused). dx_taps 0:
 // the conv; 1 or 2: a backward's dX, dY's conv over the adjoint map, with
 // weights (27, Cout, Cin) of the forward read as each tap transposed (2:
-// also the taps reversed, a self map's adjoint) by the weight copy, and
-// with bf16 the output rounded to bf16 (held in fp32).
-UMR_EXPORT int umr_sparse_conv_grouped(const float* feats, const float* w,
-                                       const void* center,
-                                       const unsigned char* masks,
-                                       const unsigned char* patho,
-                                       const long long* worder,
-                                       const float* bias, void* xb, void* wb,
-                                       float* out, long long N_in,
-                                       long long N_out, int Cin, int Cout,
-                                       int idx64, int bf16, int tile_rows,
-                                       int dx_taps, void* stream) {
+// also the taps reversed, a self map's adjoint), and with bf16 dY not
+// rounded (its hi and lo bf16 parts both multiplied) and the output
+// rounded to bf16 (held in fp32).
+UMR_EXPORT int umr_sparse_conv_grouped(
+    const float* feats, const float* w, const void* center,
+    const unsigned char* masks, const unsigned char* patho,
+    const long long* worder, const int* order, const int* tiles,
+    const float* bias, void* xb, const void* wt, float* out, long long N_in,
+    long long N_out, int Cin, int Cout, int idx64, int bf16, int tile_cols,
+    int cluster, int dx_taps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N_in < 0 || N_out < 1 || N_in >= (1ll << 31) - 8 ||
       N_out >= (1ll << 31) - kBM || Cin < 1 || Cout < 1 ||
       3ll * round8(Cin) >= (1ll << 31) - kKC ||
-      (Cout + kBN - 1) / kBN > 65535 || dx_taps < 0 || dx_taps > 2 ||
-      (bf16 && (xb == nullptr || wb == nullptr ||
-                (tile_rows != 32 && tile_rows != 64 && tile_rows != kBM))))
+      (Cout + kFN - 1) / kFN > 65535 || dx_taps < 0 || dx_taps > 2 ||
+      (bf16 && (xb == nullptr || wt == nullptr || order == nullptr ||
+                tiles == nullptr || cluster < 1 || cluster > kMaxCluster ||
+                (tile_cols != 32 && tile_cols != 64 && tile_cols != 128) ||
+                (N_out + kBM - 1) / kBM * kMaxCluster >= (1ll << 31))))
     return (int)cudaErrorInvalidValue;
   if (idx64)
     return launch_grouped<int64_t>(feats, w, center, masks, patho, worder,
-                                   bias, xb, wb, out, N_in, N_out, Cin, Cout,
-                                   bf16 != 0, tile_rows, dx_taps, st);
-  return launch_grouped<int32_t>(feats, w, center, masks, patho, worder, bias,
-                                 xb, wb, out, N_in, N_out, Cin, Cout,
-                                 bf16 != 0, tile_rows, dx_taps, st);
+                                   order, tiles, bias, xb, wt, out, N_in,
+                                   N_out, Cin, Cout, bf16 != 0, tile_cols,
+                                   cluster, dx_taps, st);
+  return launch_grouped<int32_t>(feats, w, center, masks, patho, worder,
+                                 order, tiles, bias, xb, wt, out, N_in, N_out,
+                                 Cin, Cout, bf16 != 0, tile_cols, cluster,
+                                 dx_taps, st);
 }

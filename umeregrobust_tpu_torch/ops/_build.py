@@ -67,8 +67,10 @@ _SIGNATURES = {
     "umr_sparse_conv_wgrad_cin1": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                                    _INT, _INT, _INT, _INT, _VP],
     "umr_sparse_conv_grouped": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                _VP, _LL, _LL, _INT, _INT, _INT, _INT, _INT,
-                                _INT, _VP],
+                                _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT,
+                                _INT, _INT, _INT, _INT, _VP],
+    "umr_grouped_weight_tiles": [_VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    "umr_grouped_row_order": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "umr_sparse_conv_grouped_wgrad": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _VP, _VP, _LL, _LL, _INT, _INT, _INT,
                                       _INT, _INT, _VP],

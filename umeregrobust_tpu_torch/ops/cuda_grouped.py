@@ -3,27 +3,31 @@ csrc/sparse_conv_grouped.cu (which takes the window gathers of
 tools/exp_gather2.py `pg` and the per-group products of
 ops/sparse.sparse_conv_grouped, the port of
 umeregrobust_tpu/ops/sparse.py:sparse_conv_grouped, into one launch a
-layer), and the plan it runs by.
+layer), the row order it reads a map through (csrc/grouped_row_order.cu),
+its cached bf16 weight tiles, and the plan it runs by.
 
     out[i] = bias + sum_g [f[c-1] | f[c] | f[c+1] or f[c] (patho)] @ w3[g]
 
 with each slot a zero row where its mask is off or its row lies outside
-[0, N_in) (ops/sparse.GroupedMap). bf16 operands: one small launch rounds
-the features and the slot-ordered weights to bf16, made per call (a
-trained parameter is read anew each time), then output tiles of 128 rows
-x 64 channels (64 or 32 rows where the grid would not fill the SMs)
-stage their windows with cp.async, four steps of 64 K entries in flight,
-and multiply on the tensor cores, groups in order, K chunks ascending.
-fp32 operands: an FMA tile of the same order. On a CPU tensor the
-wrapper runs the plain version
+[0, N_in) (ops/sparse.GroupedMap). bf16 operands: the map's rows in the
+order of their used-group masks (`grouped_row_order`: the pyramid builds
+it with each map, this wrapper for a map without one), 64-row tiles that
+stage and multiply only the groups their mask names, the groups split
+over a cluster of 1-4 CTAs fixed by Cin, each CTA one warpgroup on
+wgmma with a producer warp staging windows by cp.async and weight tiles
+by TMA bulk copies; the weights tiled to bf16 once a parameter version
+(`weight_tiles`: cached on the tensor's storage and version counter, so
+an in-place update such as the optimizer's makes a new copy) and the
+features rounded by one small launch a call. fp32 operands: an FMA tile
+in code order. On a CPU tensor the wrapper runs the plain version
 (ops/sparse.sparse_conv_grouped_plain); on a CUDA tensor it launches the
 kernel or raises.
 
 The backward (ops/sparse.GroupedConv) runs on two kernels: the input's
 gradient is this kernel on dY over the adjoint map
 (`sparse_conv_grouped_dx`: each tap's weights transposed, for a self map
-the taps reversed, read so by the launch that makes the bf16 weight
-copy); the weights' gradient is `sparse_conv_grouped_wgrad`
+the taps reversed, read so by its own cached weight tiles); the weights'
+gradient is `sparse_conv_grouped_wgrad`
 (csrc/sparse_conv_grouped_wgrad.cu: dW3[g] = sum_o x3_g[o]^T dY[o] on the
 tensor cores, a block a (64 window columns x 64 channels) tile of one
 group and a split of the output rows, the partials summed in split order
@@ -31,29 +35,46 @@ by a second launch; `wgrad_plan` mirrors it).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from umeregrobust_tpu_torch.ops import _build
 
 __all__ = ["sparse_conv_grouped_kernel", "sparse_conv_grouped_dx",
-           "sparse_conv_grouped_wgrad",
+           "sparse_conv_grouped_wgrad", "grouped_row_order",
+           "grouped_row_order_plain", "row_keys_plain", "tiles_of_order",
+           "with_row_order", "weight_tiles",
+           "weight_tiles_plain", "clear_weight_tiles",
            "grouped_plan", "GroupedPlan", "wgrad_plan", "WgradPlan",
-           "LAUNCHES"]
+           "LAUNCHES", "WEIGHT_TILE_BUILDS"]
 
 # kernel launches by each wrapper (not by the plain versions)
-LAUNCHES = {"sparse_conv_grouped": 0, "sparse_conv_grouped_wgrad": 0}
+LAUNCHES = {"sparse_conv_grouped": 0, "sparse_conv_grouped_wgrad": 0,
+            "grouped_row_order": 0}
+# launches that made bf16 weight tiles (cache misses), by dx_taps
+WEIGHT_TILE_BUILDS = {0: 0, 1: 0, 2: 0}
 
 _GROUPS = 9
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
-# the kernels' tiles (csrc kBM (and 64, 32), kBN, kKC, kStages; kFM, kFN,
-# kFK)
-_MMA_ROWS, _MMA_COLS, _MMA_K, _MMA_STAGES = (128, 64, 32), 64, 64, 4
+# the kernel's tiles (csrc kBM, kKC, kStages, kMaxCluster; the channel
+# tile is the least of 32, 64 and 128 that holds round8(Cout), 128 past
+# it; kFM, kFN, kFK) and the cluster rule: a tile's work, 9 k_steps
+# ceil(Cout / 64) steps of 64 x 64 x 64, split over about one CTA a
+# _STEPS_PER_CTA of it
+_MMA_ROWS, _MMA_K, _MMA_STAGES = 64, 64, 4
+_MAX_CLUSTER, _STEPS_PER_CTA = 4, 128
 _FMA_ROWS, _FMA_COLS, _FMA_K = 64, 64, 16
+# the row order's tile and segment (grouped_row_order.cu kTileRows,
+# kSegRows, kKeys)
+_ORDER_TILE, _ORDER_SEG, _ORDER_KEYS = 64, 1024, 512
 # the weight gradient's tiles (csrc kWM, kWN, kWR, kWSteps)
 _WG_ROWS, _WG_COLS, _WG_STEP, _WG_STEPS = 64, 64, 32, 256
 _SM_COUNT = 132  # H100 SXM
+# weight tiles kept at most (each holds its weight tensor, so no other
+# tensor takes its address while the entry lives)
+_TILE_CACHE_SIZE = 64
 
 
 def _round8(x: int) -> int:
@@ -62,24 +83,28 @@ def _round8(x: int) -> int:
 
 class GroupedPlan(NamedTuple):
     """How the kernel runs a shape. kind "mma" (bf16 operands) or "fma"
-    (fp32); tile rows x cols of output a block (mma: 128 rows, or 64 or
-    32 where 128-row tiles would give fewer blocks than the card has SMs:
-    the order of a row's sums does not depend on its tile, so neither do
-    its bits); k_chunk K entries a step and k_steps steps a group (over
-    3 Cin, or 3 round8(Cin) with bf16); grid (row tiles, channel tiles);
-    smem_bytes of shared memory a block
-    (the mma kernel's stages are dynamic shared memory, static for the fma
-    kernel); xb_elems / wb_elems the bf16 copies' sizes (0 for fp32)."""
+    (fp32); tile rows x cols of output a CTA (mma: 64 rows of the map's
+    order x 32, 64 or 128 channels); k_chunk K entries a step and k_steps
+    steps a group (over 3 round8(Cin) with bf16, 3 Cin with fp32); cluster
+    the CTAs a tile's groups are split over (fixed by Cin and Cout: a
+    tile's work over _STEPS_PER_CTA; 1 for fp32); grid (tiles x cluster,
+    channel tiles); smem_bytes of shared memory a CTA (dynamic for mma:
+    the stages, the barriers and 1 KB to align; static for fma); xb_elems
+    / wt_elems the bf16 feature copy's and the weight tiles' sizes (0 for
+    fp32); split: the input rows enter as two bf16 parts, hi and lo (a
+    dX: dY is not rounded; twice the A stages and xb)."""
 
     kind: str
     tile_rows: int
     tile_cols: int
     k_chunk: int
     k_steps: int
+    cluster: int
     grid: tuple
     smem_bytes: int
     xb_elems: int
-    wb_elems: int
+    wt_elems: int
+    split: bool = False
 
 
 class WgradPlan(NamedTuple):
@@ -99,25 +124,36 @@ class WgradPlan(NamedTuple):
     yb_cols: int
 
 
+def _tile_cols(cout: int) -> int:
+    c8 = _round8(cout)
+    return 32 if c8 <= 32 else 64 if c8 <= 64 else 128
+
+
 def grouped_plan(n_in: int, n_out: int, cin: int, cout: int,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> GroupedPlan:
-    """The kernel's plan from the shapes alone (no host read)."""
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 split: bool = False) -> GroupedPlan:
+    """The kernel's plan from the shapes alone (no host read); split: a
+    dX's (its input dY in hi and lo bf16 parts)."""
     if compute_dtype == torch.float32:
         k3 = 3 * cin
         return GroupedPlan(
-            "fma", _FMA_ROWS, _FMA_COLS, _FMA_K, -(-k3 // _FMA_K),
+            "fma", _FMA_ROWS, _FMA_COLS, _FMA_K, -(-k3 // _FMA_K), 1,
             (-(-n_out // _FMA_ROWS), -(-cout // _FMA_COLS)),
             4 * (_FMA_K * (_FMA_ROWS + 4) + _FMA_K * _FMA_COLS
                  + 3 * _FMA_ROWS) + 4, 0, 0)
-    cin8, cout8 = _round8(cin), _round8(cout)
-    k3 = 3 * cin8
-    cols = -(-cout // _MMA_COLS)
-    rows = next((r for r in _MMA_ROWS if -(-n_out // r) * cols >= _SM_COUNT),
-                _MMA_ROWS[-1])
-    smem = 2 * _MMA_STAGES * (rows * (_MMA_K + 8) + _MMA_K * (_MMA_COLS + 8))
-    return GroupedPlan("mma", rows, _MMA_COLS, _MMA_K, -(-k3 // _MMA_K),
-                       (-(-n_out // rows), cols), smem, max(n_in, 1) * cin8,
-                       _GROUPS * k3 * cout8)
+    cin8 = _round8(cin)
+    cols = _tile_cols(cout)
+    steps = -(-3 * cin8 // _MMA_K)
+    cluster = min(_MAX_CLUSTER, max(1, -(-_GROUPS * steps * -(-cout // 64)
+                                         // _STEPS_PER_CTA)))
+    col_tiles = -(-cout // cols)
+    parts = 2 if split else 1
+    smem = 1024 + _MMA_STAGES * (2 * parts * _MMA_ROWS * _MMA_K
+                                 + 2 * cols * _MMA_K + 16)
+    return GroupedPlan("mma", _MMA_ROWS, cols, _MMA_K, steps, cluster,
+                       (-(-n_out // _MMA_ROWS) * cluster, col_tiles), smem,
+                       max(n_in, 1) * cin8 * parts,
+                       _GROUPS * steps * col_tiles * cols * _MMA_K, split)
 
 
 def wgrad_plan(n_out: int, cin: int, cout: int,
@@ -164,6 +200,7 @@ def _checked(feats, weights, gmap, bias, compute_dtype, transpose=False):
     _build.require(weights, "weights", torch.float32,
                    tuple(weights.shape), dev)
     N_out = _check_map(gmap, dev)
+    _check_order(gmap, dev, N_out)
     if bias is not None:
         _build.require(bias, "bias", torch.float32, (Cout,), dev)
     N_in = feats.shape[0]
@@ -192,6 +229,200 @@ def _check_map(gmap, dev) -> int:
     return N_out
 
 
+def _check_order(gmap, dev, N_out: int) -> None:
+    """Validate a map's row order and tiles where it carries them."""
+    if (gmap.order is None) != (gmap.tiles is None):
+        raise ValueError("a GroupedMap carries both order and tiles, or "
+                         "neither")
+    if gmap.order is not None:
+        _build.require(gmap.order, "order", torch.int32, (N_out,), dev)
+        _build.require(gmap.tiles, "tiles", torch.int32,
+                       (-(-N_out // _ORDER_TILE),), dev)
+
+
+def row_keys_plain(gmap) -> torch.Tensor:
+    """(N_out,) int64: each row's used-group mask, bit g set where window
+    (g, row) has a slot that reads (a mask or patho bit)."""
+    used = torch.any(gmap.masks, dim=1) | gmap.patho  # (9, N_out)
+    bits = torch.bitwise_left_shift(
+        torch.ones(_GROUPS, dtype=torch.int64, device=used.device),
+        torch.arange(_GROUPS, device=used.device))
+    return torch.sum(used.to(torch.int64) * bits[:, None], dim=0)
+
+
+def tiles_of_order(gmap, order: torch.Tensor) -> torch.Tensor:
+    """(ceil(N_out / 64),) int32: each 64-row tile of `order` (a
+    permutation of the map's rows)'s groups, the OR of its rows' used-group
+    masks (`row_keys_plain`), in plain PyTorch."""
+    key = row_keys_plain(gmap)
+    n, dev = key.shape[0], key.device
+    n_tiles = -(-n // _ORDER_TILE)
+    kt = torch.zeros(n_tiles * _ORDER_TILE, dtype=torch.int64, device=dev)
+    kt[:n] = key[order.to(torch.int64)]
+    kt = kt.reshape(n_tiles, _ORDER_TILE)
+    tiles = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    for g in range(_GROUPS):
+        tiles |= torch.any(torch.bitwise_and(kt, 1 << g) != 0,
+                           dim=1).to(torch.int64) << g
+    return tiles.to(torch.int32)
+
+
+def grouped_row_order_plain(gmap) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of `grouped_row_order`: (order (N_out,) int32,
+    the rows sorted by their used-group mask (`row_keys_plain`), rows of
+    one mask in ascending order; tiles (ceil(N_out / 64),) int32, each
+    64-row tile of the order's OR of its rows' masks)."""
+    order = torch.argsort(row_keys_plain(gmap), stable=True).to(torch.int32)
+    return order, tiles_of_order(gmap, order)
+
+
+def grouped_row_order(gmap) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The order the bf16 kernel reads a map's output rows in: (order
+    (N_out,) int32, the rows sorted by their 9-bit used-group mask,
+    stable; tiles (ceil(N_out / 64),) int32, each 64-row tile's groups).
+    On a CUDA map one call of csrc/grouped_row_order.cu (three launches:
+    a counting sort), counted in LAUNCHES["grouped_row_order"]; a CPU
+    map takes the plain version and counts nothing."""
+    dev = gmap.masks.device
+    if dev.type == "cpu":
+        return grouped_row_order_plain(gmap)
+    N_out = gmap.masks.shape[-1]
+    _build.require(gmap.masks, "masks", torch.bool, (_GROUPS, 3, N_out), dev)
+    _build.require(gmap.patho, "patho", torch.bool, (_GROUPS, N_out), dev)
+    if N_out >= 2 ** 31 - _ORDER_SEG:
+        raise ValueError(f"grouped_row_order: {N_out} rows")
+    lib = _build.load_library()  # raises if it cannot be built
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_row_order runs on CUDA or CPU tensors, "
+                         f"not {dev}")
+    order = torch.empty(N_out, dtype=torch.int32, device=dev)
+    tiles = torch.empty(-(-N_out // _ORDER_TILE), dtype=torch.int32,
+                        device=dev)
+    if N_out == 0:
+        return order, tiles
+    keys = torch.empty(N_out, dtype=torch.int16, device=dev)
+    hist = torch.empty(_ORDER_KEYS * -(-N_out // _ORDER_SEG),
+                       dtype=torch.int32, device=dev)
+    code = lib.umr_grouped_row_order(
+        gmap.masks.data_ptr(), gmap.patho.data_ptr(), keys.data_ptr(),
+        hist.data_ptr(), order.data_ptr(), tiles.data_ptr(), N_out,
+        _build.stream_of(dev))
+    _build.check(lib, code, "grouped_row_order")
+    LAUNCHES["grouped_row_order"] += 1
+    return order, tiles
+
+
+def with_row_order(gmap):
+    """The map with its row order and tiles (`grouped_row_order`), made
+    once; a map that carries them comes back as it is."""
+    if gmap.order is not None:
+        return gmap
+    order, tiles = grouped_row_order(gmap)
+    return gmap._replace(order=order, tiles=tiles)
+
+
+def weight_tiles_plain(weights: torch.Tensor, dx_taps: int = 0
+                       ) -> torch.Tensor:
+    """The plain version of the bf16 weight tiles the kernel reads
+    (csrc grouped_weight_tiles_kernel): weights (27, Cin, Cout) f32 of the
+    conv (dx_taps 0), or of the forward whose dX the conv is (dx_taps 1:
+    tap k reads weights[k]^T; 2: weights[26 - k]^T) -> a flat bf16 tensor
+    of 9 x k_steps x channel tiles blocks for the plan's channel tiles of
+    BN (`grouped_plan`'s tile_cols), block (g, kc, nt) BN x 64 with
+    row n the K entries kc 64 + [0, 64) of channel nt BN + n (K entry
+    p round8(Cin) + c of group g: tap 3 g + p, input channel c), each
+    row's 16-byte pieces swizzled (piece j at place j ^ (n % 8))."""
+    w = weights
+    if dx_taps == 2:
+        w = w.flip(0)
+    if dx_taps:
+        w = w.transpose(1, 2)
+    _, cin, cout = w.shape
+    cin8, cols = _round8(cin), grouped_plan(1, 1, cin, cout).tile_cols
+    steps = -(-3 * cin8 // _MMA_K)
+    nt = -(-cout // cols)
+    full = torch.zeros((_GROUPS, 3, cin8, nt * cols), dtype=torch.float32,
+                       device=w.device)
+    full[:, :, :cin, :cout] = w.reshape(_GROUPS, 3, cin, cout)
+    k = torch.zeros((_GROUPS, steps * _MMA_K, nt * cols),
+                    dtype=torch.float32, device=w.device)
+    k[:, :3 * cin8] = full.reshape(_GROUPS, 3 * cin8, nt * cols)
+    # (g, kc, nt, n, j, e): K entry kc 64 + 8 j + e of channel nt cols + n
+    blocks = k.reshape(_GROUPS, steps, 8, 8, nt, cols).permute(0, 1, 4, 5,
+                                                               2, 3)
+    n = torch.arange(cols, device=w.device)[:, None]
+    place = torch.bitwise_xor(torch.arange(8, device=w.device)[None, :],
+                              n % 8)  # (cols, 8): piece j's place
+    out = torch.empty_like(blocks)
+    out[:, :, :, n, place] = blocks[:, :, :, n, torch.arange(8,
+                                                             device=w.device)]
+    return out.to(torch.bfloat16).reshape(-1)
+
+
+_TILE_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _tile_key(weights: torch.Tensor, dx_taps: int, cols: int) -> tuple:
+    return (weights.device, weights.untyped_storage().data_ptr(),
+            weights.storage_offset(), tuple(weights.shape),
+            tuple(weights.stride()), weights.dtype, dx_taps, cols)
+
+
+def weight_tiles(weights: torch.Tensor, dx_taps: int = 0) -> torch.Tensor:
+    """The bf16 weight tiles of `weight_tiles_plain`'s layout, made once a
+    parameter version: cached on the tensor's storage, offset, shape,
+    strides, dx_taps and the plan's channel tile, and held to the version
+    counter it was made at (any in-place update of the tensor or a view of
+    it, the optimizer's included, bumps the counter, and the next call
+    makes them anew). An
+    entry keeps its weight tensor, so no other tensor takes its address
+    while the entry lives; at most _TILE_CACHE_SIZE entries, the least
+    recently used dropped first. Inference tensors, which keep no version
+    counter, and calls made while a CUDA graph is captured are not
+    cached. On the card one launch of umr_grouped_weight_tiles on the
+    current stream a miss (WEIGHT_TILE_BUILDS); a CPU tensor takes the
+    plain version."""
+    _, cin, cout = weights.shape
+    if dx_taps:
+        cin, cout = cout, cin
+    cols = grouped_plan(1, 1, cin, cout).tile_cols
+    key = _tile_key(weights, dx_taps, cols)
+    cacheable = not weights.is_inference() and not (
+        weights.is_cuda and torch.cuda.is_current_stream_capturing())
+    if cacheable:
+        hit = _TILE_CACHE.get(key)
+        if hit is not None and hit[1] == weights._version:
+            _TILE_CACHE.move_to_end(key)
+            return hit[2]
+    if weights.device.type == "cpu":
+        tiles = weight_tiles_plain(weights, dx_taps)
+    else:
+        lib = _build.load_library()  # raises if it cannot be built
+        if weights.device.type != "cuda":
+            raise ValueError(f"weight_tiles runs on CUDA or CPU tensors, "
+                             f"not {weights.device}")
+        steps = -(-3 * _round8(cin) // _MMA_K)
+        tiles = torch.empty(_GROUPS * steps * -(-cout // cols) * cols
+                            * _MMA_K, dtype=torch.bfloat16,
+                            device=weights.device)
+        code = lib.umr_grouped_weight_tiles(
+            weights.data_ptr(), tiles.data_ptr(), cin, cout, cols, dx_taps,
+            _build.stream_of(weights.device))
+        _build.check(lib, code, "grouped_weight_tiles")
+        WEIGHT_TILE_BUILDS[dx_taps] += 1
+    if cacheable:
+        _TILE_CACHE[key] = (weights, weights._version, tiles)
+        _TILE_CACHE.move_to_end(key)
+        while len(_TILE_CACHE) > _TILE_CACHE_SIZE:
+            _TILE_CACHE.popitem(last=False)
+    return tiles
+
+
+def clear_weight_tiles() -> None:
+    """Drop every cached weight tile (and the tensors the entries hold)."""
+    _TILE_CACHE.clear()
+
+
 def sparse_conv_grouped_kernel(feats: torch.Tensor, weights: torch.Tensor,
                                gmap, bias: Optional[torch.Tensor] = None,
                                compute_dtype: torch.dtype = torch.float32
@@ -201,11 +432,14 @@ def sparse_conv_grouped_kernel(feats: torch.Tensor, weights: torch.Tensor,
     int64, masks (9, 3, N_out) and patho (9, N_out) bool, worder (3,)
     int64), optional bias (Cout,) f32 -> (N_out, Cout) f32, operands
     rounded to compute_dtype, fp32 sums. One launch a call (two kernels
-    with bf16 operands: the bf16 copies, then the conv), on the current
-    stream, counted in LAUNCHES. No atomics: a row's sums run in an order
-    its own data sets, so two launches give the same bits and a row's
-    bits do not depend on the batch. A CPU tensor takes the plain version
-    and counts nothing."""
+    with bf16 operands: the bf16 feature copy, then the conv; and where
+    the map carries no row order, `grouped_row_order` first, counted on
+    its own; where the weights' tiles are not cached, their launch), on
+    the current stream, counted in LAUNCHES. No float atomics: a row's
+    sums run in an order its own data and the shapes set, so two launches
+    give the same bits and a row's bits depend neither on the batch nor
+    on the row order. A CPU tensor takes the plain version and counts
+    nothing."""
     if feats.device.type == "cpu":
         # the plain version sits beside the dispatch, which imports this
         from umeregrobust_tpu_torch.ops.sparse import sparse_conv_grouped_plain
@@ -225,20 +459,21 @@ def sparse_conv_grouped_dx(dout: torch.Tensor, weights: torch.Tensor,
     (N_in, Cin) f32 = dY's conv over the adjoint map with each tap's
     weights transposed, tap k taking W[k]^T, or W[26 - k]^T where
     reverse_taps (a self map is its own adjoint with its taps reversed).
-    The same kernel as the forward, the weight view read by its own bf16
-    weight copy; dY rounded to compute_dtype, fp32 sums, the result
-    rounded to compute_dtype and held in fp32 (as autograd through the
-    forward's rounding of its operands gives it). Counted in LAUNCHES as
-    the forward; a CPU tensor takes the plain version (the plain forward
-    over the adjoint map)."""
+    The same kernel as the forward, the weight view read by its own cached
+    bf16 weight tiles (`weight_tiles(weights, 1 or 2)`); the weights
+    rounded to compute_dtype, dY not rounded (with bf16 the kernel
+    multiplies its hi and lo bf16 parts: JAX's autodiff of the forward's
+    casts takes the cotangent as it is), fp32 sums, the result rounded to
+    compute_dtype and held in fp32 (as autograd through the forward's
+    rounding of its operands gives it). Counted in LAUNCHES as the
+    forward; a CPU tensor takes the plain version
+    (ops/sparse.sparse_conv_grouped_dx_plain)."""
     if dout.device.type == "cpu":
         from umeregrobust_tpu_torch.ops.sparse import (
-            round_to, sparse_conv_grouped_plain)
+            sparse_conv_grouped_dx_plain)
 
-        w = weights.flip(0) if reverse_taps else weights
-        return round_to(sparse_conv_grouped_plain(
-            dout, w.transpose(1, 2), adjoint, None, compute_dtype),
-            compute_dtype)
+        return sparse_conv_grouped_dx_plain(dout, weights, adjoint,
+                                            reverse_taps, compute_dtype)
     return _launch(dout, weights, adjoint, None, compute_dtype,
                    2 if reverse_taps else 1)
 
@@ -252,19 +487,23 @@ def _launch(feats, weights, gmap, bias, compute_dtype, dx_taps):
     out = torch.empty((N_out, Cout), dtype=torch.float32, device=dev)
     if N_out == 0:
         return out
-    plan = grouped_plan(N_in, N_out, Cin, Cout, compute_dtype)
-    xb = wb = None
+    plan = grouped_plan(N_in, N_out, Cin, Cout, compute_dtype, dx_taps != 0)
+    order = tiles = xb = wt = None
     if plan.kind == "mma":
+        order, tiles = (gmap.order, gmap.tiles) if gmap.order is not None \
+            else grouped_row_order(gmap)
+        wt = weight_tiles(weights, dx_taps)
         xb = torch.empty(plan.xb_elems, dtype=torch.bfloat16, device=dev)
-        wb = torch.empty(plan.wb_elems, dtype=torch.bfloat16, device=dev)
     code = lib.umr_sparse_conv_grouped(
         feats.data_ptr(), weights.data_ptr(), gmap.center.data_ptr(),
         gmap.masks.data_ptr(), gmap.patho.data_ptr(), gmap.worder.data_ptr(),
+        0 if order is None else order.data_ptr(),
+        0 if tiles is None else tiles.data_ptr(),
         0 if bias is None else bias.data_ptr(),
-        0 if xb is None else xb.data_ptr(), 0 if wb is None else wb.data_ptr(),
+        0 if xb is None else xb.data_ptr(), 0 if wt is None else wt.data_ptr(),
         out.data_ptr(), N_in, N_out, Cin, Cout,
         int(gmap.center.dtype == torch.int64), int(plan.kind == "mma"),
-        plan.tile_rows, dx_taps, _build.stream_of(dev))
+        plan.tile_cols, plan.cluster, dx_taps, _build.stream_of(dev))
     _build.check(lib, code, "sparse_conv_grouped")
     LAUNCHES["sparse_conv_grouped"] += 1
     return out

@@ -38,7 +38,9 @@ __all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
            "build_level_maps", "interface_candidates", "invert_map_batch",
            "code_window_table", "window_probe", "group_kernel_map",
            "ungroup_kernel_map", "sparse_conv", "sparse_conv_grouped",
-           "sparse_conv_grouped_plain", "sparse_conv_grouped_wgrad_plain",
+           "sparse_conv_grouped_plain", "sparse_conv_grouped_ordered_plain",
+           "sparse_conv_grouped_dx_plain",
+           "sparse_conv_grouped_wgrad_plain",
            "GroupedConv", "cloud_order",
            "masked_batch_norm", "round_to", "matmul_by_pair", "PerTapConv"]
 
@@ -256,12 +258,21 @@ class GroupedMap(NamedTuple):
     patho:  (9, N_out) bool rows whose dz=+1 candidate sits at slot 1
     worder: (3,) int64 tap of each ascending-row slot ([2, 1, 0] for
             transposed convs, whose rows descend with dz)
+    order:  (N_out,) int32 or None: the rows in the order the grouped conv
+            kernel reads them (by used-group mask; ops/cuda_grouped
+            .grouped_row_order), made once a map by the pyramid
+    tiles:  (ceil(N_out / 64),) int32 or None: each 64-row tile of that
+            order's used groups (bit g: group g)
+    The first four fields are the JAX package's map; a map without an
+    order gets one from the kernel's wrapper at each call.
     """
 
     center: torch.Tensor
     masks: torch.Tensor
     patho: torch.Tensor
     worder: torch.Tensor
+    order: Optional[torch.Tensor] = None
+    tiles: Optional[torch.Tensor] = None
 
 
 def group_kernel_map(nbr: torch.Tensor, z_reversed: bool = False) -> GroupedMap:
@@ -429,6 +440,64 @@ def sparse_conv_grouped_plain(feats: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def sparse_conv_grouped_dx_plain(dout: torch.Tensor, weights: torch.Tensor,
+                                 adjoint: GroupedMap, reverse_taps: bool,
+                                 compute_dtype: torch.dtype = torch.float32,
+                                 pairs: int = 1) -> torch.Tensor:
+    """The plain version of the grouped conv's input gradient (the
+    sparse_conv_grouped_dx kernel route's arithmetic): dY (N_out, Cout)'s
+    conv over the adjoint map with tap k's weights W[k]^T (W[26 - k]^T
+    where reverse_taps), the weights rounded to compute_dtype, dY not
+    rounded (JAX's autodiff of the forward's casts takes the cotangent as
+    it is), fp32 products and sums, the result rounded to compute_dtype
+    and held in fp32."""
+    w = weights.flip(0) if reverse_taps else weights
+    wv = round_to(w, compute_dtype).transpose(1, 2)
+    return round_to(sparse_conv_grouped_plain(dout, wv, adjoint, None,
+                                              torch.float32, pairs),
+                    compute_dtype)
+
+
+def sparse_conv_grouped_ordered_plain(feats: torch.Tensor,
+                                      weights: torch.Tensor,
+                                      gmap: GroupedMap,
+                                      bias: Optional[torch.Tensor] = None,
+                                      compute_dtype: torch.dtype = (
+                                          torch.float32),
+                                      pairs: int = 1) -> torch.Tensor:
+    """`sparse_conv_grouped_plain` as the bf16 kernel walks the map: the
+    output rows in the map's order (`gmap.order`, or
+    ops/cuda_grouped.grouped_row_order's where the map has none) in
+    64-row tiles, a tile's rows taking group g's product only where the
+    tile's mask (`tiles`) has bit g. Each group's product is the plain
+    version's; a row leaves out only groups its tile does not use, whose
+    windows are all zero where the masks are right, so this gives the
+    plain version's bits exactly when every tile's mask holds the groups
+    its rows use."""
+    from umeregrobust_tpu_torch.ops.cuda_grouped import grouped_row_order
+
+    _, Cin, Cout = weights.shape
+    G, _, N_out = gmap.masks.shape
+    order, tiles = ((gmap.order, gmap.tiles) if gmap.order is not None
+                    else grouped_row_order(gmap))
+    F3c, center = _window_table(round_to(feats, compute_dtype), gmap)
+    w3 = round_to(weights, compute_dtype).reshape(G, 3, Cin, Cout)[
+        :, gmap.worder]
+    tile_of = torch.empty(N_out, dtype=torch.int64, device=F3c.device)
+    tile_of[order.to(torch.int64)] = torch.div(
+        torch.arange(N_out, device=F3c.device), 64, rounding_mode="floor")
+    row_groups = tiles.to(torch.int64)[tile_of]
+    out = torch.zeros((N_out, Cout), dtype=torch.float32, device=F3c.device)
+    for g in range(G):
+        prod = matmul_by_pair(_group_windows(F3c, center, gmap, g),
+                              w3[g].reshape(3 * Cin, Cout), pairs)
+        take = torch.bitwise_and(row_groups, 1 << g) != 0
+        out = torch.where(take[:, None], out + prod, out)
+    if bias is not None:
+        out = out + bias.to(torch.float32)[None, :]
+    return out
+
+
 def sparse_conv_grouped_wgrad_plain(feats: torch.Tensor, dout: torch.Tensor,
                                     gmap: GroupedMap,
                                     compute_dtype: torch.dtype = torch.float32
@@ -460,13 +529,14 @@ class GroupedConv(torch.autograd.Function):
     models/resunet.build_unet_geometry): dX = dY's conv over the adjoint
     map with W[k]^T (W[26 - k]^T where reverse_taps: a self map is its
     own adjoint with its taps reversed) by the same kernel; dW by
-    `sparse_conv_grouped_wgrad`; db = sum of dY over rows. dY enters the
-    products rounded to compute_dtype (the one rounding the backward adds),
-    products are summed in fp32, and dX and dW are rounded to
-    compute_dtype and held in fp32, as autograd through the forward's
-    rounding of its operands gives them. A backward that needs dX and was
-    given no adjoint raises. On CPU tensors the kernels' plain versions
-    run."""
+    `sparse_conv_grouped_wgrad`; db = sum of dY over rows. dY enters dX's
+    products unrounded (as JAX's autodiff of the forward's casts takes
+    it) and dW's rounded to compute_dtype (the weight-gradient kernel's
+    bf16 operands), products are summed in fp32, and dX and dW are
+    rounded to compute_dtype and held in fp32, as autograd through the
+    forward's rounding of its operands gives them. A backward that needs
+    dX and was given no adjoint raises. On CPU tensors the kernels' plain
+    versions run."""
 
     @staticmethod
     def forward(ctx, feats, weights, bias, gmap, adjoint, compute_dtype):
