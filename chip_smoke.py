@@ -202,13 +202,22 @@ Phases (any failure ends the run with a non-zero exit):
      version on the card at fp32 (1e-5 x max) and bf16 (one bf16 ulp of
      the entry or 1e-4 x max), two launches bit-identical, guards intact;
      device times alone beside the parent tree's recompute, the per-tap
-     route on the same maps, the library route and the bound; the layer's
+     route on the same maps, the library route and the bound; dW's time
+     beside the parent tree's weight-gradient kernel
+     (csrc/bench/sparse_conv_grouped_wgrad_parent.cu, built by this
+     script; it rounds dY, so only its time is compared), the per-tap
+     route's dW alone, the windows dW stages against those used and its
+     plan; the layer's
      B = 8 training forward against its plain version, its device time
      and bound; the parent tree's grouped kernel's forward and dX on the
      same inputs in the same call) and forced
-     cases (grouped_wgrad_forced: Cin 1 / 3 / 20 / 768, Cout 5 / 7 / 48 /
-     256, N_out above and below N_in, unused groups and rows, patho rows,
-     both slot orders, int32 / int64, an all-masked level); (b)
+     cases (grouped_wgrad_forced: Cin 1 / 2 / 3 / 20 / 768 (the packed
+     stem, with and without its one bulk copy of dY; many column
+     blocks), Cout 5 / 7 / 48 / 200 / 256, N_out above and below N_in,
+     unused groups and rows, a group whose one user is in the order's
+     last tile, tiles of mixed masks, patho rows, both slot orders,
+     int32 / int64, an all-masked level, a map with and without its row
+     order: the same bits); (b)
      ResUNetSmall2 (in-repo weights) at train_kitti_config's widths (B =
      8, 16384 voxels a cloud, 512 matches, 256 UME keypoints, max_nn 750,
      min_nn 300, r 5, bf16) on HDL-64 density pairs: step ms, peak
@@ -1798,6 +1807,91 @@ def parent_grouped(f, w, gmap, dx_taps=0):
     if code != 0:
         raise RuntimeError(f"umr_bench_grouped_parent: CUDA error {code}")
     return out
+
+
+_PARENT_WGRAD = None
+
+
+def parent_wgrad_library():
+    """csrc/bench/sparse_conv_grouped_wgrad_parent.cu (the grouped conv's
+    weight-gradient kernel before its Hopper redesign, the same-call
+    yardstick), built as parent_grouped_library builds the forward's;
+    once a process."""
+    global _PARENT_WGRAD
+    if _PARENT_WGRAD is None:
+        import ctypes
+
+        from umeregrobust_tpu_torch.ops import _build
+
+        src = _build.CSRC / "bench" / "sparse_conv_grouped_wgrad_parent.cu"
+        lib = (_build.BUILD_DIR / "bench"
+               / f"libwgrad_parent.{os.getpid()}.so")
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, "-I",
+                            str(_build.CSRC), "-shared", str(src), "-o",
+                            str(lib), "-lcudart"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        if r.returncode != 0:
+            raise RuntimeError("sparse_conv_grouped_wgrad_parent.cu did not "
+                               f"build:\n{r.stdout}")
+        cdll = ctypes.CDLL(str(lib))
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        cdll.umr_bench_grouped_wgrad_parent.argtypes = (
+            [vp] * 10 + [ll, ll] + [i] * 5 + [vp])
+        cdll.umr_bench_grouped_wgrad_parent.restype = i
+        _PARENT_WGRAD = cdll
+    return _PARENT_WGRAD
+
+
+def parent_wgrad(f, dy, gmap):
+    """The parent tree's bf16 grouped weight-gradient kernel on the same
+    inputs (dY rounded to bf16, as it did; its split rule: the fewest
+    splits of at most 256 steps of 32 rows that give about two blocks an
+    SM, its bf16 copies and partials made in the call). Not counted in
+    any launch count."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import _build
+
+    lib = parent_wgrad_library()
+    (N_in, Cin), (N_out, Cout) = f.shape, dy.shape
+    cin8, cout8 = -(-Cin // 8) * 8, -(-Cout // 8) * 8
+    tiles = -(-3 * cin8 // 64) * -(-cout8 // 64)
+    steps = max(1, -(-N_out // 32))
+    splits = max(-(-steps // 256), min(steps, -(-2 * 132 // (9 * tiles))))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    dev = f.device
+    dw = torch.empty((27, Cin, Cout), dtype=torch.float32, device=dev)
+    part = torch.empty(splits * 9 * 3 * cin8 * cout8, dtype=torch.float32,
+                       device=dev)
+    xb = torch.empty(max(N_in, 1) * cin8, dtype=torch.bfloat16, device=dev)
+    yb = torch.empty(N_out * cout8, dtype=torch.bfloat16, device=dev)
+    code = lib.umr_bench_grouped_wgrad_parent(
+        f.data_ptr(), dy.data_ptr(), gmap.center.data_ptr(),
+        gmap.masks.data_ptr(), gmap.patho.data_ptr(), gmap.worder.data_ptr(),
+        xb.data_ptr(), yb.data_ptr(), part.data_ptr(), dw.data_ptr(), N_in,
+        N_out, Cin, Cout, int(gmap.center.dtype == torch.int64), 1,
+        per * 32, _build.stream_of(dev))
+    if code != 0:
+        raise RuntimeError(f"umr_bench_grouped_wgrad_parent: CUDA error "
+                           f"{code}")
+    return dw
+
+
+def wgrad_staging(gmap, cin):
+    """(windows the bf16 weight-gradient kernel stages, windows some row
+    uses): the map's tiles' groups x 64 rows, the stem (Cin <= 2) every
+    group of every 64-row tile in code order."""
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+
+    used = int((gmap.masks.any(1) | gmap.patho).sum())
+    n_out = gmap.masks.shape[-1]
+    if cin <= 2:
+        return 9 * -(-n_out // 64) * 64, used
+    lists = cuda_grouped.wgrad_units_plain(gmap)
+    return sum(int(x.numel()) for x in lists) * 64, used
 
 
 def grouped_map_stats(gmap):
@@ -4406,7 +4500,12 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
     forward kernel over it, sparse_conv_wgrad), the library route (a
     gather of the 27 tap rows and one torch.mm a direction; timed only)
     and the bound of each direction (grouped_bound's formula for dX,
-    grouped_wgrad_bound for dW); the layer's training forward (the
+    grouped_wgrad_bound for dW); dW's time beside the parent tree's
+    weight-gradient kernel (parent_dw_kernel_ms: parent_wgrad, which
+    rounds dY, so only its time is compared) and the per-tap route's dW
+    alone (per_tap_dw_ms: sparse_conv_wgrad on ungroup_kernel_map), the
+    windows dW stages over those used (wgrad_staging) and its plan; the
+    layer's training forward (the
     forward kernel at these shapes, fwd_kernel_ms, fwd_bound_ms, against
     its plain version at bf16) and the parent tree's kernel forward and
     dX on the same inputs in the same call (parent_grouped)."""
@@ -4462,9 +4561,15 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
         return dw, _per_tap(dy, w.transpose(1, 2), inv, bf, pairs)
 
     dw_ms = graph_ms(dw_kernel, reps=5, inner=10)
+    parent_dw_ms = graph_ms(lambda: parent_wgrad(f, dy, gmap), reps=5,
+                            inner=10)
+    per_tap_dw_ms = graph_ms(lambda: cuda_conv.sparse_conv_wgrad(
+        f, dy, nbr, bf), reps=5, inner=5)
+    staged, used = wgrad_staging(gmap, Cin)
     dx_ms = graph_ms(dx_kernel, reps=5, inner=10) if need_dx else 0.0
     bw, bw_by = grouped_wgrad_bound(f, dy, gmap)
     bx, bx_by = (grouped_bound(dy, wv, adj)[:2] if need_dx else (0.0, None))
+    wplan = cuda_grouped.wgrad_plan(N_out, Cin, Cout, bf)
     # the training forward of this layer (the same kernel, B = 8 shapes)
     # against its plain version, and the parent tree's kernel on the same
     # inputs in this call, forward and dX
@@ -4490,7 +4595,13 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
         layer=name, cin=Cin, cout=Cout, rows_in=N_in, rows_out=N_out,
         windows_used=int((gmap.masks.any(1) | gmap.patho).sum()),
         dx=need_dx, reverse_taps=rev,
-        wgrad_plan=cuda_grouped.wgrad_plan(N_out, Cin, Cout, bf)._asdict(),
+        wgrad_plan=wplan._asdict(),
+        dw_plan=dict(cluster=1, tile=f"{64 * wplan.warpgroups} channels x "
+                     f"{64 * wplan.atoms} window columns",
+                     runs=wplan.ranges, col_blocks=wplan.col_blocks,
+                     cout_blocks=wplan.cout_blocks, stages=wplan.stages),
+        dw_windows_staged=staged,
+        dw_staged_over_used=staged / max(used, 1),
         checks=checks,
         max_abs_err=checks["dw_bfloat16"]["max_abs_err"],
         max_err_over_limit=max(c["max_err_over_limit"]
@@ -4500,6 +4611,7 @@ def grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g):
         guards_intact=all(c["guards_intact"] for c in checks.values()),
         ok=all(c["ok"] for c in checks.values()),
         dw_ms=time_ms(dw_kernel, reps=10), dw_kernel_ms=dw_ms,
+        parent_dw_kernel_ms=parent_dw_ms, per_tap_dw_ms=per_tap_dw_ms,
         dx_kernel_ms=dx_ms, kernel_ms=dw_ms + dx_ms,
         parent_dx_kernel_ms=parent_dx_ms, fwd_kernel_ms=fwd_ms,
         fwd_parent_kernel_ms=parent_fwd_ms,
@@ -4561,16 +4673,24 @@ def grouped_bwd_layers(dev, batch, weights):
 
 
 def grouped_wgrad_forced_cases(dev):
-    """The grouped backward's kernels on forced maps (forced_grouped_map):
-    Cin 1 / 3 / 20 / 768, Cout 5 / 7 / 48 / 256, N_out above and below
-    N_in, more splits than one, a group no window uses and a stretch of
-    rows that use none (skipped steps), many patho rows, both slot
-    orders, int32 and int64 centres, and an all-masked level (dW and dX
-    exact zeros): sparse_conv_grouped_wgrad and the dX route
-    (sparse_conv_grouped_dx, taps reversed in every other case) against
-    their plain versions at fp32 and bf16 (grouped_bwd_check)."""
+    """The grouped backward's kernels on forced maps (forced_grouped_map,
+    passed without their row order: the wrapper makes it):
+    Cin 1 / 2 / 3 / 20 / 768 (1 and 2: the packed stem, with its one bulk
+    copy of dY where Cout % 4 == 0 and one channel block, else its
+    cp.async pieces; 768: 18 column blocks), Cout 5 / 7 / 48 / 200 / 256,
+    N_out above and below N_in, more splits than one, a group no window
+    uses and a stretch of rows that use none, a group whose one user sits
+    in the last tile of the order, tiles whose rows mix masks (mixed_tiles:
+    their share), many patho rows, both slot orders, int32 and int64
+    centres, and an all-masked level (dW and dX exact zeros):
+    sparse_conv_grouped_wgrad and the dX route (sparse_conv_grouped_dx,
+    taps reversed in every other case) against their plain versions at
+    fp32 and bf16 (grouped_bwd_check); and the weight gradient of the
+    map given its row order (with_row_order) against the bare map's: the
+    same bits."""
     import torch
 
+    from umeregrobust_tpu_torch.ops import cuda_grouped
     from umeregrobust_tpu_torch.ops.cuda_grouped import (
         sparse_conv_grouped_dx as grouped_dx, sparse_conv_grouped_wgrad)
     from umeregrobust_tpu_torch.ops.sparse import (
@@ -4582,6 +4702,12 @@ def grouped_wgrad_forced_cases(dev):
         masks[4], pat[4] = False, False
         masks[:, :, 1000:9000], pat[:, 1000:9000] = False, False
 
+    def last_user(center, masks, pat):  # row 777 alone uses group 8, and
+        # nothing else: its mask (256) sorts it into the order's last tile
+        masks[8], pat[8] = False, False
+        masks[:, :, 777], pat[:, 777] = False, False
+        masks[8, 1, 777] = True
+
     i32, i64 = torch.int32, torch.int64
     cases = {  # n_in, n_out, cin, cout, centres, map options
         "cin1_cout48_nout_gt_nin": (3000, 9000, 1, 48, i64, {}),
@@ -4589,6 +4715,10 @@ def grouped_wgrad_forced_cases(dev):
         "cin20_cout5_transposed": (4000, 4000, 20, 5, i64,
                                    dict(transposed=True)),
         "cin768_cout256": (400, 300, 768, 256, i32, dict(p=0.2)),
+        "cin2_cout5_stem": (2000, 3000, 2, 5, i32, {}),
+        "cin2_cout200_stem": (2000, 3000, 2, 200, i64, {}),
+        "last_tile_user": (3000, 3000, 32, 48, i64, dict(edit=last_user)),
+        "mixed_tiles": (3000, 6000, 64, 64, i32, dict(p=0.12, patho=0.1)),
         "unused_group_and_rows": (2000, 20000, 32, 48, i64,
                                   dict(edit=unused)),
         "patho_rows": (1500, 1500, 24, 32, i64, dict(p=0.3, patho=0.6)),
@@ -4619,13 +4749,36 @@ def grouped_wgrad_forced_cases(dev):
             r[f"dx_{tag}"] = grouped_bwd_check(
                 lambda: grouped_dx(x, w, gmap, rev, cd),
                 sparse_conv_grouped_dx_plain(x, w, gmap, rev, cd), cd)
+        if label == "last_tile_user":  # group 8: the last tile only
+            order, tiles = cuda_grouped.grouped_row_order(gmap)
+            r["group8_tiles"] = [int(t) for t in torch.nonzero(
+                (tiles & 256) != 0).reshape(-1)]
+            r["last_tile"] = int(tiles.numel()) - 1
+            r["dw_bfloat16"]["ok"] &= r["group8_tiles"] == [r["last_tile"]]
+        if label == "mixed_tiles":  # the share of tiles of mixed masks
+            order, _ = cuda_grouped.grouped_row_order(gmap)
+            key = cuda_grouped.row_keys_plain(gmap)[order.long()]
+            n_t = -(-key.numel() // 64)
+            kt = torch.nn.functional.pad(key, (0, n_t * 64 - key.numel()),
+                                         value=-1).reshape(n_t, 64)
+            mixed = [len(set(v for v in row.tolist() if v >= 0)) > 1
+                     for row in kt]
+            r["mixed_tiles"] = sum(mixed) / n_t
+            r["dw_bfloat16"]["ok"] &= r["mixed_tiles"] > 0.5
+        # the map with its row order gives the bare map's bits
+        given = cuda_grouped.with_row_order(gmap)
+        same = all(torch.equal(sparse_conv_grouped_wgrad(f, dy, gmap, cd),
+                               sparse_conv_grouped_wgrad(f, dy, given, cd))
+                   for cd in (torch.float32, torch.bfloat16))
+        r["order_given_same_bits"] = same
+        r["dw_bfloat16"]["ok"] &= same
         if label == "all_masked":  # nothing is read: exact zeros
             for cd in (torch.float32, torch.bfloat16):
                 dw = sparse_conv_grouped_wgrad(f, dy, gmap, cd)
                 dx = grouped_dx(x, w, gmap, False, cd)
                 r[f"dw_{str(cd)[6:]}"]["ok"] &= not bool(dw.any()
                                                          or dx.any())
-        ok = all(v["ok"] for v in r.values())
+        ok = all(v["ok"] for v in r.values() if isinstance(v, dict))
         ok_all &= ok
         res[label] = dict(
             shape=f"{cin}->{cout}, {n_in}->{n_out} rows, "
@@ -4919,6 +5072,22 @@ def phase_train(dev, t_start):
         dx_max_abs_err=max(r["checks"]["dx_bfloat16"]["max_abs_err"]
                            for r in dx_rows),
         kernel_ms=sum(r["kernel_ms"] for r in g_rows),
+        dw_kernel_ms=sum(r["dw_kernel_ms"] for r in g_rows),
+        parent_dw_kernel_ms=sum(r["parent_dw_kernel_ms"] for r in g_rows),
+        per_tap_dw_ms=sum(r["per_tap_dw_ms"] for r in g_rows),
+        library_dw_ms=(None if None in lib else
+                       sum(r["library_dw_ms"] for r in g_rows)),
+        dw_bound_ms=sum(r["dw_bound_ms"] for r in g_rows),
+        dw_layers_faster_than_parent=sum(
+            r["dw_kernel_ms"] < r["parent_dw_kernel_ms"] for r in g_rows),
+        dw_layers_slower_than_per_tap=[
+            r["layer"] for r in g_rows
+            if r["dw_kernel_ms"] > r["per_tap_dw_ms"]],
+        dw_layers_slower_than_library=[
+            r["layer"] for r in g_rows if r["library_dw_ms"] is not None
+            and r["dw_kernel_ms"] > r["library_dw_ms"]],
+        dw_staged_over_used=sum(r["dw_windows_staged"] for r in g_rows)
+        / max(sum(r["windows_used"] for r in g_rows), 1),
         recompute_ms=sum(r["recompute_ms"] for r in g_rows),
         per_tap_ms=sum(r["per_tap_ms"] for r in g_rows),
         library_ms=None if None in lib else sum(lib),
@@ -4948,6 +5117,8 @@ def phase_train(dev, t_start):
         bound_by=max(g_rows, key=lambda r: r["dw_bound_ms"])["dw_bound_by"],
         library_ms=(None if None in lib else
                     sum(r["library_dw_ms"] for r in g_rows)),
+        parent_kernel_ms=out["grouped_bwd"]["parent_dw_kernel_ms"],
+        per_tap_dw_ms=out["grouped_bwd"]["per_tap_dw_ms"],
         backward_kernel_ms=out["grouped_bwd"]["kernel_ms"],
         recompute_ms=out["grouped_bwd"]["recompute_ms"],
         per_tap_ms=out["grouped_bwd"]["per_tap_ms"],

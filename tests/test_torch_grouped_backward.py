@@ -150,18 +150,16 @@ def test_backward_plain_versions_match_jax_vjp(maps, which, cin, cout, bias,
 
 
 # The bf16 backward against JAX's autodiff (ROADMAP Queue 3 item 13, for
-# this conv). dX: jax.vjp of the JAX package's grouped conv at
-# compute_dtype=bfloat16 takes dY unrounded, as the port's dX route now
-# does (dY's hi and lo bf16 parts on the card), but rounds each group's
+# this conv). jax.vjp of the JAX package's grouped conv at
+# compute_dtype=bfloat16 takes dY unrounded, as both of the port's routes
+# do (dY's hi and lo bf16 parts on the card). dX: JAX rounds each group's
 # window cotangent to bf16 and adds the groups' and the three column
 # blocks' shares in bf16 (the transposes of its gather and
 # concatenations), where the port sums every product in fp32 and rounds
-# dX once: entries land up to about one bf16 ulp of max |dX| apart
-# (2^-8; measured up to 5.8e-3 x max here, and up to 7.4e-3 with dY
-# rounded, as the route had it before). dW: the weight-gradient kernel
-# (left as it is, bits and all) takes dY rounded to bf16, which JAX's
-# autodiff does not: that rounding is the whole gap (without it the two
-# are bit for bit the same; with it up to 7.0e-3 x max here).
+# dX once: entries land up to about one bf16 ulp of max |dX| apart (2^-8;
+# measured up to 5.8e-3 x max here). dW: JAX's product of the rounded
+# windows with the unrounded cotangent, in fp32, rounded once, is the
+# port's, bit for bit.
 BF16_JAX_LIMIT = 2 ** -7
 
 
@@ -182,11 +180,24 @@ def test_bf16_backward_against_jax_vjp(maps, which, pairs):
                                                bf))
     dw = n(cuda_grouped.sparse_conv_grouped_wgrad(t(f), t(dy), gmap, bf))
     _close(dx, jdx, BF16_JAX_LIMIT)
-    _close(dw, jdw, BF16_JAX_LIMIT)
-    # dW's gap is dY's rounding alone
-    unrounded = n(round_to(sparse_conv_grouped_wgrad_plain(
-        round_to(t(f), bf), t(dy), gmap), bf))
-    np.testing.assert_array_equal(unrounded, jdw)
+    assert np.abs(jdw).max() > 0.05
+    np.testing.assert_array_equal(dw, jdw)
+
+
+def test_dy_hi_and_lo_parts_carry_dy():
+    # the bf16 kernels take dY as hi = bf16(dY) and lo = bf16(dY - hi):
+    # their sum is dY to within 2^-16 of each entry (2^-18 in fact: two
+    # roundings of 2^-9 each)
+    rng = np.random.default_rng(31)
+    dy = t((rng.standard_normal((4096, 48))
+            * np.exp(rng.uniform(-20, 20, (4096, 48)))).astype(np.float32))
+    hi = dy.to(torch.bfloat16).to(torch.float32)
+    lo = (dy - hi).to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(dy - hi, (dy.double() - hi.double()).float())
+    err = ((hi.double() + lo.double()) - dy.double()).abs()
+    assert float((err / dy.double().abs()).max()) <= 2 ** -16
+    # hi alone, the rounding the weight gradient made before, is 2^-9
+    assert float(((hi - dy).abs() / dy.abs()).max()) > 2 ** -12
 
 
 def _patch_grouped(monkeypatch):
@@ -320,31 +331,129 @@ def test_input_gradient_without_an_adjoint_raises():
     assert w2.grad is not None and w2.grad.shape == w2.shape
 
 
-@pytest.mark.parametrize("n_out,cin,cout,want_split,want_splits", [
-    (262144, 32, 32, 8192, 32),  # level 0 at B = 8: 256 steps a split
-    (262144, 1, 32, 8192, 32),  # the stem
-    (2048, 256, 256, 2048, 1),  # 432 blocks without a split
-    (10240, 64, 64, 1024, 10),  # 9 x 3 tiles: 270 blocks, two an SM
-    (20, 5, 7, 32, 1),  # one step
+@pytest.mark.parametrize("n_out,cin,cout,want", [
+    # (kind, warpgroups, atoms, col_blocks, cout_blocks, ranges, stages)
+    (262144, 32, 32, ("mma", 1, 2, 1, 1, 132, 4)),  # block1 at B = 8
+    (262144, 1, 32, ("stem", 1, 1, 1, 1, 264, 4)),  # the stem: packed
+    (2048, 256, 256, ("mma", 2, 2, 6, 2, 11, 4)),  # 12 atoms, 256 channels
+    (10240, 64, 64, ("mma", 1, 3, 1, 1, 132, 4)),
+    (20, 5, 7, ("mma", 1, 1, 1, 1, 132, 4)),  # one tile
+    (196608, 192, 64, ("mma", 1, 3, 3, 1, 44, 4)),  # conv2_tr
+    (106496, 256, 128, ("mma", 2, 2, 6, 1, 22, 4)),  # conv3_tr
+    (300, 768, 256, ("mma", 2, 2, 18, 2, 3, 4)),
+    (900, 2, 300, ("stem", 2, 1, 1, 3, 15, 4)),  # a run a tile
 ])
-def test_wgrad_plan_is_a_rule_on_shapes(n_out, cin, cout, want_split,
-                                        want_splits):
+def test_wgrad_plan_is_a_rule_on_shapes(n_out, cin, cout, want):
     import re
 
     src = (_build.CSRC / "sparse_conv_grouped_wgrad.cu").read_text()
     const = {k: int(v) for k, v in
              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     plan = cuda_grouped.wgrad_plan(n_out, cin, cout, torch.bfloat16)
-    assert (plan.split_rows, plan.splits) == (want_split, want_splits)
-    assert plan.split_rows % const["kWR"] == 0
-    assert plan.split_rows <= const["kWR"] * const["kWSteps"]
-    assert (plan.splits - 1) * plan.split_rows < n_out <= \
-        plan.splits * plan.split_rows
+    assert (plan.kind, plan.warpgroups, plan.atoms, plan.col_blocks,
+            plan.cout_blocks, plan.ranges, plan.stages) == want
     cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
-    tiles = -(-3 * cin8 // const["kWM"]) * -(-cout8 // const["kWN"])
-    assert plan.grid == (plan.splits, tiles, 9)
-    assert plan.part_elems == plan.splits * 9 * 3 * cin8 * cout8
-    assert (plan.xb_cols, plan.yb_cols) == (cin8, cout8)
+    atom, unit = const["kAtom"], const["kUnitRows"]
+    stem = cin <= const["kStemCin"]
+    n_tiles = -(-n_out // unit)
+    # the CTA's channels hold round8(Cout), its columns the 3 round8(Cin)
+    # window columns (the stem: 27 Cin packed into one atom)
+    assert plan.warpgroups == (1 if cout8 <= atom else 2)
+    assert plan.cout_blocks == -(-cout8 // (plan.warpgroups * atom))
+    most = const["kMaxAtoms1"] if plan.warpgroups == 1 else \
+        const["kMaxAtoms2"]
+    if stem:
+        assert 27 * cin <= atom and plan.atoms == plan.col_blocks == 1
+    else:
+        assert plan.atoms <= most
+        assert (plan.col_blocks * plan.atoms - 1) * atom < 3 * cin8 <= \
+            plan.col_blocks * plan.atoms * atom
+    # the runs fill the card once (the stem: kStemCtas CTAs an SM with one
+    # warpgroup) and no run is empty where there are tiles enough
+    ctas = const["kStemCtas"] if stem and plan.warpgroups == 1 else 1
+    cap = ctas * const["kSMs"]
+    assert plan.grid == (plan.ranges * plan.col_blocks, plan.cout_blocks)
+    assert plan.ranges * plan.col_blocks * plan.cout_blocks <= cap or \
+        plan.ranges == 1
+    if stem:
+        assert plan.ranges <= n_tiles
+    # the ring: stages of windows and fp32 dY rows, within a CTA's share
+    stage = plan.atoms * const["kAtomBytes"] + unit * (
+        plan.warpgroups * atom + const["kYPad"]) * 4
+    stage = -(-stage // 1024) * 1024
+    assert 1 <= plan.stages <= const["kMaxStages"]
+    assert plan.smem_bytes == 1024 + plan.stages * (stage + 16)
+    assert plan.smem_bytes + 4 * const["kListChunk"] <= \
+        const["kMaxSmem"] // ctas
+    room = const["kMaxSmem"] // ctas - 4 * const["kListChunk"] - 1024 \
+        - 16 * const["kMaxStages"]
+    assert plan.stages == min(const["kMaxStages"], room // stage)
+    # scratch: a partial a (run, group touched) slot; the codes and lists
+    slots = plan.ranges + (0 if stem else 8)
+    assert plan.part_elems == slots * plan.cout_blocks * plan.warpgroups \
+        * atom * plan.col_blocks * plan.atoms * atom
+    assert plan.xb_cols == (0 if stem else cin8)
+    assert plan.code_elems == (0 if stem else 16 + -(-9 * n_tiles // 4) * 4
+                               + 9 * n_out)
+    assert 1 <= plan.sum_lanes <= (32 if stem else 1)
+    assert 27 * cin * cout * plan.sum_lanes <= const["kSumThreads"] or \
+        plan.sum_lanes == 1
+    # fp32: the FMA tile's splits (at most kWSteps steps of kWR rows)
     fma = cuda_grouped.wgrad_plan(n_out, cin, cout, torch.float32)
-    assert fma.kind == "fma" and fma.splits == plan.splits
-    assert (fma.xb_cols, fma.yb_cols) == (0, 0)
+    assert fma.kind == "fma" and fma.split_rows % const["kWR"] == 0
+    assert fma.split_rows <= const["kWR"] * const["kWSteps"]
+    assert (fma.splits - 1) * fma.split_rows < n_out <= \
+        fma.splits * fma.split_rows
+    tiles = -(-3 * cin8 // const["kWM"]) * -(-cout8 // const["kWN"])
+    assert fma.grid == (fma.splits, tiles, 9)
+    assert fma.part_elems == fma.splits * 9 * 3 * cin8 * cout8
+    assert (fma.xb_cols, fma.code_elems, fma.ranges) == (0, 0, 0)
+
+
+def _pyramid_maps(pairs, caps):
+    """Every grouped map of a ResUNetSmall2 pyramid (each map once: the
+    encoder, self and decoder maps, which are one another's adjoints)."""
+    g = _pyramid("ResUNetSmall2", pairs, caps)
+    seen, out = set(), []
+    for key in ("enc_g", "block_g", "dec_g"):
+        for i, m in enumerate(g[key]):
+            if isinstance(m, GroupedMap) and id(m) not in seen:
+                seen.add(id(m))
+                out.append((f"{key}[{i}]", m))
+    return out
+
+
+@pytest.mark.parametrize("pairs,caps", [(1, CAPS), (2, CAPS), (1, TIGHT),
+                                        (2, TIGHT)],
+                         ids=["one_pair", "two_pairs", "one_pair_truncated",
+                              "two_pairs_truncated"])
+def test_wgrad_units_cover_every_used_window(pairs, caps):
+    # the bf16 weight gradient sums group g over the rows of the tiles of
+    # the map's order whose mask names g (wgrad_units_plain): every (row,
+    # g) whose window has a slot that reads lies in one of them, each row
+    # once; on the pyramid's maps (strided, self and transposed, each the
+    # adjoint of another) and on a map passed without its order
+    maps = _pyramid_maps(pairs, caps)
+    assert len(maps) == 13
+    kinds = {name.split("[")[0] for name, _ in maps}
+    assert kinds == {"enc_g", "block_g", "dec_g"}
+    for name, gmap in maps:
+        n_out = gmap.masks.shape[-1]
+        used = gmap.masks.any(1) | gmap.patho  # (9, N_out)
+        lists = cuda_grouped.wgrad_units_plain(gmap)
+        bare = cuda_grouped.wgrad_units_plain(GroupedMap(*gmap[:4]))
+        order = gmap.order.to(torch.int64)
+        staged = 0
+        for g in range(9):
+            assert torch.equal(lists[g], bare[g]), (name, g)
+            pos = (lists[g][:, None] * 64 + torch.arange(64)).reshape(-1)
+            rows = order[pos[pos < n_out]]
+            assert rows.unique().numel() == rows.numel(), (name, g)
+            covered = torch.zeros(n_out, dtype=torch.bool)
+            covered[rows] = True
+            assert not bool((used[g] & ~covered).any()), (name, g)
+            staged += int(lists[g].numel()) * 64
+        # no more tiles than the tiles' masks name
+        assert staged == 64 * sum(bin(int(x)).count("1")
+                                  for x in gmap.tiles)
+        assert staged >= int(used.sum())

@@ -97,10 +97,8 @@ def test_plain_version_matches_jax(maps, cin, cout, bias, which, dtype, tol,
 
 
 # GroupedConv's backward against autograd through the plain version, x
-# max |autograd's|: fp32, the same sums in another order; bf16, dY rounded
-# to bf16 before dW's products (the weight-gradient kernel's own rounding:
-# up to 2^-9 of each dY entry, ~2^-9 x max after the sums' cancellations;
-# dX takes dY unrounded, as autograd does), and dX, dW rounded to bf16 as
+# max |autograd's|: fp32, the same sums in another order; bf16, dX and dW
+# (both from dY unrounded, as autograd takes it) rounded to bf16 as
 # autograd rounds them, so a value near a rounding boundary may land one
 # bf16 ulp (2^-8 of its size) away
 BACKWARD_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}

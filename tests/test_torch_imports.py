@@ -362,7 +362,8 @@ def test_pair_axis_entries_have_their_ctypes_signature(fn, source):
 @pytest.mark.parametrize("fn,source", [
     ("umr_sparse_conv_grouped", "sparse_conv_grouped.cu"),
     ("umr_grouped_weight_tiles", "sparse_conv_grouped.cu"),
-    ("umr_grouped_row_order", "grouped_row_order.cu")])
+    ("umr_grouped_row_order", "grouped_row_order.cu"),
+    ("umr_sparse_conv_grouped_wgrad", "sparse_conv_grouped_wgrad.cu")])
 def test_grouped_entries_have_their_ctypes_signature(fn, source):
     # _SIGNATURES lists every argument of the grouped conv's C entries
     # with its ctypes type: pointers void*, sizes that may pass 2^31 long

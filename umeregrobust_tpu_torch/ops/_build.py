@@ -72,8 +72,8 @@ _SIGNATURES = {
     "umr_grouped_weight_tiles": [_VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "umr_grouped_row_order": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "umr_sparse_conv_grouped_wgrad": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                      _VP, _VP, _LL, _LL, _INT, _INT, _INT,
-                                      _INT, _INT, _VP],
+                                      _VP, _VP, _VP, _VP, _LL, _LL, _INT,
+                                      _INT, _INT, _INT, _INT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -28,10 +28,11 @@ gradient is this kernel on dY over the adjoint map
 (`sparse_conv_grouped_dx`: each tap's weights transposed, for a self map
 the taps reversed, read so by its own cached weight tiles); the weights'
 gradient is `sparse_conv_grouped_wgrad`
-(csrc/sparse_conv_grouped_wgrad.cu: dW3[g] = sum_o x3_g[o]^T dY[o] on the
-tensor cores, a block a (64 window columns x 64 channels) tile of one
-group and a split of the output rows, the partials summed in split order
-by a second launch; `wgrad_plan` mirrors it).
+(csrc/sparse_conv_grouped_wgrad.cu: dW3[g] = sum_o x3_g[o]^T dY[o] on
+wgmma, group g walking only the 64-row tiles of the map's order whose
+mask names it, dY unrounded as hi + lo bf16 parts, the units cut into
+runs fixed by the shapes and the runs' partials summed in order by a
+second launch; Cin <= 2 a packed stem; `wgrad_plan` mirrors it).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ __all__ = ["sparse_conv_grouped_kernel", "sparse_conv_grouped_dx",
            "with_row_order", "weight_tiles",
            "weight_tiles_plain", "clear_weight_tiles",
            "grouped_plan", "GroupedPlan", "wgrad_plan", "WgradPlan",
+           "wgrad_units_plain",
            "LAUNCHES", "WEIGHT_TILE_BUILDS"]
 
 # kernel launches by each wrapper (not by the plain versions)
@@ -69,8 +71,13 @@ _FMA_ROWS, _FMA_COLS, _FMA_K = 64, 64, 16
 # the row order's tile and segment (grouped_row_order.cu kTileRows,
 # kSegRows, kKeys)
 _ORDER_TILE, _ORDER_SEG, _ORDER_KEYS = 64, 1024, 512
-# the weight gradient's tiles (csrc kWM, kWN, kWR, kWSteps)
+# the weight gradient's fp32 FMA tiles (csrc kWM, kWN, kWR, kWSteps) and
+# its bf16 plan (kUnitRows, kAtom, kMaxAtoms1 / 2, kMaxStages, kStemCin,
+# kStemCtas, kListChunk, kYPad, kSumThreads, kMaxSmem)
 _WG_ROWS, _WG_COLS, _WG_STEP, _WG_STEPS = 64, 64, 32, 256
+_WG_UNIT, _WG_ATOM, _WG_ATOMS, _WG_STAGES = 64, 64, (3, 2), 4
+_WG_STEM_CIN, _WG_STEM_CTAS, _WG_LIST, _WG_YPAD = 2, 2, 512, 4
+_WG_SUM_THREADS, _MAX_SMEM = 1 << 20, 232448
 _SM_COUNT = 132  # H100 SXM
 # weight tiles kept at most (each holds its weight tensor, so no other
 # tensor takes its address while the entry lives)
@@ -108,20 +115,39 @@ class GroupedPlan(NamedTuple):
 
 
 class WgradPlan(NamedTuple):
-    """How the weight-gradient kernel runs a shape: kind "mma" (bf16
-    operands) or "fma" (fp32); split_rows output rows a split (a multiple
-    of 32); splits; grid (splits, 64 x 64 tiles of the (3 round8(Cin),
-    round8(Cout)) product, 9 groups); part_elems the fp32 scratch of the
-    splits' partials; xb_cols / yb_cols the bf16 copies' row widths (0
-    for fp32)."""
+    """How the weight-gradient kernel runs a shape. kind "mma" (bf16
+    operands), "stem" (bf16, Cin <= 2: the 27 taps packed into one
+    64-column atom, rows in code order) or "fma" (fp32). bf16:
+    warpgroups (1 or 2 consumer warpgroups of 64 output channels a CTA),
+    atoms (64-column blocks of window columns a CTA), col_blocks /
+    cout_blocks (CTAs over the 3 round8(Cin) window columns / the
+    channels), ranges (runs the units are cut into, fixed by the shapes:
+    about one CTA an SM; the stem: two), stages (the ring), smem_bytes (a
+    CTA's dynamic shared memory), part_elems (the partials: a slot a run
+    and group it touches, cout_blocks warpgroups 64 x col_blocks atoms 64
+    each), xb_cols (the bf16 feature copy's row; 0 for the stem and
+    fp32), code_elems (int32: 16 counts, the 9 groups' tile lists, the
+    window codes of every (group, row); 0 for the stem and fp32),
+    sum_lanes (threads an output of the sum launch). fp32: split_rows
+    output rows a split (a multiple of 32), splits, grid (splits, 64 x 64
+    tiles of the (3 round8(Cin), round8(Cout)) product, 9 groups) and its
+    partials; the bf16 fields 0."""
 
     kind: str
-    split_rows: int
-    splits: int
     grid: tuple
     part_elems: int
-    xb_cols: int
-    yb_cols: int
+    warpgroups: int = 0
+    atoms: int = 0
+    col_blocks: int = 0
+    cout_blocks: int = 0
+    ranges: int = 0
+    stages: int = 0
+    smem_bytes: int = 0
+    xb_cols: int = 0
+    code_elems: int = 0
+    sum_lanes: int = 0
+    split_rows: int = 0
+    splits: int = 0
 
 
 def _tile_cols(cout: int) -> int:
@@ -159,26 +185,72 @@ def grouped_plan(n_in: int, n_out: int, cin: int, cout: int,
 def wgrad_plan(n_out: int, cin: int, cout: int,
                compute_dtype: torch.dtype = torch.bfloat16) -> WgradPlan:
     """The weight-gradient kernel's plan from the shapes alone (no host
-    read): tiles of 64 window columns (3 round8(Cin) in all) x 64
-    channels (round8(Cout)) per group, and the output rows cut into
-    splits of `split_rows` (steps of 32 rows, at most 256 a split): the
-    fewest splits that give about two blocks an SM, at least one step a
-    split. The splits' order of sums, and so the bits, follow from the
-    shapes."""
+    read; csrc make_plan). bf16: a CTA takes 64 or 128 output channels
+    (one or two consumer warpgroups, beside two producer warpgroups) and
+    up to 3 (one consumer warpgroup) or 2 (two) atoms of 64 window
+    columns, the fewest column blocks that hold 3 round8(Cin) columns;
+    the units are cut into 132 / (column blocks x channel blocks) runs;
+    the ring as deep as 227 KB allows (at most 4).
+    The stem (Cin <= 2): one atom, runs of 64-row tiles in code order,
+    two CTAs an SM. fp32: splits of output rows (steps of 32, at most 256
+    a split), the fewest that give about two blocks an SM. The order of
+    every sum, and so the bits, follow from the shapes and the map."""
     cin8, cout8 = _round8(cin), _round8(cout)
     k3 = 3 * cin8
-    tiles = -(-k3 // _WG_ROWS) * -(-cout8 // _WG_COLS)
-    steps = max(1, -(-n_out // _WG_STEP))
-    want = -(-2 * _SM_COUNT // (_GROUPS * tiles))
-    splits = max(-(-steps // _WG_STEPS), min(steps, want))
-    per = -(-steps // splits)  # steps a split
-    splits = -(-steps // per)
+    if compute_dtype == torch.float32:
+        tiles = -(-k3 // _WG_ROWS) * -(-cout8 // _WG_COLS)
+        steps = max(1, -(-n_out // _WG_STEP))
+        want = -(-2 * _SM_COUNT // (_GROUPS * tiles))
+        splits = max(-(-steps // _WG_STEPS), min(steps, want))
+        per = -(-steps // splits)  # steps a split
+        splits = -(-steps // per)
+        return WgradPlan("fma", (splits, tiles, _GROUPS),
+                         splits * _GROUPS * k3 * cout8,
+                         split_rows=per * _WG_STEP, splits=splits)
+    n_tiles = -(-n_out // _WG_UNIT)
+    stem = cin <= _WG_STEM_CIN
+    mw = 1 if cout8 <= _WG_ATOM else 2
+    mblk = -(-cout8 // (_WG_ATOM * mw))
+    ctas = 1
+    if stem:
+        nb = nblk = 1
+        ctas = _WG_STEM_CTAS if mw == 1 else 1
+        ranges = max(1, min(n_tiles, ctas * _SM_COUNT // mblk))
+    else:
+        atoms = -(-k3 // _WG_ATOM)
+        nblk = -(-atoms // _WG_ATOMS[mw - 1])
+        nb = -(-atoms // nblk)
+        ranges = max(1, _SM_COUNT // (nblk * mblk))
+    stage = -(-(nb * _WG_UNIT * _WG_ATOM * 2
+                + _WG_UNIT * (mw * _WG_ATOM + _WG_YPAD) * 4) // 1024) * 1024
+    room = _MAX_SMEM // ctas - 4 * _WG_LIST - 1024 - 16 * _WG_STAGES
+    stages = min(_WG_STAGES, room // stage)
+    slots = ranges if stem else ranges + _GROUPS - 1
+    lanes = 32 if stem else 1
+    while lanes > 1 and 27 * cin * cout * lanes > _WG_SUM_THREADS:
+        lanes //= 2
     return WgradPlan(
-        "mma" if compute_dtype == torch.bfloat16 else "fma",
-        per * _WG_STEP, splits, (splits, tiles, _GROUPS),
-        splits * _GROUPS * k3 * cout8,
-        cin8 if compute_dtype == torch.bfloat16 else 0,
-        cout8 if compute_dtype == torch.bfloat16 else 0)
+        "stem" if stem else "mma", (ranges * nblk, mblk),
+        slots * mblk * mw * _WG_ATOM * nblk * nb * _WG_ATOM, mw, nb, nblk,
+        mblk, ranges, stages, 1024 + stages * stage + 16 * stages,
+        0 if stem else cin8,
+        0 if stem else (16 + -(-_GROUPS * n_tiles // 4) * 4
+                        + _GROUPS * n_out),
+        lanes)
+
+
+def wgrad_units_plain(gmap) -> list:
+    """The (group, tile) units the bf16 weight-gradient kernel stages, as
+    its prep launch lists them, in plain PyTorch: lists[g] (int64) the
+    64-row tiles of the map's order (`gmap.order`, or
+    `grouped_row_order`'s where the map has none) whose mask has bit g,
+    ascending. Group g's gradient sums over the rows of those tiles
+    alone; a row of such a tile that does not use g adds a zero window."""
+    _, tiles = ((gmap.order, gmap.tiles) if gmap.order is not None
+                else grouped_row_order(gmap))
+    t = tiles.to(torch.int64)
+    return [torch.nonzero(torch.bitwise_and(t, 1 << g) != 0).reshape(-1)
+            for g in range(_GROUPS)]
 
 
 def _checked(feats, weights, gmap, bias, compute_dtype, transpose=False):
@@ -517,15 +589,20 @@ def sparse_conv_grouped_wgrad(feats: torch.Tensor, dout: torch.Tensor,
     forward's input), dout (N_out, Cout) f32 (dY), gmap the forward's
     GroupedMap -> dW (27, Cin, Cout) f32 in lexicographic tap order,
     dW3[g] = sum over rows o of x3_g[o]^T dY[o] with x3_g[o] the window
-    the forward reads. X and dY are rounded to compute_dtype (the
-    forward rounds X; dY's rounding is the backward's one rounding of its
-    own), products summed in fp32, the result rounded to compute_dtype
-    and held in fp32. One call: with bf16 three kernels (the bf16
-    copies, the tiles, the sum of the splits' partials in split order),
-    with fp32 two (an FMA tile, the sum); counted once in LAUNCHES. No
-    atomics: two launches give the same bits. A CPU tensor takes the
-    plain version (ops/sparse.sparse_conv_grouped_wgrad_plain) and counts
-    nothing; a CUDA tensor launches the kernels or raises."""
+    the forward reads. X is rounded to compute_dtype as the forward
+    rounds it; dY is not rounded (with bf16 the kernel multiplies its hi
+    and lo bf16 parts: JAX's autodiff of the forward's casts takes the
+    cotangent as it is); products are summed in fp32 and the result is
+    rounded to compute_dtype and held in fp32. One call, counted once in
+    LAUNCHES: with bf16 three kernels (the prep: bf16 X, the window
+    codes and each group's tiles of the map's order; the wgmma runs; the
+    sum of their partials), where the map carries no row order
+    `grouped_row_order` first (counted on its own); the stem (Cin <= 2)
+    two (the packed runs in code order, the sum); with fp32 two (an FMA
+    tile over splits, the sum). No atomics: two launches give the same
+    bits. A CPU tensor takes the plain version
+    (ops/sparse.sparse_conv_grouped_wgrad_plain) and counts nothing; a
+    CUDA tensor launches the kernels or raises."""
     if feats.device.type == "cpu":
         from umeregrobust_tpu_torch.ops.sparse import (
             sparse_conv_grouped_wgrad_plain)
@@ -547,9 +624,13 @@ def sparse_conv_grouped_wgrad(feats: torch.Tensor, dout: torch.Tensor,
                          f"{gmap.center.shape[1]}")
     _build.require(dout, "dout", torch.float32, (N_out, Cout), dev)
     if min(Cin, Cout) < 1 or max(N_in, N_out) >= 2 ** 31 - 8192 \
-            or 3 * _round8(Cin) >= 2 ** 31 - 64:
+            or 3 * _round8(Cin) >= 2 ** 31 - 64 \
+            or 27 * Cin * Cout >= 2 ** 26 or (
+                compute_dtype == torch.bfloat16 and Cin > _WG_STEM_CIN
+                and N_in >= 2 ** 27 - 4):
         raise ValueError(f"sparse_conv_grouped_wgrad: unsupported shape "
                          f"Cin={Cin} Cout={Cout} N_in={N_in} N_out={N_out}")
+    _check_order(gmap, dev, N_out)
     lib = _build.load_library()  # raises if it cannot be built
     if dev.type != "cuda":
         raise ValueError(f"sparse_conv_grouped_wgrad runs on CUDA or CPU "
@@ -559,18 +640,19 @@ def sparse_conv_grouped_wgrad(feats: torch.Tensor, dout: torch.Tensor,
     plan = wgrad_plan(N_out, Cin, Cout, compute_dtype)
     dw = torch.empty((27, Cin, Cout), dtype=torch.float32, device=dev)
     part = torch.empty(plan.part_elems, dtype=torch.float32, device=dev)
-    xb = yb = None
+    order = tiles = xb = codes = None
     if plan.kind == "mma":
+        order, tiles = (gmap.order, gmap.tiles) if gmap.order is not None \
+            else grouped_row_order(gmap)
         xb = torch.empty(max(N_in, 1) * plan.xb_cols, dtype=torch.bfloat16,
                          device=dev)
-        yb = torch.empty(N_out * plan.yb_cols, dtype=torch.bfloat16,
-                         device=dev)
+        codes = torch.empty(plan.code_elems, dtype=torch.int32, device=dev)
     code = lib.umr_sparse_conv_grouped_wgrad(
         feats.data_ptr(), dout.data_ptr(), gmap.center.data_ptr(),
         gmap.masks.data_ptr(), gmap.patho.data_ptr(), gmap.worder.data_ptr(),
-        0 if xb is None else xb.data_ptr(), 0 if yb is None else yb.data_ptr(),
+        *(0 if x is None else x.data_ptr() for x in (order, tiles, xb, codes)),
         part.data_ptr(), dw.data_ptr(), N_in, N_out, Cin, Cout,
-        int(gmap.center.dtype == torch.int64), int(plan.kind == "mma"),
+        int(gmap.center.dtype == torch.int64), int(plan.kind != "fma"),
         plan.split_rows, _build.stream_of(dev))
     _build.check(lib, code, "sparse_conv_grouped_wgrad")
     LAUNCHES["sparse_conv_grouped_wgrad"] += 1

@@ -504,15 +504,16 @@ def sparse_conv_grouped_wgrad_plain(feats: torch.Tensor, dout: torch.Tensor,
                                     ) -> torch.Tensor:
     """The plain version of the grouped conv's weight gradient (the
     sparse_conv_grouped_wgrad kernel's arithmetic): groups in order, dW3[g]
-    = x3_g^T @ dY, one fp32 product over operands rounded to
-    compute_dtype (X as the forward rounds it, dY the backward's own
-    rounding), then dW (27, Cin, Cout) in lexicographic tap order
-    (dW[3 g + worder[s]] = dW3[g] slot s) rounded to compute_dtype and
-    held in fp32."""
+    = x3_g^T @ dY, one fp32 product with X rounded to compute_dtype (as
+    the forward rounds it) and dY not rounded (JAX's autodiff of the
+    forward's casts takes the cotangent as it is; the kernel multiplies
+    dY's hi and lo bf16 parts), then dW (27, Cin, Cout) in lexicographic
+    tap order (dW[3 g + worder[s]] = dW3[g] slot s) rounded to
+    compute_dtype and held in fp32."""
     Cin, Cout = feats.shape[1], dout.shape[1]
     G = gmap.masks.shape[0]
     F3c, center = _window_table(round_to(feats, compute_dtype), gmap)
-    dy = round_to(dout, compute_dtype)
+    dy = dout.to(torch.float32)
     dw3 = torch.stack([_group_windows(F3c, center, gmap, g).T @ dy
                        for g in range(G)]).reshape(G, 3, Cin, Cout)
     dw = torch.empty_like(dw3)
@@ -530,11 +531,11 @@ class GroupedConv(torch.autograd.Function):
     map with W[k]^T (W[26 - k]^T where reverse_taps: a self map is its
     own adjoint with its taps reversed) by the same kernel; dW by
     `sparse_conv_grouped_wgrad`; db = sum of dY over rows. dY enters dX's
-    products unrounded (as JAX's autodiff of the forward's casts takes
-    it) and dW's rounded to compute_dtype (the weight-gradient kernel's
-    bf16 operands), products are summed in fp32, and dX and dW are
-    rounded to compute_dtype and held in fp32, as autograd through the
-    forward's rounding of its operands gives them. A backward that needs
+    and dW's products unrounded (as JAX's autodiff of the forward's casts
+    takes it; with bf16 the kernels multiply its hi and lo bf16 parts),
+    products are summed in fp32, and dX and dW are rounded to
+    compute_dtype and held in fp32, as autograd through the forward's
+    rounding of its operands gives them. A backward that needs
     dX and was given no adjoint raises. On CPU tensors the kernels' plain
     versions run."""
 
