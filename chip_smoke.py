@@ -12,7 +12,13 @@ Phases (any failure ends the run with a non-zero exit):
      card's segment and tile boundaries, masks, ragged sizes), with the
      device's time alone (kernel_ms, library_kernel_ms: CUDA graphs), the
      host's time to issue a call (host_ms) and the issue floor (9 fp32
-     instructions a pair at the top SM clock); ume_moments_fused: max abs error <= 1e-5 x max |out|;
+     instructions a pair at the top SM clock); nn1_copy_rows (the feature
+     transfer: the search, the rows copied by its merge): bit for bit its
+     plain version and the three-step form it replaces (nn1_argmin, the
+     mask's where, gather_padded), two launches identical, also with more
+     queries and targets masked, a strided table, C = 5 and M = 1, the
+     device's time alone of both forms and their kernels a call;
+     ume_moments_fused: max abs error <= 1e-5 x max |out|;
      corr_scores_fused: max abs error <= 1e-4 x max |score| and the same
      argmax at every stage's shape and at forced ragged shapes (H of 1, 7,
      9; both grids; nothing in radius: exact zeros; rows without features
@@ -63,8 +69,15 @@ Phases (any failure ends the run with a non-zero exit):
      inputs, one call an event pair, the plain version's time, the bound,
      the library route (a gather of the 27 tap rows + one torch.mm) and
      the per-tap kernel on the same map), the row-order kernel
-     grouped_row_order on the pyramid's 13 maps (its order and tiles
-     equal to the plain version's, times, bound), the same layers of the
+     grouped_row_order on the one-pair and the B = 4 pyramid's 13 maps in
+     one launch each (grouped_order_row: order and tiles equal to the
+     plain version's, two launches identical, times beside the parent
+     tree's three launches a map, csrc/bench/grouped_row_order_parent.cu,
+     built here; host time; bound) and at forced maps
+     (row_order_forced_cases: 1, 64, 65, 1024, 1025 rows, all masks
+     zero, all 512 keys, masks at an odd address, more rows than shared
+     memory keeps keys for, a map twice in a list, the cap of maps a
+     launch), the same layers of the
      four regime pairs as one B = 4 forward (each pair's rows the bits of
      its one-pair call; the parent's kernel timed beside), and forced
      cases (grouped_forced: Cin 1 / 3 / 16 / 20 / 24 / 32 / 64 / 96 / 256
@@ -74,7 +87,8 @@ Phases (any failure ends the run with a non-zero exit):
      and group, patho rows, the transposed slot order, int32 and int64
      centres, bias); then the pair axis at B = 4 (the
      four regime pairs, phase_pair_axis):
-     nn1_argmin, ume_moments_fused and corr_scores_fused (four stage
+     nn1_argmin, nn1_copy_rows (against the three-step form too),
+     ume_moments_fused and corr_scores_fused (four stage
      shapes) with a leading pair axis, and gather_rows over the flattened
      table, each pair bit-identical to its B = 1 call, the batch against
      the plain version, kernel_ms (CUDA graph) at B = 1 and B = 4 and the
@@ -217,7 +231,8 @@ Phases (any failure ends the run with a non-zero exit):
      unused groups and rows, a group whose one user is in the order's
      last tile, tiles of mixed masks, patho rows, both slot orders,
      int32 / int64, an all-masked level, a map with and without its row
-     order: the same bits); (b)
+     order: the same bits), and the row order of the B = 8 training
+     pyramid in one launch (grouped_order_row); (b)
      ResUNetSmall2 (in-repo weights) at train_kitti_config's widths (B =
      8, 16384 voxels a cloud, 512 matches, 256 UME keypoints, max_nn 750,
      min_nn 300, r 5, bf16) on HDL-64 density pairs: step ms, peak
@@ -287,6 +302,11 @@ HBM_BW = 3.35e12  # H100 SXM HBM3 bytes/s
 KERNELS = {  # name -> (source, replaced TPU kernel)
     "nn1_argmin": ("umeregrobust_tpu_torch/csrc/nn1_argmin.cu",
                    "umeregrobust_tpu/ops/pallas_nn.py:63"),
+    # the feature transfer: the same search, the rows copied by its merge
+    # (it takes the gather_rows launch of tools/exp_gather2.py:107 `pg`
+    # at feat_to_raw into the nn1 kernel's merge)
+    "nn1_copy_rows": ("umeregrobust_tpu_torch/csrc/nn1_argmin.cu",
+                      "umeregrobust_tpu/ops/pallas_nn.py:63"),
     "ume_moments_fused": ("umeregrobust_tpu_torch/csrc/ume_moments.cu",
                           "umeregrobust_tpu/ops/pallas_ume.py:101"),
     "corr_scores_fused": ("umeregrobust_tpu_torch/csrc/corr_scores.cu",
@@ -544,6 +564,7 @@ def launch_counts():
         cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn, cuda_ume)
 
     return {"nn1_argmin": cuda_nn.LAUNCHES,
+            "nn1_copy_rows": cuda_nn.LAUNCHES_COPY,
             "ume_moments_fused": cuda_ume.LAUNCHES,
             "corr_scores_fused": cuda_corr.LAUNCHES,
             "gather_rows": cuda_gather.LAUNCHES,
@@ -558,6 +579,7 @@ def reset_launch_counts():
     for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather):
         m.LAUNCHES = 0
     cuda_gather.LAUNCHES_BACKWARD = 0
+    cuda_nn.LAUNCHES_COPY = 0
     for d in (cuda_conv.LAUNCHES, cuda_grouped.LAUNCHES):
         for k in d:
             d[k] = 0
@@ -639,6 +661,76 @@ def ume_forced_cases(dev):
     return res, ok_all and ok
 
 
+def three_step_copy(q, qm, p, pm, table):
+    """The feature transfer as the parent tree made it: nn1_argmin, the
+    mask's where, then gather_padded (at a pair axis: the pairs' index
+    offsets into the flattened table, then one gather_rows)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_nn
+    from umeregrobust_tpu_torch.ops.neighbors import gather_padded
+
+    idx = cuda_nn.nn1_argmin(q, p, pm)
+    return gather_padded(table, torch.where(qm, idx, torch.full_like(idx,
+                                                                     -1)))
+
+
+def bit_mismatches(a, b):
+    """Entries of two fp32 tensors whose bits differ."""
+    import torch
+
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def copy_rows_case(q, qm, p, pm, table, timed=True):
+    """nn1_copy_rows on one input ([B,] M queries, [B,] N points, a ([B,]
+    N, C) table) against its plain version and against the three-step
+    form it replaces, bit for bit, two launches identical; with `timed`
+    the device's time alone of both forms (CUDA graphs), one call an
+    event pair, the plain version's time, CUDA kernels a call
+    (torch.profiler) and the bound (the search's operations; the rows'
+    bytes are ~0.5 MB a pair)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_nn
+
+    def fused():
+        return cuda_nn.nn1_copy_rows(q, qm, p, pm, table)
+
+    a, b = fused(), fused()
+    plain = cuda_nn.nn1_copy_rows_plain(q, qm, p, pm, table)
+    three = three_step_copy(q, qm, p, pm, table)
+    torch.cuda.synchronize()
+    B = q.shape[0] if q.dim() == 3 else 1
+    M, N, C = q.shape[-2], p.shape[-2], table.shape[-1]
+    res = dict(shape=f"{B}x{M} queries, {B}x{N}x{C} table",
+               table_strides=list(table.stride()),
+               masked_queries=int((~qm).sum()),
+               masked_targets=int((~pm).sum()),
+               mismatches_vs_plain=bit_mismatches(a, plain),
+               mismatches_vs_three_step=bit_mismatches(a, three),
+               two_launches_identical=bit_mismatches(a, b) == 0)
+    res["ok"] = (res["mismatches_vs_plain"] == 0
+                 and res["mismatches_vs_three_step"] == 0
+                 and res["two_launches_identical"])
+    if timed:
+        bb, by = bound_ms(B * (M * 13 + N * 13 + 2 * M * C * 4), B * M * N * 9)
+        res.update(
+            kernel_ms=graph_ms(fused),
+            three_step_kernel_ms=graph_ms(
+                lambda: three_step_copy(q, qm, p, pm, table)),
+            ms=time_ms(fused),
+            three_step_ms=time_ms(lambda: three_step_copy(q, qm, p, pm,
+                                                          table)),
+            plain_ms=time_ms(lambda: cuda_nn.nn1_copy_rows_plain(
+                q, qm, p, pm, table), reps=5, warmup=1),
+            kernels=count_kernels(fused)[0],
+            three_step_kernels=count_kernels(
+                lambda: three_step_copy(q, qm, p, pm, table))[0],
+            bound_ms=bb, bound_by=by)
+    return res
+
+
 def phase_kernels(dev, model, pair, cfg):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
@@ -717,6 +809,30 @@ def phase_kernels(dev, model, pair, cfg):
             v["ok"] for v in forced.values()),
         max_abs_err=float(mism + sum(v["mismatches"]
                                      for v in forced.values())))
+
+    # --- nn1_copy_rows: the feature transfer (the correlator points, the
+    # SEM grid's features), against its plain version and the three-step
+    # form; forced: more queries and targets masked, a table whose rows
+    # are strided, C = 5 (the copy's 4-byte path), one query
+    qm = s["corr_mask"]
+    cr = copy_rows_case(q, qm, p, pm, feat)
+    gm = torch.Generator(device=dev).manual_seed(3)
+    wide = torch.cat([feat, -feat], 1)
+    forced = {
+        "masked": copy_rows_case(
+            q, qm & (torch.rand(qm.shape, generator=gm, device=dev) > 0.3), p,
+            pm & (torch.rand(pm.shape, generator=gm, device=dev) > 0.2), feat,
+            timed=False),
+        "strided_rows": copy_rows_case(q, qm, p, pm, wide[:, 32:],
+                                       timed=False),
+        "C5": copy_rows_case(q, qm, p, pm, feat[:, :5].contiguous(),
+                             timed=False),
+        "M1": copy_rows_case(q[:1], qm[:1], p, pm, feat, timed=False)}
+    out["nn1_copy_rows"] = dict(
+        cr, forced=forced, library_ms=None,
+        ok=cr["ok"] and all(v["ok"] for v in forced.values()),
+        max_abs_err=float(cr["mismatches_vs_plain"] + sum(
+            v["mismatches_vs_plain"] for v in forced.values())))
 
     # --- ume_moments_fused: 2048 keypoints x 16384 points, r 5, cap 750
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1079,6 +1195,24 @@ def phase_pair_axis(dev, model, pairs, cfg):
                                                               idx[0])),
         kernel_ms_batched=graph_ms(lambda: cuda_gather.gather_rows(table,
                                                                    flat)))
+
+    # --- nn1_copy_rows: the transfer as the batched feature stage makes
+    # it (feat: one side of the (B, 2, N, C) forward output, strided)
+    xs = (cpts, cmask, grid, mask, feat)
+    cr = copy_rows_case(*xs, timed=False)
+    kernels = [count_kernels(lambda: cuda_nn.nn1_copy_rows(*xs))[0],
+               count_kernels(lambda: three_step_copy(*xs))[0]]
+    a = cuda_nn.nn1_copy_rows(*xs)
+    same = all(bit_mismatches(a[b], one(cuda_nn.nn1_copy_rows, xs, b)) == 0
+               for b in range(B))
+    b1 = bound_ms(M * 13 + N * 13 + 2 * M * a.shape[-1] * 4, M * N * 9)[0]
+    out["nn1_copy_rows"] = dict(
+        cr, bit_identical_to_b1=same, ok=cr["ok"] and same,
+        max_abs_err=float(cr["mismatches_vs_plain"]), bound_ms_b1=b1,
+        bound_ms_batched=B * b1, bound_by="operations",
+        three_step_kernel_ms_batched=graph_ms(lambda: three_step_copy(*xs)),
+        kernels_batched=kernels[0], three_step_kernels_batched=kernels[1],
+        **timing(cuda_nn.nn1_copy_rows, xs))
 
     # --- ume_moments_fused: 2048 keypoints x 16384 points a pair
     gens = [torch.Generator(device=dev).manual_seed(1) for _ in range(B)]
@@ -2230,8 +2364,9 @@ def phase_grouped_layers(dev, pairs, weights):
     bf = torch.bfloat16
     caps = REDUCED["caps"]
     model = load_model(weights, ARCHS["ResUNetSmall2"], device=dev)
-    layers = capture_grouped_layers(model, lambda: pair_features_e2e(
-        model, caps, *pair_args(pairs[0]), device=dev))
+    with PyramidMaps() as pyr:
+        layers = capture_grouped_layers(model, lambda: pair_features_e2e(
+            model, caps, *pair_args(pairs[0]), device=dev))
     rows = []
     for name, f, w, gmap, _, _, _ in layers:
         rows.append(grouped_layer_row(name, f, w, gmap))
@@ -2242,13 +2377,19 @@ def phase_grouped_layers(dev, pairs, weights):
     split = kernel_split_ms(lambda: [kern(f, w, gmap, None, bf) for
                                      _, f, w, gmap, _, _, _ in layers],
                             calls=5)
-    maps = list({id(m): m for _, _, _, m, _, _, _ in layers}.values())
-    order_row = grouped_order_row(maps)
-    emit({"phase": "grouped_row_order", "model": "ResUNetSmall2",
-          **order_row})
     del layers
-    batch = capture_grouped_layers(model, lambda: pair_features_batched(
-        model, caps, *stacked_args(pairs), device=dev))
+    with PyramidMaps() as pyr4:
+        batch = capture_grouped_layers(model, lambda: pair_features_batched(
+            model, caps, *stacked_args(pairs), device=dev))
+    order = {}
+    for label, maps in (("one_pair", pyr.lists[0]),
+                        (f"B{len(pairs)}", pyr4.lists[0])):
+        order[label] = grouped_order_row(label, maps)
+        emit({"phase": "grouped_row_order", "model": "ResUNetSmall2",
+              **order[label]})
+    order["forced"], order["forced_ok"] = row_order_forced_cases(dev)
+    emit({"phase": "grouped_row_order_forced", "ok": order["forced_ok"],
+          **order["forced"]})
     ones = [capture_grouped_layers(model, lambda p=p: pair_features_e2e(
         model, caps, *pair_args(p), device=dev)) for p in pairs]
     per_layer = []
@@ -2297,54 +2438,223 @@ def phase_grouped_layers(dev, pairs, weights):
         and all(p["bit_identical_to_b1"] for p in per_layer))
     emit({"phase": "grouped_layers_summary", "model": "ResUNetSmall2",
           **summary})
-    return dict(rows=rows, order=order_row, **summary)
+    return dict(rows=rows, order=order, **summary)
 
 
-def grouped_order_row(maps):
-    """The row-order kernel (grouped_row_order) on each distinct map of a
-    one-pair pyramid: order and tiles equal to grouped_row_order_plain's
-    (mismatches counted), two launches identical; summed over the maps,
-    one call an event pair (ms), the device's time alone (kernel_ms), the
-    plain version's time, and the bound (each map's masks and patho bytes
-    read once, order and tiles written once). The sort alone by one
-    PyTorch call (a stable argsort of precomputed keys) is reported as
+_PARENT_ORDER = None
+
+
+def parent_order_library():
+    """csrc/bench/grouped_row_order_parent.cu (the row order before its
+    one-launch redesign: three launches a map), built with the kernels'
+    nvcc flags into the build directory and loaded; once a process."""
+    global _PARENT_ORDER
+    if _PARENT_ORDER is None:
+        import ctypes
+
+        from umeregrobust_tpu_torch.ops import _build
+
+        src = _build.CSRC / "bench" / "grouped_row_order_parent.cu"
+        lib = (_build.BUILD_DIR / "bench"
+               / f"libgrouped_order_parent.{os.getpid()}.so")
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, "-I",
+                            str(_build.CSRC), "-shared", str(src), "-o",
+                            str(lib), "-lcudart"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        if r.returncode != 0:
+            raise RuntimeError("grouped_row_order_parent.cu did not build:"
+                               f"\n{r.stdout}")
+        cdll = ctypes.CDLL(str(lib))
+        vp = ctypes.c_void_p
+        cdll.umr_bench_grouped_row_order_parent.argtypes = (
+            [vp] * 6 + [ctypes.c_longlong, vp])
+        cdll.umr_bench_grouped_row_order_parent.restype = ctypes.c_int
+        _PARENT_ORDER = cdll
+    return _PARENT_ORDER
+
+
+def parent_row_order(gmap):
+    """The parent tree's row order of one map as its wrapper made it (four
+    allocations, three launches); not counted in any launch count."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import _build
+
+    lib = parent_order_library()
+    n, dev = gmap.masks.shape[-1], gmap.masks.device
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    tiles = torch.empty(-(-n // 64), dtype=torch.int32, device=dev)
+    keys = torch.empty(n, dtype=torch.int16, device=dev)
+    hist = torch.empty(512 * -(-n // 1024), dtype=torch.int32, device=dev)
+    code = lib.umr_bench_grouped_row_order_parent(
+        gmap.masks.data_ptr(), gmap.patho.data_ptr(), keys.data_ptr(),
+        hist.data_ptr(), order.data_ptr(), tiles.data_ptr(), n,
+        _build.stream_of(dev))
+    if code != 0:
+        raise RuntimeError(f"umr_bench_grouped_row_order_parent: CUDA error "
+                           f"{code}")
+    return order, tiles
+
+
+class PyramidMaps:
+    """While active, the grouped maps each pyramid build hands to the row
+    order (models.resunet.with_row_orders), bare and in its order, are
+    kept in `lists`, one list a build; the build runs as it would."""
+
+    def __enter__(self):
+        from umeregrobust_tpu_torch.models import resunet
+
+        self.mod, self.real, self.lists = resunet, resunet.with_row_orders, []
+
+        def spy(maps):
+            self.lists.append(list(maps))
+            return self.real(self.lists[-1])
+
+        resunet.with_row_orders = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.with_row_orders = self.real
+
+
+def grouped_order_row(label, maps):
+    """The row-order kernel over a pyramid's grouped maps in ONE launch
+    (grouped_row_orders): each map's order and tiles against
+    grouped_row_orders_plain's (mismatches counted), two launches
+    identical; the launches a call (LAUNCHES) beside the parent's (three a
+    map); one call an event pair (ms), the device's time alone
+    (kernel_ms), the parent tree's per-map calls the same two ways
+    (csrc/bench/grouped_row_order_parent.cu), the host's time to issue a
+    call (host_ms, the geometry stage's share) beside the parent's, the
+    plain version's time, and the bound (each map's masks and patho
+    bytes read once, order and tiles written once). The sort alone by
+    PyTorch calls (a stable argsort of each map's precomputed keys) is
     argsort_ms; no single call computes the whole function."""
     import torch
 
     from umeregrobust_tpu_torch.ops import cuda_grouped
 
-    res = dict(maps=len(maps), rows=[], mismatches=0, max_abs_err=0.0,
-               ms=0.0, kernel_ms=0.0, plain_ms=0.0, argsort_ms=0.0,
-               bound_ms=0.0, two_launches_identical=True)
-    for m in maps:
-        n = m.masks.shape[-1]
-        o1, t1 = cuda_grouped.grouped_row_order(m)
-        o2, t2 = cuda_grouped.grouped_row_order(m)
-        op, tp = cuda_grouped.grouped_row_order_plain(m)
-        torch.cuda.synchronize()
-        bad = int((o1 != op).sum()) + int((t1 != tp).sum())
-        res["max_abs_err"] = max(res["max_abs_err"], float(
-            (o1.long() - op.long()).abs().max()))
-        key = cuda_grouped.row_keys_plain(m)
-        b, _ = bound_ms(n * (27 + 9) + 4 * n + 4 * t1.numel(), 0)
-        r = dict(rows=n, tiles=int(t1.numel()), mismatches=bad,
-                 ms=time_ms(lambda: cuda_grouped.grouped_row_order(m),
-                            reps=10),
-                 kernel_ms=graph_ms(lambda: cuda_grouped.grouped_row_order(
-                     m), reps=5, inner=10),
-                 plain_ms=time_ms(lambda: cuda_grouped.grouped_row_order_plain(
-                     m), reps=5, warmup=1),
-                 argsort_ms=graph_ms(lambda: torch.argsort(key, stable=True),
-                                     reps=5, inner=10),
-                 bound_ms=b)
-        res["rows"].append(r)
-        res["mismatches"] += bad
-        res["two_launches_identical"] &= bool(torch.equal(o1, o2)
-                                              and torch.equal(t1, t2))
-        for k in ("ms", "kernel_ms", "plain_ms", "argsort_ms", "bound_ms"):
-            res[k] += r[k]
-    res["ok"] = res["mismatches"] == 0 and res["two_launches_identical"]
+    def run():
+        return cuda_grouped.grouped_row_orders(maps)
+
+    def parent():
+        return [parent_row_order(m) for m in maps]
+
+    before = cuda_grouped.LAUNCHES["grouped_row_order"]
+    first = run()
+    launches = cuda_grouped.LAUNCHES["grouped_row_order"] - before
+    second = run()
+    plain = cuda_grouped.grouped_row_orders_plain(maps)
+    old = parent()
+    torch.cuda.synchronize()
+    rows, bad, bad_parent, err, same = [], 0, 0, 0.0, True
+    for m, (o1, t1), (o2, t2), (op, tp), (oo, to) in zip(
+            maps, first, second, plain, old):
+        mis = int((o1 != op).sum()) + int((t1 != tp).sum())
+        bad += mis
+        bad_parent += int((oo != op).sum()) + int((to != tp).sum())
+        err = max(err, float((o1.long() - op.long()).abs().max()))
+        same &= bool(torch.equal(o1, o2) and torch.equal(t1, t2))
+        rows.append(m.masks.shape[-1])
+    keys = [cuda_grouped.row_keys_plain(m) for m in maps]
+    n = sum(rows)
+    n_tiles = sum(-(-r // 64) for r in rows)
+    res = dict(
+        pyramid=label, maps=len(maps), rows=rows, mismatches=bad,
+        parent_mismatches=bad_parent, max_abs_err=err,
+        two_launches_identical=same, launches=launches,
+        parent_launches=3 * len(maps),
+        ms=time_ms(run, reps=10), kernel_ms=graph_ms(run, reps=5, inner=10),
+        parent_ms=time_ms(parent, reps=10),
+        parent_kernel_ms=graph_ms(parent, reps=5, inner=10),
+        host_ms=host_ms(run, calls=50), parent_host_ms=host_ms(parent,
+                                                               calls=50),
+        plain_ms=time_ms(lambda: cuda_grouped.grouped_row_orders_plain(maps),
+                         reps=3, warmup=1),
+        argsort_ms=graph_ms(lambda: [torch.argsort(k, stable=True)
+                                     for k in keys], reps=5, inner=10),
+        bound_ms=bound_ms(n * (27 + 9) + 4 * n + 4 * n_tiles, 0)[0],
+        cluster=cuda_grouped._ORDER_CLUSTER)
+    res["ok"] = (bad == 0 and bad_parent == 0 and same and launches == 1)
     return res
+
+
+def row_order_forced_cases(dev):
+    """grouped_row_orders at forced maps, each alone and all in one
+    launch, against the plain version: 1 row; 64 and 1024 rows and one
+    past each (row counts that are no multiple of 4: the byte-load path);
+    all masks zero; every one of the 512 keys present; masks at an odd
+    address (the byte-load path); more rows than a CTA keeps keys for in
+    shared memory (keys read again from the map); a map given twice in one
+    list; the cap: _ORDER_MAX_MAPS maps in one launch, one more raises."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+    from umeregrobust_tpu_torch.ops.sparse import GroupedMap
+
+    rng = np.random.default_rng(31)
+
+    def make(n, p=0.3, masks=None, odd=False):
+        if masks is None:
+            masks = rng.random((9, 3, n)) < p
+        pat = (rng.random((9, n)) < 0.05) & ~masks[:, 2]
+        m = torch.as_tensor(masks, device=dev)
+        if odd:  # a contiguous view one byte into its storage
+            buf = torch.zeros(m.numel() + 1, dtype=torch.bool, device=dev)
+            buf[1:] = m.reshape(-1)
+            m = buf[1:].view(9, 3, n)
+        return GroupedMap(center=torch.zeros((9, n), dtype=torch.int32,
+                                             device=dev),
+                          masks=m, patho=torch.as_tensor(pat, device=dev),
+                          worder=torch.arange(3, device=dev))
+
+    every_key = np.zeros((9, 3, 2048), bool)
+    key = rng.permutation(np.arange(2048) % 512)
+    for g in range(9):
+        every_key[g, rng.integers(0, 3, 2048), np.arange(2048)] = (
+            key >> g & 1).astype(bool)
+    cap_rows = 65536 * cuda_grouped._ORDER_CLUSTER + 1000
+    cases = {"rows_1": make(1), "rows_64": make(64), "rows_65": make(65),
+             "rows_1024": make(1024), "rows_1025": make(1025, p=0.05),
+             "masks_all_zero": make(3000, p=0.0),
+             "all_512_keys": make(2048, masks=every_key),
+             "masks_at_odd_address": make(4096, odd=True),
+             "keys_past_shared_memory": make(cap_rows, p=0.1)}
+    for name in ("masks_all_zero", "all_512_keys"):  # no patho bits
+        cases[name] = cases[name]._replace(
+            patho=torch.zeros_like(cases[name].patho))
+    out, ok = {}, True
+
+    def check(maps):
+        got = cuda_grouped.grouped_row_orders(maps)
+        want = cuda_grouped.grouped_row_orders_plain(maps)
+        torch.cuda.synchronize()
+        return sum(int((o != op).sum()) + int((t != tp).sum())
+                   for (o, t), (op, tp) in zip(got, want))
+
+    for name, m in cases.items():
+        bad = check([m])
+        out[name] = dict(rows=m.masks.shape[-1], mismatches=bad, ok=bad == 0)
+        ok &= bad == 0
+    listed = list(cases.values())
+    listed += [cases["rows_1025"]] * (cuda_grouped._ORDER_MAX_MAPS
+                                      - len(listed))  # given more than once
+    bad = check(listed)
+    out["one_launch_of_the_cap"] = dict(maps=len(listed), mismatches=bad,
+                                        ok=bad == 0)
+    try:
+        cuda_grouped.grouped_row_orders(listed + [cases["rows_1"]])
+        refused = False
+    except ValueError:
+        refused = True
+    out["past_the_cap_raises"] = dict(maps=len(listed) + 1, ok=refused)
+    ok &= bad == 0 and refused
+    keys = cuda_grouped.row_keys_plain(cases["all_512_keys"])
+    out["all_512_keys"]["distinct_keys"] = int(torch.unique(keys).numel())
+    ok &= out["all_512_keys"]["distinct_keys"] == 512
+    return out, ok
 
 
 def pair_args(p):
@@ -2466,8 +2776,9 @@ def verdict(T, gt):
                 finite=bool(torch.isfinite(T).all()))
 
 
-MAIN_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
-                "gather_rows", "sparse_conv_grouped", "grouped_row_order")
+MAIN_KERNELS = ("nn1_argmin", "nn1_copy_rows", "ume_moments_fused",
+                "corr_scores_fused", "gather_rows", "sparse_conv_grouped",
+                "grouped_row_order")
 
 
 def phase_batched(dev, model, caps, cfg, batch, seeds, label):
@@ -2836,15 +3147,20 @@ def scorer_timer():
 
 def count_kernels(fn):
     """(CUDA kernels launched, their device ms) of one fn() call, by
-    torch.profiler."""
+    torch.profiler. A session that reports no device event is made again,
+    up to three in all (sessions right after CUDA graph replays have
+    reported none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ks:
+            break
     return len(ks), sum(k.time_range.elapsed_us() for k in ks) / 1e3
 
 
@@ -4660,16 +4976,17 @@ def grouped_bwd_layers(dev, batch, weights):
 
     model = load_model(weights, ARCHS["ResUNetSmall2"], device=dev)
     bt = batch_to_device(batch, dev)
-    layers = capture_grouped_layers(model, lambda: cloud_features(
-        model, bt, _capacities(TrainConfig(), model.arch), torch.bfloat16,
-        train=True))
+    with PyramidMaps() as pyr:
+        layers = capture_grouped_layers(model, lambda: cloud_features(
+            model, bt, _capacities(TrainConfig(), model.arch),
+            torch.bfloat16, train=True))
     g = torch.Generator(device=dev).manual_seed(15)
     rows = []
     for name, f, w, gmap, pairs, _, adjoint in layers:
         rows.append(grouped_bwd_row(name, f, w, gmap, adjoint, pairs, g))
         emit({"phase": "grouped_bwd_layer", "model": "ResUNetSmall2",
               "B": TRAIN_B, **rows[-1]})
-    return rows
+    return rows, pyr.lists[0]
 
 
 def grouped_wgrad_forced_cases(dev):
@@ -5053,7 +5370,11 @@ def phase_train(dev, t_start):
     # the grouped k3 conv's backward: dW's kernel, dX through the forward
     # kernel over the adjoint map, at the 18 layers' B = 8 training shapes
     t0 = time.time()
-    g_rows = grouped_bwd_layers(dev, batch, weights)
+    g_rows, train_maps = grouped_bwd_layers(dev, batch, weights)
+    out["row_order"] = grouped_order_row(f"train_B{TRAIN_B}", train_maps)
+    emit({"phase": "grouped_row_order", "model": "ResUNetSmall2",
+          **out["row_order"]})
+    del train_maps
     g_forced, g_forced_ok = grouped_wgrad_forced_cases(dev)
     g_seconds = time.time() - t0
     emit({"phase": "grouped_wgrad_forced", "ok": g_forced_ok, **g_forced})
@@ -5873,15 +6194,24 @@ def main() -> int:
             "parent_kernel_ms_batched", "bound_ms_batched",
             "bit_identical_to_b1")},
         kernel_ms_b1=grouped["kernel_ms"])
-    od = grouped["order"]
+    order = grouped["order"]
+    od, o4 = order["one_pair"], order[f"B{len(pairs)}"]
     kern["grouped_row_order"] = dict(
-        ok=od["ok"], max_abs_err=od["max_abs_err"],
+        ok=od["ok"] and o4["ok"] and order["forced_ok"],
+        max_abs_err=max(od["max_abs_err"], o4["max_abs_err"]),
         shape=f"the {od['maps']} grouped maps of a ResUNetSmall2 one-pair "
-              "pyramid: " + ", ".join(str(r["rows"]) for r in od["rows"])
+              "pyramid in one launch: " + ", ".join(map(str, od["rows"]))
               + " rows",
-        **{k: od[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
-                              "argsort_ms")},
-        bound_by="bytes", library_ms=None)
+        **{k: od[k] for k in ("ms", "kernel_ms", "parent_ms",
+                              "parent_kernel_ms", "host_ms",
+                              "parent_host_ms", "plain_ms", "bound_ms",
+                              "argsort_ms", "launches", "parent_launches",
+                              "cluster")},
+        bound_by="bytes", library_ms=None,
+        B=len(pairs), kernel_ms_b1=od["kernel_ms"],
+        kernel_ms_batched=o4["kernel_ms"], bound_ms_batched=o4["bound_ms"],
+        parent_kernel_ms_batched=o4["parent_kernel_ms"],
+        forced=order["forced"])
     for name in ("sparse_conv_rowtile", "sparse_conv_tapsplit"):
         kind = name[len("sparse_conv_"):]
         mine = [r for r in conv_layers["ResUNet"]["rows"]
@@ -6094,6 +6424,11 @@ def main() -> int:
     emit({"phase": "train_start", "seconds_total": time.time() - t_start})
     train_res, train_kern, train_paths = phase_train(dev, t_start)
     kern.update(train_kern)
+    o8 = train_res["row_order"]
+    kern["grouped_row_order"].update(
+        train=o8, ok=kern["grouped_row_order"]["ok"] and o8["ok"],
+        max_abs_err=max(kern["grouped_row_order"]["max_abs_err"],
+                        o8["max_abs_err"]))
     kern["gather_rows"]["ok"] = (kern["gather_rows"]["ok"]
                                  and train_res["windows"]["ok"])
     gb = train_res["grouped_bwd"]  # its dX route: this kernel, adjoint map
@@ -6183,18 +6518,23 @@ def main() -> int:
         failures.append("reference: card and CPU transforms differ")
     for r in results + scan_results:
         lc = r["launches"]
-        if not (lc["nn1_argmin"] == 2 and lc["ume_moments_fused"] == 2
-                and lc["corr_scores_fused"] >= 3 and lc["gather_rows"] >= 4):
+        # feat_to_raw: the nn1 kernels twice, their merge copying the rows
+        # (no gather_rows launch); feature_spatial_var: gather_rows twice
+        if not (lc["nn1_argmin"] == 2 and lc["nn1_copy_rows"] == 2
+                and lc["ume_moments_fused"] == 2
+                and lc["corr_scores_fused"] >= 3 and lc["gather_rows"] >= 2):
             failures.append(f"pair {r['pair']}: launches {lc}")
         if not r["finite"]:
             failures.append(f"pair {r['pair']}: non-finite transform")
     for r in results:  # the grouped path: the k3 convs in the kernel
         lc = r["launches"]
-        if lc["sparse_conv_grouped"] != 18 or lc["gather_rows"] != 4:
+        if (lc["sparse_conv_grouped"] != 18 or lc["gather_rows"] != 2
+                or lc["grouped_row_order"] != 1):
             failures.append(f"pair {r['pair']}: grouped path launched "
                             f"sparse_conv_grouped {lc['sparse_conv_grouped']}"
-                            f" and gather_rows {lc['gather_rows']} times, "
-                            "not 18 and 4")
+                            f", gather_rows {lc['gather_rows']} and "
+                            f"grouped_row_order {lc['grouped_row_order']} "
+                            "times, not 18, 2 and 1")
     if not results[0]["np_pass"]:
         failures.append("nominal pair fails NP")
     if not fam["ok"]:
@@ -6263,7 +6603,7 @@ def main() -> int:
             failures.append(f"parallel {part}")
     # a kernel of a path must have launched in that path's counted run
     on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
-               "batched_resunet": ("nn1_argmin", "gather_rows",
+               "batched_resunet": ("nn1_argmin", "nn1_copy_rows",
                                    "sparse_conv_rowtile",
                                    "sparse_conv_tapsplit"),
                "hungarian": MAIN_KERNELS,
@@ -6289,7 +6629,7 @@ def main() -> int:
                                   "gather_rows", "sparse_conv_grouped",
                                   "grouped_row_order")
                   for k in wide},
-               "scan": ("nn1_argmin", "ume_moments_fused",
+               "scan": ("nn1_argmin", "nn1_copy_rows", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",
                         "sparse_conv_rowtile", "sparse_conv_tapsplit")}
     for path, names_ in on_path.items():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Design sweeps of the grouped k3 conv kernel (csrc/sparse_conv_grouped.cu)
-on one NVIDIA GPU: `python3 grouped_sweep.py [--plans] [--variants]` from
-the repository root.
+and its row order (csrc/grouped_row_order.cu) on one NVIDIA GPU:
+`python3 grouped_sweep.py [--plans] [--variants] | --order` from the
+repository root.
 
 On ResUNetSmall2's grouped layers (the in-repo weights, the reduced
 operating point of data/suite.py): the 18 layers of a one-pair forward,
@@ -17,8 +18,17 @@ tiles, and prints the three sums each simple cluster rule would give
 (a tile's 9 k_steps ceil(Cout / 64) steps over T a CTA, T in 48 ... 256).
 --variants builds copies of the kernel source with one change each (six
 stages; `wgmma` kept in flight across steps) into the build directory
-and times them beside the library's kernel, turn about. Times are one
-card's; compare them within one call only.
+and times them beside the library's kernel, turn about. --order runs
+the row order alone instead: the grouped maps of the one-pair, B = 4 and
+B = 8 training pyramids in one launch each (chip_smoke's
+grouped_order_row: checked against the plain version, beside the parent
+tree's three launches a map) at clusters of 4, 8 and 16 CTAs a map, turn
+about; then the registration path under torch.profiler (chip_smoke's
+phase_profile: host and device ms a stage, kernels a pair) at B = 1 (the
+four regime pairs one at a time), B = 4 and B = 8 (phase 5d's batches),
+with this tree's row order and feature copy and with the parent tree's
+(ParentSliceForms), turn about. Times are one card's; compare them
+within one call only.
 """
 import argparse
 import ctypes
@@ -190,12 +200,130 @@ def sweep(tag, calls, plans, libs):
           flush=True)
 
 
+class ParentSliceForms:
+    """While active, the pyramid orders each map's rows by the parent
+    tree's three launches a map (chip_smoke.parent_row_order) and the
+    feature stage copies features by the parent tree's three steps
+    (chip_smoke.three_step_copy: nn1_argmin, the mask's where,
+    gather_padded): the path as it ran before the row order took one
+    launch a pyramid and the copy moved into nn1_argmin's merge."""
+
+    def __init__(self, cs):
+        self.cs = cs
+
+    def __enter__(self):
+        from umeregrobust_tpu_torch.models import resunet
+        from umeregrobust_tpu_torch.pipeline import e2e
+
+        cs = self.cs
+        self.saved = (resunet.with_row_orders, e2e.copy_features_to_raw)
+
+        def orders(maps):
+            return [m if m.order is not None else m._replace(
+                **dict(zip(("order", "tiles"), cs.parent_row_order(m))))
+                for m in maps]
+
+        def copy(raw_pts, raw_mask, sem_pts, sem_feat, sem_mask):
+            return cs.three_step_copy(raw_pts.contiguous(), raw_mask,
+                                      sem_pts.contiguous(),
+                                      sem_mask.contiguous(), sem_feat)
+
+        resunet.with_row_orders, e2e.copy_features_to_raw = orders, copy
+        return self
+
+    def __exit__(self, *exc):
+        from umeregrobust_tpu_torch.models import resunet
+        from umeregrobust_tpu_torch.pipeline import e2e
+
+        resunet.with_row_orders, e2e.copy_features_to_raw = self.saved
+
+
+def order_sweep(cs, dev, model, pairs, batch):
+    """--order: the row order's cluster sizes on three pyramids, then the
+    path's profile with this tree's and the parent tree's forms."""
+    import contextlib
+    from dataclasses import replace
+
+    import torch
+
+    from umeregrobust_tpu_torch.data.suite import (
+        REDUCED, REDUCED_CFG, REGIMES, prep_pair, tuning_seed)
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+    from umeregrobust_tpu_torch.pipeline.e2e import (
+        pair_features_batched, pair_features_e2e, register_pair_e2e,
+        register_pairs_batched)
+    from umeregrobust_tpu_torch.pipeline.exactness import (
+        escalated_budget, fine_grid_geometry, window_occupancy)
+    from umeregrobust_tpu_torch.pipeline.registration import (
+        RegistrationConfig)
+    from umeregrobust_tpu_torch.train.trainer import (
+        TrainConfig, _capacities, cloud_features)
+
+    caps = REDUCED["caps"]
+    cs.parent_order_library()
+    pyramids = {}
+    with torch.no_grad():
+        for label, build in (
+                ("one_pair", lambda: pair_features_e2e(
+                    model, caps, *cs.pair_args(pairs[0]), device=dev)),
+                ("b4", lambda: pair_features_batched(
+                    model, caps, *cs.stacked_args(pairs), device=dev)),
+                ("train_b8", lambda: cloud_features(
+                    model, batch, _capacities(TrainConfig(), model.arch),
+                    torch.bfloat16, train=False))):
+            with cs.PyramidMaps() as pyr:
+                build()
+            pyramids[label] = pyr.lists[0]
+    keep = cuda_grouped._ORDER_CLUSTER
+    for label, maps in pyramids.items():
+        for c in (4, 8, 16, 16, 8, 4):
+            cuda_grouped._ORDER_CLUSTER = c
+            cs.emit({"sweep": "row_order", **cs.grouped_order_row(label,
+                                                                 maps)})
+    cuda_grouped._ORDER_CLUSTER = keep
+    del pyramids
+
+    # the path under the profiler, this tree's forms and the parent's
+    cfg = RegistrationConfig(**REDUCED_CFG)
+    more = [prep_pair(tuning_seed(r, 1), r, **REDUCED) for r in REGIMES]
+    cell, dims = fine_grid_geometry(cfg)
+    for p in pairs + more:
+        w, _ = window_occupancy(p["tgt"]["corr_pts"][p["tgt"]["corr_mask"]],
+                                cell, dims)
+        if w > cfg.icp_budget:
+            cfg = replace(cfg, icp_budget=escalated_budget(w,
+                                                           cfg.icp_budget))
+
+    def run(p, i):
+        g = torch.Generator(device=dev).manual_seed(i)
+        return register_pair_e2e(model, caps, cfg, *cs.pair_args(p),
+                                 generator=g, device=dev)
+
+    def run_all(ps):
+        return lambda: register_pairs_batched(
+            model, caps, cfg, *cs.stacked_args(ps), device=dev,
+            generators=[torch.Generator(device=dev).manual_seed(i)
+                        for i in range(len(ps))])
+
+    for tag, ps in (("b1", pairs), ("b4", pairs), ("b8", pairs + more)):
+        for form in ("parent", "slice", "slice", "parent"):
+            with (ParentSliceForms(cs) if form == "parent"
+                  else contextlib.nullcontext()):
+                one = run_all(ps) if tag != "b1" else None
+                (one or (lambda: run(ps[0], 0)))()  # warm-up
+                cs.phase_profile(run, ps, cfg, None, f"{tag}_{form}",
+                                 run_all=one)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plans", action="store_true",
                     help="also every cluster size and channel tile")
     ap.add_argument("--variants", action="store_true",
                     help="also the kernel source's variants")
+    ap.add_argument("--order", action="store_true",
+                    help="the row order's cluster sizes and the path's "
+                         "profile against the parent's forms, alone")
     args = ap.parse_args()
     import torch
 
@@ -226,6 +354,10 @@ def main() -> int:
     model = load_model(os.path.join(ROOT, "weights", "synthetic_pretrain.pkl"),
                        ARCHS["ResUNetSmall2"], device=dev)
     caps, bf = REDUCED["caps"], torch.bfloat16
+    if args.order:
+        order_sweep(cs, dev, model, pairs, batch_to_device(
+            cs.train_batch(cs.TRAIN_B, 900), dev))
+        return 0
     one = cs.capture_grouped_layers(model, lambda: pair_features_e2e(
         model, caps, *cs.pair_args(pairs[0]), device=dev))
     sweep("one_pair", layer_calls(one, False, dev), args.plans, libs)

@@ -110,10 +110,80 @@ def test_order_constants_match_the_kernel():
            / "grouped_row_order.cu").read_text()
     const = {k: int(v) for k, v in
              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert (const["kTileRows"], const["kSegRows"], const["kKeys"]) == (
-        cuda_grouped._ORDER_TILE, cuda_grouped._ORDER_SEG,
-        cuda_grouped._ORDER_KEYS)
+    assert (const["kTileRows"], const["kKeys"], const["kMaxMaps"],
+            const["kMaxCluster"]) == (
+        cuda_grouped._ORDER_TILE, cuda_grouped._ORDER_KEYS,
+        cuda_grouped._ORDER_MAX_MAPS, cuda_grouped._ORDER_MAX_CLUSTER)
     assert const["kKeys"] == 2 ** 9  # a 9-bit group mask
+    assert const["kThreads"] == const["kKeys"]  # a thread a key
+    rows = re.search(r"constexpr long long kMaxRows = \(1ll << (\d+)\) - "
+                     r"(\d+);", src)
+    assert 2 ** int(rows.group(1)) - int(rows.group(2)) == \
+        cuda_grouped._ORDER_MAX_ROWS
+    assert 1 <= cuda_grouped._ORDER_CLUSTER <= const["kMaxCluster"]
+    # the cap on maps a launch covers every arch's pyramid: at most one
+    # self map a level, one strided map into each level past the first
+    # (the stem's is level 0's self map) and one transposed map back
+    for name, arch in ARCHS.items():
+        assert 3 * len(arch.channels) - 2 <= const["kMaxMaps"], name
+
+
+def _distinct_maps(geom):
+    return list({id(m): m for k in ("enc_g", "block_g", "dec_g")
+                 for m in geom[k]}.values())
+
+
+@pytest.mark.parametrize("pyr", ["one_pair", "two_pairs",
+                                 "two_pairs_truncated"])
+def test_orders_of_a_pyramid_are_each_maps_plain_order(pyramids, pyr):
+    # the list form gives each map what the one-map plain version gives
+    # it, in the list's order; a map given twice gets its result twice
+    maps = _distinct_maps(pyramids[pyr])
+    assert len(maps) == 13  # ResUNetSmall2: 5 self, 4 strided, 4 transposed
+    bare = [m._replace(order=None, tiles=None) for m in maps]
+    listed = bare + [bare[3]]
+    got = cuda_grouped.grouped_row_orders_plain(listed)
+    assert len(got) == len(listed)
+    for m, (order, tiles) in zip(listed, got):
+        want_order, want_tiles = cuda_grouped.grouped_row_order_plain(m)
+        assert torch.equal(order, want_order)
+        assert torch.equal(tiles, want_tiles)
+    assert torch.equal(got[-1][0], got[3][0])
+    # the wrapper on CPU maps takes the plain version, launching nothing;
+    # the pyramid's maps carry those orders
+    before = cuda_grouped.LAUNCHES["grouped_row_order"]
+    for (o1, t1), (o2, t2), m in zip(cuda_grouped.grouped_row_orders(bare),
+                                     got, maps):
+        assert torch.equal(o1, o2) and torch.equal(t1, t2)
+        assert torch.equal(m.order, o2) and torch.equal(m.tiles, t2)
+    assert cuda_grouped.LAUNCHES["grouped_row_order"] == before
+    assert cuda_grouped.grouped_row_orders([]) == []
+
+
+def test_with_row_orders_keeps_the_maps_that_carry_one(pyramids):
+    maps = _distinct_maps(pyramids["one_pair"])
+    mixed = [m if i % 2 else m._replace(order=None, tiles=None)
+             for i, m in enumerate(maps)]
+    out = cuda_grouped.with_row_orders(mixed)
+    for i, (m, o) in enumerate(zip(maps, out)):
+        if i % 2:
+            assert o is m  # carried its order: as it was
+        assert torch.equal(o.order, m.order)
+        assert torch.equal(o.tiles, m.tiles)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_row_orders_refuse_more_maps_than_a_launch_takes(device):
+    # past the cap the wrapper raises, on the CPU as on the card, before
+    # it looks for the kernel; at the cap it runs
+    gmap = _forced_map(9, 40, 50)
+    gmap = gmap._replace(masks=gmap.masks.to(device),
+                         patho=gmap.patho.to(device))
+    cap = cuda_grouped._ORDER_MAX_MAPS
+    with pytest.raises(ValueError, match="at most 16 maps"):
+        cuda_grouped.grouped_row_orders([gmap] * (cap + 1))
+    if device == "cpu":
+        assert len(cuda_grouped.grouped_row_orders([gmap] * cap)) == cap
 
 
 def _forced_map(seed, n_in, n_out, p=0.5, transposed=False, edit=None):

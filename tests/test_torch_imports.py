@@ -214,6 +214,10 @@ def test_load_library_raises_without_nvcc(no_nvcc):
     lambda d: cuda_nn.nn1_argmin(torch.zeros(4, 3, device=d),
                                  torch.zeros(8, 3, device=d),
                                  torch.ones(8, dtype=torch.bool, device=d)),
+    lambda d: cuda_nn.nn1_copy_rows(
+        torch.zeros(4, 3, device=d), torch.ones(4, dtype=torch.bool, device=d),
+        torch.zeros(8, 3, device=d), torch.ones(8, dtype=torch.bool, device=d),
+        torch.zeros(8, 5, device=d)),
     lambda d: cuda_ume.ume_moments_fused(
         torch.zeros(4, 3, device=d), torch.zeros(8, 3, device=d),
         torch.zeros(8, 128, device=d),
@@ -259,17 +263,20 @@ def test_load_library_raises_without_nvcc(no_nvcc):
         torch.zeros(8, 4, device=d), torch.zeros(8, 6, device=d),
         _grouped_map(d), compute_dtype=torch.bfloat16),
     lambda d: cuda_grouped.grouped_row_order(_grouped_map(d))[0],
+    lambda d: cuda_grouped.grouped_row_orders(
+        [_grouped_map(d), _grouped_map(d, 70)])[1][0],
     lambda d: cuda_grouped.weight_tiles(torch.zeros(27, 4, 6, device=d)),
     lambda d: cuda_grouped.sparse_conv_grouped_dx(
         torch.zeros(8, 6, device=d), torch.zeros(27, 4, 6, device=d),
         _grouped_map(d), True, compute_dtype=torch.bfloat16),
-], ids=["nn1_argmin", "ume_moments_fused", "ume_moments_fused_caps",
+], ids=["nn1_argmin", "nn1_copy_rows", "ume_moments_fused",
+        "ume_moments_fused_caps",
         "corr_scores_fused", "gather_rows", "gather_padded",
         "sparse_conv_rowtile", "sparse_conv_tapsplit", "sparse_conv",
         "conv_entries", "gather_rows_backward", "sparse_conv_wgrad",
         "sparse_conv_grouped_kernel", "sparse_conv_grouped",
-        "sparse_conv_grouped_wgrad", "grouped_row_order", "weight_tiles",
-        "sparse_conv_grouped_dx"])
+        "sparse_conv_grouped_wgrad", "grouped_row_order",
+        "grouped_row_orders", "weight_tiles", "sparse_conv_grouped_dx"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
@@ -322,7 +329,7 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
         "nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
         "sparse_conv_rowtile", "sparse_conv_tapsplit",
         "gather_rows_backward", "sparse_conv_wgrad", "sparse_conv_grouped",
-        "sparse_conv_grouped_wgrad", "grouped_row_order"])
+        "sparse_conv_grouped_wgrad", "grouped_row_order", "nn1_copy_rows"])
     entry = {"ume_moments_fused": "umr_ume_moments",
              "corr_scores_fused": "umr_corr_scores"}
     for name, (source, replaces) in kernels.items():
@@ -344,7 +351,8 @@ def _c_params(src, fn):
 
 @pytest.mark.parametrize("fn,source", [
     ("umr_nn1_argmin", "nn1_argmin.cu"), ("umr_ume_moments", "ume_moments.cu"),
-    ("umr_corr_scores", "corr_scores.cu")])
+    ("umr_corr_scores", "corr_scores.cu"),
+    ("umr_nn1_copy_rows", "nn1_argmin.cu")])
 def test_pair_axis_entries_have_their_ctypes_signature(fn, source):
     # the C entries of the three kernels with a pair axis take B, and
     # _SIGNATURES lists every argument with its ctypes type (a pointer
@@ -355,7 +363,8 @@ def test_pair_axis_entries_have_their_ctypes_signature(fn, source):
     assert len(sig) == len(params)
     for p, ct in zip(params, sig):
         want = (_build._VP if "*" in p else _build._FLT
-                if p.startswith("float") else _build._INT)
+                if p.startswith("float") else _build._LL
+                if p.startswith("long long") else _build._INT)
         assert ct is want, (fn, p)
 
 

@@ -1,10 +1,13 @@
 """Kernel nn1_argmin (plain version on CPU tensors) against the JAX Pallas
 kernel in interpret mode and brute force, index for index, also at the
 forced cases that chip_smoke.py runs on the kernel; and the feature
-transfer copy_features_to_raw against the JAX package's."""
+transfer copy_features_to_raw (nn1_copy_rows: the search and the row copy
+in one call) against the JAX package's and against the three-step form it
+replaces."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import n, t
 from umeregrobust_tpu.ops.pallas_nn import nn1_argmin as jax_nn1
@@ -108,3 +111,69 @@ def test_copy_features_to_raw_matches_jax():
                                jnp.asarray(sem), jnp.asarray(feat),
                                jnp.asarray(sm)))
     np.testing.assert_array_equal(got, want)
+
+
+def _transfer_inputs(seed, B=None, M=300, N=700, C=32):
+    """Seeded SEM points, features and masks and correlator points and
+    masks, with a leading pair axis B where given."""
+    rng = np.random.default_rng(seed)
+    lead = () if B is None else (B,)
+    sem = (rng.normal(size=lead + (N, 3)) * 6).astype(np.float32)
+    sm = rng.random(lead + (N,)) > 0.2
+    feat = rng.normal(size=lead + (N, C)).astype(np.float32) * sm[..., None]
+    raw = (rng.normal(size=lead + (M, 3)) * 6).astype(np.float32)
+    rm = rng.random(lead + (M,)) > 0.3
+    return raw, rm, sem, feat, sm
+
+
+@pytest.mark.parametrize("B", [None, 1, 3])
+def test_nn1_copy_rows_plain_matches_jax_feature_transfer(B):
+    # the fused form's plain version against the JAX package's
+    # copy_features_to_raw, pair by pair, masked queries included
+    raw, rm, sem, feat, sm = _transfer_inputs(11, B)
+    got = n(cuda_nn.nn1_copy_rows_plain(t(raw), t(rm), t(sem), t(sm),
+                                        t(feat)))
+    assert got.shape == raw.shape[:-1] + (feat.shape[-1],)
+    for b in ([None] if B is None else range(B)):
+        sl = () if b is None else (b,)
+        want = np.asarray(jax_copy(jnp.asarray(raw[sl]), jnp.asarray(rm[sl]),
+                                   jnp.asarray(sem[sl]),
+                                   jnp.asarray(feat[sl]),
+                                   jnp.asarray(sm[sl])))
+        np.testing.assert_array_equal(got[sl], want)
+        assert not got[sl][~rm[sl]].any()  # masked queries: zero rows
+
+
+@pytest.mark.parametrize("B", [None, 4])
+def test_nn1_copy_rows_is_the_three_step_form_bit_for_bit(B):
+    # nn1_argmin, the mask's where and gather_padded (the form the merge's
+    # copy replaces), on a strided table view as the feature stage passes
+    # it (one side of a (B, 2, N, C) block)
+    from umeregrobust_tpu_torch.ops.neighbors import gather_padded
+
+    raw, rm, sem, feat, sm = _transfer_inputs(12, B, C=20)
+    both = t(np.stack([feat, -feat], axis=-3))  # ([B,] 2, N, C)
+    table = both[:, 0] if B is not None else both[0]
+    assert B is None or not table.is_contiguous()
+    idx = nn1_argmin(t(raw), t(sem), t(sm))
+    want = gather_padded(table, torch.where(t(rm), idx,
+                                            torch.full_like(idx, -1)))
+    got = cuda_nn.nn1_copy_rows(t(raw), t(rm), t(sem), t(sm), table)
+    assert torch.equal(got, want)
+    assert torch.equal(copy_features_to_raw(t(raw), t(rm), t(sem), table,
+                                            t(sm)), want)
+    assert cuda_nn.LAUNCHES_COPY == 0  # CPU tensors: the plain version
+
+
+def test_nn1_copy_rows_refuses_a_table_that_takes_a_gradient():
+    # the feature transfer is serving only; a gradient through the table
+    # would be dropped, so the call raises instead
+    raw, rm, sem, feat, sm = _transfer_inputs(13)
+    table = t(feat).requires_grad_(True)
+    with pytest.raises(ValueError, match="no gradient"):
+        cuda_nn.nn1_copy_rows(t(raw), t(rm), t(sem), t(sm), table)
+    with torch.no_grad():  # as the feature stage calls it
+        got = cuda_nn.nn1_copy_rows(t(raw), t(rm), t(sem), t(sm), table)
+    assert torch.equal(got, cuda_nn.nn1_copy_rows_plain(
+        t(raw), t(rm), t(sem), t(sm), table.detach()))
+

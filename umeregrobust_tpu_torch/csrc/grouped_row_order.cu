@@ -4,182 +4,342 @@
 // groups g whose window (g, row) has a slot that reads of 2^g, 9 bits),
 // rows of one key in ascending row order (a stable counting sort), and
 // each 64-row tile of the order's mask (the OR of its rows' keys: the
-// groups the tile stages and multiplies). Built once a map: the pyramid
-// builds it beside the map (models/resunet.build_unet_geometry), and the
-// conv's wrapper for a map that has none.
+// groups the tile stages and multiplies). Built once a map, all the maps
+// of a pyramid in one launch: the pyramid builds them beside its maps
+// (models/resunet.build_unet_geometry), and the conv's wrapper for a map
+// that has none (a list of one).
 //
 // Replaces no TPU kernel: it is the grouped conv's tile plan (the conv
-// replaces tools/exp_gather2.py `pg`'s window gathers). The first grouped
-// conv kernel voted each 128-row tile's groups in code order inside every
-// launch, and a transposed conv's tiles then used nearly all 9 groups
-// while each row uses one or two.
+// replaces tools/exp_gather2.py `pg`'s window gathers).
 //
-// Bound on the H100: the map's masks and patho bytes read once (36 bytes
+// Bound on the H100: each map's masks and patho bytes read once (36 bytes
 // a row) and the order (4 bytes a row) and tiles written once, at
-// 3.35 TB/s: about a microsecond at 32768 rows; the three launches' own
-// latency sets the time.
+// 3.35 TB/s: about 2 microseconds for the 13 maps of a one-pair
+// ResUNetSmall2 pyramid (103,936 rows). The earlier form made three
+// dependent launches a map (count, a one-block scan, place; 39 a
+// pyramid), whose starts and drains set its time, and its one-block scan
+// walked every segment's histogram of a map.
 //
-// Design: three launches, no float and no order-dependent atomics:
-//  - count: a block a 1024-row segment computes its rows' keys (written
-//    to int16 scratch) and its histogram of the 512 keys in shared
-//    memory (integer atomics: the counts do not depend on their order),
-//    written key-major (hist[key][segment]); it also zeroes its tiles;
-//  - scan: one block turns the key-major histogram into exclusive
-//    offsets (each thread a contiguous run, then a block scan);
-//  - place: a block a segment, 8 warps of 128 rows: each warp's
-//    histogram, the warps' offsets per key, then each warp places its
-//    rows 32 at a time in row order (__match_any_sync ranks the lanes of
-//    one key), and ORs each row's key into its tile's mask (an integer
-//    atomic OR: order-free).
+// Design: one launch for a list of up to kMaxMaps maps, a thread-block
+// cluster of c CTAs a map (c fixed a launch: the wrapper's
+// _ORDER_CLUSTER); the maps' descriptors travel by value in the kernel's
+// parameters. No float and no order-dependent atomic:
+//  1. CTA j of a map's cluster takes rows [j s, (j + 1) s) (s: a share of
+//     whole 32-row steps) and computes their keys into shared memory
+//     (four rows a thread from 4-byte loads where the map allows it;
+//     a CTA whose share passes kKeyRows reads them again from the map
+//     when it places them). Its 16 warps take the share in row order, a
+//     run each, and count their keys (lanes of one key merged by
+//     __match_any_sync, each warp its own histogram row: no atomic). A
+//     thread a key turns the warps' counts into offsets within the CTA
+//     and the CTA's histogram. cluster barrier.
+//  2. A thread a key reads the key's count in every CTA of the cluster
+//     (distributed shared memory): the map's count, and the rows of that
+//     key in lower-ranked CTAs. A block scan over the 512 keys gives each
+//     key's first place in the order; the warps' offsets become places.
+//  3. Each warp places its rows 32 at a time in row order (lanes of one
+//     key ranked by __match_any_sync), so the order is stable.
+//  4. Tiles: the order is sorted by key, so tile t's mask is the OR of
+//     the keys whose places meet [64 t, 64 t + 64): two binary searches
+//     over the keys' first places and a walk between them. Each tile is
+//     written once, by one thread of one CTA; nothing is zeroed first.
+//  A last cluster barrier keeps every CTA until its peers have read its
+//  histogram.
 #include "common.cuh"
 #include "grouped_window.cuh"
 
 namespace {
 
-constexpr int kTileRows = 64;     // rows a tile of the conv kernel (kBM)
-constexpr int kKeys = 512;        // 9-bit used-group masks
-constexpr int kSegRows = 1024;    // rows a histogram segment
-constexpr int kCountThreads = 256;
-constexpr int kScanThreads = 1024;
-constexpr int kPlaceWarps = 8;    // kSegRows / 128 rows a warp
-static_assert(kPlaceWarps * 128 == kSegRows, "warps cover a segment");
+constexpr int kTileRows = 64;      // rows a tile of the conv kernel (kBM)
+constexpr int kKeys = 512;         // 9-bit used-group masks
+constexpr int kThreads = 512;      // a thread a key in steps 1-2
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxMaps = 16;       // maps a launch (3 L - 2 for L <= 6)
+constexpr int kMaxCluster = 16;    // CTAs a map (> 8: non-portable)
+constexpr int kKeyRows = 65536;    // keys a CTA keeps in shared memory
+constexpr long long kMaxRows = (1ll << 31) - 1024;  // rows a map, below
+static_assert(kThreads == kKeys, "a thread a key");
+
+struct OrderMap {
+  const unsigned char* masks;  // (9, 3, n) bool
+  const unsigned char* patho;  // (9, n) bool
+  long long n;                 // rows
+  long long order;             // its order's offset in the order buffer
+  long long tiles;             // its tiles' offset in the tiles buffer
+};
+struct OrderMaps {
+  OrderMap map[kMaxMaps];
+};
 
 __device__ __forceinline__ int row_key(const unsigned char* __restrict__ masks,
                                        const unsigned char* __restrict__ patho,
-                                       int64_t row, int64_t N_out) {
+                                       int64_t row, int64_t N) {
   int key = 0;
 #pragma unroll
   for (int g = 0; g < kGroups; ++g)
-    if (window_used(masks, patho, g, row, N_out)) key |= 1 << g;
+    if (window_used(masks, patho, g, row, N)) key |= 1 << g;
   return key;
 }
 
-__global__ void __launch_bounds__(kCountThreads)
-    order_count_kernel(const unsigned char* __restrict__ masks,
-                       const unsigned char* __restrict__ patho,
-                       int64_t N_out, int nseg,
-                       unsigned short* __restrict__ keys,
-                       int* __restrict__ hist, int* __restrict__ tiles,
-                       int64_t n_tiles) {
-  __shared__ int h[kKeys];
-  const int tid = threadIdx.x;
-  for (int k = tid; k < kKeys; k += kCountThreads) h[k] = 0;
-  __syncthreads();
-  const int64_t r0 = (int64_t)blockIdx.x * kSegRows;
-  for (int i = tid; i < kSegRows; i += kCountThreads) {
-    const int64_t r = r0 + i;
-    if (r >= N_out) break;
-    const int key = row_key(masks, patho, r, N_out);
-    keys[r] = (unsigned short)key;
-    atomicAdd(&h[key], 1);
-  }
-  const int64_t t0 = (int64_t)blockIdx.x * (kSegRows / kTileRows);
-  if (tid < kSegRows / kTileRows && t0 + tid < n_tiles) tiles[t0 + tid] = 0;
-  __syncthreads();
-  for (int k = tid; k < kKeys; k += kCountThreads)
-    hist[(int64_t)k * nseg + blockIdx.x] = h[k];
+__device__ __forceinline__ uint32_t ld_u32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Exclusive scan of hist[0, L) in place, one block.
-__global__ void __launch_bounds__(kScanThreads)
-    order_scan_kernel(int* __restrict__ hist, int64_t L) {
-  __shared__ int warp_sums[kScanThreads / 32];
+// The keys of rows r .. r + 3 (r and N multiples of 4, the map 4-byte
+// aligned): one 4-byte load a slot and group.
+__device__ __forceinline__ void row_keys4(
+    const unsigned char* __restrict__ masks,
+    const unsigned char* __restrict__ patho, int64_t r, int64_t N,
+    int (&key)[4]) {
+  uint32_t used[kGroups];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const unsigned char* m = masks + (int64_t)g * 3 * N + r;
+    used[g] = ld_u32(m) | ld_u32(m + N) | ld_u32(m + 2 * N) |
+              ld_u32(patho + (int64_t)g * N + r);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int k = 0;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+      if ((used[g] >> (8 * j)) & 0xffu) k |= 1 << g;
+    key[j] = k;
+  }
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// The int at `local` (this CTA's shared address) in CTA `rank`'s shared
+// memory.
+__device__ __forceinline__ int ld_cluster_s32(uint32_t local,
+                                              uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// The last key whose first place is at or before p (a key with rows).
+__device__ __forceinline__ int key_at(const int* __restrict__ start,
+                                      int64_t p) {
+  int lo = 0, hi = kKeys - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (start[mid] <= p)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Shared memory: the warps' counts, then places (kWarps x kKeys int), the
+// CTA's histogram (read by its peers), each key's first place and count
+// in the map, the scan's warp sums, then the keys (key_rows uint16).
+constexpr int kSmemInts = kWarps * kKeys + 3 * kKeys + kWarps;
+static_assert(kSmemInts % 4 == 0, "the keys start 16-byte aligned");
+
+__global__ void __launch_bounds__(kThreads)
+    grouped_order_kernel(const __grid_constant__ OrderMaps maps,
+                         int* __restrict__ order_buf,
+                         int* __restrict__ tiles_buf, int key_rows) {
+  extern __shared__ __align__(16) int smem[];
+  int* cnt = smem;
+  int* hist = cnt + kWarps * kKeys;
+  int* start = hist + kKeys;
+  int* total = start + kKeys;
+  int* wsum = total + kKeys;
+  unsigned short* keys = reinterpret_cast<unsigned short*>(smem + kSmemInts);
+
+  const int c = (int)cluster_size();
+  const int rank = (int)cluster_rank();
+  const OrderMap& m = maps.map[blockIdx.x / c];
+  const int64_t N = m.n;
+  const unsigned char* __restrict__ masks = m.masks;
+  const unsigned char* __restrict__ patho = m.patho;
+  int* __restrict__ order = order_buf + m.order;
+  int* __restrict__ tiles = tiles_buf + m.tiles;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t per = (L + kScanThreads - 1) / kScanThreads;
-  const int64_t lo = tid * per, hi = lo + per < L ? lo + per : L;
-  int sum = 0;
-  for (int64_t i = lo; i < hi; ++i) sum += hist[i];
-  int incl = sum;  // inclusive scan over the warp
+
+  // 1. this CTA's rows, their keys and the warps' histograms
+  const int64_t share = ((N + c - 1) / c + 31) / 32 * 32;
+  const int64_t lo = min(N, (int64_t)rank * share);
+  const int64_t rows = min(N, lo + share) - lo;
+  const bool in_smem = rows <= key_rows;
+  for (int e = tid; e < kWarps * kKeys; e += kThreads) cnt[e] = 0;
+  if (in_smem) {
+    const bool vec = (N & 3) == 0 &&
+                     (((uintptr_t)masks | (uintptr_t)patho) & 3) == 0;
+    if (vec) {  // lo and rows are multiples of 4 too
+      for (int64_t i = 4 * (int64_t)tid; i < rows; i += 4 * kThreads) {
+        int k[4];
+        row_keys4(masks, patho, lo + i, N, k);
+        *reinterpret_cast<uint2*>(keys + i) =
+            make_uint2((uint32_t)k[0] | (uint32_t)k[1] << 16,
+                       (uint32_t)k[2] | (uint32_t)k[3] << 16);
+      }
+    } else {
+      for (int64_t i = tid; i < rows; i += kThreads)
+        keys[i] = (unsigned short)row_key(masks, patho, lo + i, N);
+    }
+  }
+  __syncthreads();
+  const int64_t run = ((rows + kWarps - 1) / kWarps + 31) / 32 * 32;
+  const int64_t w_lo = lo + min(rows, warp * run);
+  const int64_t w_hi = lo + min(rows, (warp + 1) * run);
+  int* mine = cnt + warp * kKeys;
+  for (int64_t r0 = w_lo; r0 < w_hi; r0 += 32) {
+    const int64_t r = r0 + lane;
+    const bool valid = r < w_hi;
+    const int key = !valid ? kKeys + lane  // alone if not
+                    : in_smem ? (int)keys[r - lo]
+                              : row_key(masks, patho, r, N);
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    if (valid && lane == __ffs(peers) - 1) mine[key] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  const int k = tid;  // a thread a key from here to the scan
+  {
+    int sum = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int n = cnt[w * kKeys + k];
+      cnt[w * kKeys + k] = sum;
+      sum += n;
+    }
+    hist[k] = sum;
+  }
+  cluster_sync();
+
+  // 2. the key's rows in the map and in lower-ranked CTAs, then its first
+  // place (an exclusive scan over the keys)
+  int tot = 0, below = 0;
+  for (int q = 0; q < c; ++q) {
+    const int v = q == rank ? hist[k] : ld_cluster_s32(smem_u32(hist + k), q);
+    tot += v;
+    below += q < rank ? v : 0;
+  }
+  int incl = tot;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int v = __shfl_up_sync(0xffffffffu, incl, d);
     if (lane >= d) incl += v;
   }
-  if (lane == 31) warp_sums[warp] = incl;
+  if (lane == 31) wsum[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int w = warp_sums[lane];
+    int s = lane < kWarps ? wsum[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += v;
+      const int v = __shfl_up_sync(0xffffffffu, s, d);
+      if (lane >= d) s += v;
     }
-    warp_sums[lane] = w;  // inclusive over warps
+    if (lane < kWarps) wsum[lane] = s;  // inclusive over warps
   }
   __syncthreads();
-  int run = incl - sum + (warp > 0 ? warp_sums[warp - 1] : 0);
-  for (int64_t i = lo; i < hi; ++i) {
-    const int v = hist[i];
-    hist[i] = run;
-    run += v;
-  }
-}
+  const int first = incl - tot + (warp > 0 ? wsum[warp - 1] : 0);
+  start[k] = first;
+  total[k] = tot;
+  for (int w = 0; w < kWarps; ++w) cnt[w * kKeys + k] += first + below;
+  __syncthreads();
 
-__global__ void __launch_bounds__(kPlaceWarps * 32)
-    order_place_kernel(const unsigned short* __restrict__ keys,
-                       const int* __restrict__ hist, int64_t N_out, int nseg,
-                       int* __restrict__ order, int* __restrict__ tiles) {
-  __shared__ int cnt[kPlaceWarps][kKeys];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < kPlaceWarps * kKeys; e += kPlaceWarps * 32)
-    cnt[e / kKeys][e % kKeys] = 0;
-  __syncthreads();
-  const int64_t r0 = (int64_t)blockIdx.x * kSegRows + warp * 128;
-  for (int c = 0; c < 4; ++c) {
-    const int64_t r = r0 + 32 * c + lane;
-    if (r < N_out) atomicAdd(&cnt[warp][keys[r]], 1);
-  }
-  __syncthreads();
-  for (int k = tid; k < kKeys; k += kPlaceWarps * 32) {
-    int base = hist[(int64_t)k * nseg + blockIdx.x];
-    for (int w = 0; w < kPlaceWarps; ++w) {
-      const int n = cnt[w][k];
-      cnt[w][k] = base;
-      base += n;
-    }
-  }
-  __syncthreads();
-  const unsigned below = (1u << lane) - 1u;
-  for (int c = 0; c < 4; ++c) {
-    const int64_t r = r0 + 32 * c + lane;
-    const bool valid = r < N_out;
-    const int key = valid ? (int)keys[r] : kKeys + lane;  // alone if not
+  // 3. place the rows: warps in row order, 32 rows a step
+  const unsigned lower = (1u << lane) - 1u;
+  for (int64_t r0 = w_lo; r0 < w_hi; r0 += 32) {
+    const int64_t r = r0 + lane;
+    const bool valid = r < w_hi;
+    const int key = !valid ? kKeys + lane
+                    : in_smem ? (int)keys[r - lo]
+                              : row_key(masks, patho, r, N);
     const unsigned peers = __match_any_sync(0xffffffffu, key);
-    if (valid) {
-      const int64_t pos = cnt[warp][key] + __popc(peers & below);
-      order[pos] = (int)r;
-      atomicOr(&tiles[pos / kTileRows], key);
-    }
+    if (valid) order[mine[key] + __popc(peers & lower)] = (int)r;
     __syncwarp();
-    if (valid && lane == 31 - __clz(peers))  // the group's last lane
-      cnt[warp][key] += __popc(peers);
+    if (valid && lane == 31 - __clz(peers))  // the key's last lane
+      mine[key] += __popc(peers);
     __syncwarp();
   }
+
+  // 4. this CTA's share of the tiles, from the keys' places
+  const int64_t n_tiles = (N + kTileRows - 1) / kTileRows;
+  const int64_t t_share = (n_tiles + c - 1) / c;
+  const int64_t t_hi = min(n_tiles, (int64_t)(rank + 1) * t_share);
+  for (int64_t t = (int64_t)rank * t_share + tid; t < t_hi; t += kThreads) {
+    const int64_t p0 = t * kTileRows;
+    const int64_t p1 = min(N, p0 + kTileRows) - 1;
+    const int k1 = key_at(start, p1);
+    int mask = 0;
+    for (int j = key_at(start, p0); j <= k1; ++j)
+      if (total[j] > 0) mask |= j;
+    tiles[t] = mask;
+  }
+  cluster_sync();  // no CTA leaves while a peer may read its histogram
 }
 
 }  // namespace
 
-// The row order of a grouped map with N_out rows: masks (9, 3, N_out) and
-// patho (9, N_out) bool bytes -> order (N_out,) int32 (rows by used-group
-// mask, stable) and tiles (ceil(N_out / 64),) int32 (each 64-row tile's
-// groups); scratch keys (N_out,) int16 and hist (512 ceil(N_out / 1024),)
-// int32 from the caller. Three launches.
-UMR_EXPORT int umr_grouped_row_order(const unsigned char* masks,
-                                     const unsigned char* patho, void* keys,
-                                     int* hist, int* order, int* tiles,
-                                     long long N_out, void* stream) {
-  if (N_out < 1 || N_out >= (1ll << 31) - kSegRows)
+// The row orders of `count` (1 to kMaxMaps) grouped maps in one launch:
+// map i has masks[i] (9, 3, n[i]) and patho[i] (9, n[i]) bool bytes, 1 <=
+// n[i] < 2^31 - 1024 rows; its order (n[i] int32: rows by used-group
+// mask, stable) goes to `order` after the earlier maps' orders, its tiles
+// (ceil(n[i] / 64) int32: each 64-row tile's groups) to `tiles` after
+// theirs. A cluster of `cluster` (1 to kMaxCluster) CTAs a map.
+UMR_EXPORT int umr_grouped_row_order(const void* const* masks,
+                                     const void* const* patho,
+                                     const long long* n, int count,
+                                     int* order, int* tiles, int cluster,
+                                     void* stream) {
+  if (count < 1 || count > kMaxMaps || cluster < 1 || cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nseg = (int)((N_out + kSegRows - 1) / kSegRows);
-  const int64_t n_tiles = (N_out + kTileRows - 1) / kTileRows;
-  unsigned short* k16 = static_cast<unsigned short*>(keys);
-  order_count_kernel<<<nseg, kCountThreads, 0, st>>>(masks, patho, N_out,
-                                                     nseg, k16, hist, tiles,
-                                                     n_tiles);
-  order_scan_kernel<<<1, kScanThreads, 0, st>>>(hist,
-                                                (int64_t)kKeys * nseg);
-  order_place_kernel<<<nseg, kPlaceWarps * 32, 0, st>>>(k16, hist, N_out,
-                                                        nseg, order, tiles);
-  return static_cast<int>(cudaGetLastError());
+  OrderMaps maps = {};
+  long long o = 0, t = 0, max_share = 0;
+  for (int i = 0; i < count; ++i) {
+    if (n[i] < 1 || n[i] >= kMaxRows) return (int)cudaErrorInvalidValue;
+    maps.map[i] = {static_cast<const unsigned char*>(masks[i]),
+                   static_cast<const unsigned char*>(patho[i]), n[i], o, t};
+    o += n[i];
+    t += (n[i] + kTileRows - 1) / kTileRows;
+    const long long share = ((n[i] + cluster - 1) / cluster + 31) / 32 * 32;
+    max_share = share > max_share ? share : max_share;
+  }
+  const int key_rows = (int)(max_share < kKeyRows ? max_share : kKeyRows);
+  const size_t smem =
+      sizeof(int) * kSmemInts + sizeof(unsigned short) * ((key_rows + 7) & ~7);
+  auto kernel = grouped_order_kernel;
+  int code = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (code == 0 && cluster > 8)
+    code = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (code != 0) return code;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(count * cluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  code = (int)cudaLaunchKernelEx(&cfg, kernel, maps, order, tiles, key_rows);
+  return code != 0 ? code : (int)cudaGetLastError();
 }

@@ -47,6 +47,16 @@
 //   with per-pair pointer offsets. The wrapper's plan gives each pair
 //   fewer segments as B grows (about two blocks an SM in all); a pair's
 //   answer is exact whatever its segments, so it equals the B = 1 call.
+// - The feature transfer's row copy (umr_nn1_copy_rows): the merge kernel
+//   takes an epilogue that, once warp 0 has its 32 queries' winners,
+//   copies the winners' rows of the pair's table (fp32, C columns; zeros
+//   where the query is masked) with the whole block, 16 bytes a thread and
+//   step where C and the strides allow it. Pair b reads pair b's table at
+//   its own pointer offset, so a strided (B, N, C) view needs no copy.
+//   What it takes off the path: the mask launch (a `where`), the pair
+//   offsets of a flattened table and the gather_rows launch that followed
+//   the search (tools/exp_gather2.py `pg`'s gather at feat_to_raw); it
+//   adds the rows' bytes (about 0.5 MB a 4096 x 32 call) to the merge.
 // Tensor cores, wgmma and TMA do not apply: the expanded |q|^2 + |p|^2 -
 // 2 q.p form would change the argmin on near-ties and break exactness
 // against the JAX package.
@@ -162,17 +172,24 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // 32 queries a block: warp w takes the w-th run of segments in order
-// (strict `<`), then warp 0 takes the runs in order.
+// (strict `<`), then warp 0 takes the runs in order. COPY: instead of the
+// index, the block copies each query's winning row of the pair's table
+// (a zero row where q_mask is false) into out_rows, 16 bytes a thread and
+// step where the rows allow it.
+template <bool COPY>
 __global__ void __launch_bounds__(32 * kMergeWarps)
     nn1_merge_kernel(const float* __restrict__ part_d2,
                      const int32_t* __restrict__ part_idx,
-                     int64_t* __restrict__ out, int M, int S) {
+                     int64_t* __restrict__ out, int M, int S,
+                     const uint8_t* __restrict__ q_mask,
+                     const float* __restrict__ table, int64_t pair_stride,
+                     int64_t row_stride, int C, float* __restrict__ out_rows) {
   __shared__ float run_d2[kMergeWarps][32];
   __shared__ int run_idx[kMergeWarps][32];
+  __shared__ int win[32];
   const int64_t pair = blockIdx.y;
   part_d2 += pair * S * M;
   part_idx += pair * S * M;
-  out += pair * M;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int q = (int)blockIdx.x * 32 + lane;
   const int qi = min(q, M - 1);
@@ -196,15 +213,50 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
   run_d2[w][lane] = best;
   run_idx[w][lane] = best_i;
   __syncthreads();
-  if (w != 0 || q >= M) return;
+  if (w == 0 && q < M) {
 #pragma unroll
-  for (int r = 1; r < kMergeWarps; ++r) {
-    if (run_d2[r][lane] < best) {
-      best = run_d2[r][lane];
-      best_i = run_idx[r][lane];
+    for (int r = 1; r < kMergeWarps; ++r) {
+      if (run_d2[r][lane] < best) {
+        best = run_d2[r][lane];
+        best_i = run_idx[r][lane];
+      }
+    }
+    if (!COPY) out[pair * M + qi] = best_i;
+  }
+  if (!COPY) return;
+  // the epilogue: the block's (up to) 32 rows of C floats
+  if (w == 0) win[lane] = q < M && q_mask[pair * M + qi] ? best_i : -1;
+  __syncthreads();
+  const int nq = min(32, M - (int)blockIdx.x * 32);
+  const float* tab = table + pair * pair_stride;
+  float* dst = out_rows + (pair * M + (int64_t)blockIdx.x * 32) * C;
+  const bool vec = (C & 3) == 0 && (row_stride & 3) == 0 &&
+                   (pair_stride & 3) == 0 &&
+                   (((uintptr_t)table | (uintptr_t)out_rows) & 15) == 0;
+  if (vec) {
+    const int pieces = C >> 2;
+    for (int e = threadIdx.x; e < nq * pieces; e += 32 * kMergeWarps) {
+      const int j = e / pieces, c4 = (e - j * pieces) * 4;
+      const int src = win[j];
+      const float4 v =
+          src >= 0 ? *reinterpret_cast<const float4*>(tab + src * row_stride +
+                                                      c4)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dst + (int64_t)j * C + c4) = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < nq * C; e += 32 * kMergeWarps) {
+      const int j = e / C, col = e - j * C;
+      const int src = win[j];
+      dst[(int64_t)j * C + col] = src >= 0 ? tab[src * row_stride + col] : 0.f;
     }
   }
-  out[qi] = best_i;
+}
+
+bool bad_plan(int B, int M, int N, int S, int seg_len) {
+  return B <= 0 || B > 65535 || M <= 0 || N <= 0 || S <= 0 || S > 65535 ||
+         seg_len <= 0 || (int64_t)(S - 1) * seg_len >= N ||
+         (int64_t)S * seg_len < N;
 }
 
 }  // namespace
@@ -218,16 +270,40 @@ UMR_EXPORT int umr_nn1_argmin(const float* q, const float* p,
                               int64_t* out, int B, int M, int N, int S,
                               int seg_len, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || B > 65535 || M <= 0 || N <= 0 || S <= 0 || S > 65535 ||
-      seg_len <= 0 || (int64_t)(S - 1) * seg_len >= N ||
-      (int64_t)S * seg_len < N)
+  if (bad_plan(B, M, N, S, seg_len))
     return static_cast<int>(cudaErrorInvalidValue);
   float* part_d2 = reinterpret_cast<float*>(scratch);
   int32_t* part_idx = scratch + (int64_t)B * S * M;
   const dim3 grid((M + kThreads * kQ - 1) / (kThreads * kQ), S, B);
   nn1_segment_kernel<<<grid, kThreads, 0, st>>>(q, p, mask, part_d2, part_idx,
                                                 M, N, seg_len);
-  nn1_merge_kernel<<<dim3((M + 31) / 32, B), 32 * kMergeWarps, 0, st>>>(
-      part_d2, part_idx, out, M, S);
+  nn1_merge_kernel<false><<<dim3((M + 31) / 32, B), 32 * kMergeWarps, 0, st>>>(
+      part_d2, part_idx, out, M, S, nullptr, nullptr, 0, 0, 0, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same search, and in place of the indices the winners' rows: out_rows
+// (B,M,C) f32, row m of pair b = table[b][idx(b, m)] where q_mask[b][m],
+// else zeros; table rows C floats, row_stride apart, pair b's table at
+// table + b pair_stride (elements). Two launches, as umr_nn1_argmin.
+UMR_EXPORT int umr_nn1_copy_rows(const float* q, const uint8_t* q_mask,
+                                 const float* p, const uint8_t* mask,
+                                 const float* table, long long pair_stride,
+                                 long long row_stride, int C,
+                                 int32_t* scratch, float* out_rows, int B,
+                                 int M, int N, int S, int seg_len,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_plan(B, M, N, S, seg_len) || C <= 0 || row_stride < C ||
+      pair_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* part_d2 = reinterpret_cast<float*>(scratch);
+  int32_t* part_idx = scratch + (int64_t)B * S * M;
+  const dim3 grid((M + kThreads * kQ - 1) / (kThreads * kQ), S, B);
+  nn1_segment_kernel<<<grid, kThreads, 0, st>>>(q, p, mask, part_d2, part_idx,
+                                                M, N, seg_len);
+  nn1_merge_kernel<true><<<dim3((M + 31) / 32, B), 32 * kMergeWarps, 0, st>>>(
+      part_d2, part_idx, nullptr, M, S, q_mask, table, pair_stride,
+      row_stride, C, out_rows);
   return static_cast<int>(cudaGetLastError());
 }

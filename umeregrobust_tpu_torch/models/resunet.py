@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from umeregrobust_tpu_torch.devices import resolve_device
-from umeregrobust_tpu_torch.ops.cuda_grouped import with_row_order
+from umeregrobust_tpu_torch.ops.cuda_grouped import with_row_orders
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, pack_code, sorted_join_rank)
 from umeregrobust_tpu_torch.ops.sparse import (
@@ -308,8 +308,8 @@ def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
     the rows hold the 2B clouds of B pairs (batch index b of pair b // 2)
     and `capacities` hold per pair: each pair's levels keep the voxels its
     own pyramid keeps, and level i has B x capacities[i] rows. Every
-    GroupedMap carries its row order (ops/cuda_grouped.with_row_order: on
-    the card one grouped_row_order call a map, 13 for ResUNetSmall2)."""
+    GroupedMap carries its row order (ops/cuda_grouped.with_row_orders:
+    on the card one launch for all the maps, 13 for ResUNetSmall2)."""
     L = len(arch.channels)
     if len(capacities) != L:
         raise ValueError(f"{L} levels need {L} capacities, got "
@@ -327,18 +327,12 @@ def build_unet_geometry(coords: torch.Tensor, mask: torch.Tensor,
     enc_maps, block_maps, dec_maps, enc_g, block_g, dec_g = (
         _geometry_fast if fast else _geometry_generic)(levels, arch, ts)
     # each grouped map once (the stem's map is also level 0's block map)
-    # with the row order the grouped conv kernel reads it in; a map's
-    # adjoint is another of these maps
-    ordered: Dict[int, Any] = {}
-
-    def with_order(m):
-        if not isinstance(m, GroupedMap):
-            return m
-        if id(m) not in ordered:
-            ordered[id(m)] = with_row_order(m)
-        return ordered[id(m)]
-
-    enc_g, block_g, dec_g = ([with_order(m) for m in maps]
+    # with the row order the grouped conv kernel reads it in, all in one
+    # call; a map's adjoint is another of these maps
+    grouped = {id(m): m for maps in (enc_g, block_g, dec_g) for m in maps
+               if isinstance(m, GroupedMap)}
+    ordered = dict(zip(grouped, with_row_orders(list(grouped.values()))))
+    enc_g, block_g, dec_g = ([ordered.get(id(m), m) for m in maps]
                              for maps in (enc_g, block_g, dec_g))
     return {"levels": levels, "enc_maps": enc_maps, "block_maps": block_maps,
             "dec_maps": dec_maps, "enc_g": enc_g, "block_g": block_g,

@@ -36,6 +36,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "umr_nn1_argmin": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                        _INT, _VP],
+    "umr_nn1_copy_rows": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _VP, _VP,
+                          _INT, _INT, _INT, _INT, _INT, _VP],
     "umr_ume_moments": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                         _INT, _FLT, _INT, _VP, _VP],
     "umr_ume_moments_scratch": [_INT],
@@ -70,7 +72,7 @@ _SIGNATURES = {
                                 _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _VP],
     "umr_grouped_weight_tiles": [_VP, _VP, _INT, _INT, _INT, _INT, _VP],
-    "umr_grouped_row_order": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
+    "umr_grouped_row_order": [_VP, _VP, _VP, _INT, _VP, _VP, _INT, _VP],
     "umr_sparse_conv_grouped_wgrad": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _VP, _VP, _VP, _VP, _LL, _LL, _INT,
                                       _INT, _INT, _INT, _INT, _VP],

@@ -10,8 +10,9 @@ its cached bf16 weight tiles, and the plan it runs by.
 
 with each slot a zero row where its mask is off or its row lies outside
 [0, N_in) (ops/sparse.GroupedMap). bf16 operands: the map's rows in the
-order of their used-group masks (`grouped_row_order`: the pyramid builds
-it with each map, this wrapper for a map without one), 64-row tiles that
+order of their used-group masks (`grouped_row_orders`: the pyramid
+builds every map's in one launch, this wrapper a map's own where it has
+none), 64-row tiles that
 stage and multiply only the groups their mask names, the groups split
 over a cluster of 1-4 CTAs fixed by Cin, each CTA one warpgroup on
 wgmma with a producer warp staging windows by cp.async and weight tiles
@@ -36,8 +37,9 @@ second launch; Cin <= 2 a packed stem; `wgrad_plan` mirrors it).
 """
 from __future__ import annotations
 
+import ctypes
 from collections import OrderedDict
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,8 +47,9 @@ from umeregrobust_tpu_torch.ops import _build
 
 __all__ = ["sparse_conv_grouped_kernel", "sparse_conv_grouped_dx",
            "sparse_conv_grouped_wgrad", "grouped_row_order",
-           "grouped_row_order_plain", "row_keys_plain", "tiles_of_order",
-           "with_row_order", "weight_tiles",
+           "grouped_row_order_plain", "grouped_row_orders",
+           "grouped_row_orders_plain", "row_keys_plain", "tiles_of_order",
+           "with_row_order", "with_row_orders", "weight_tiles",
            "weight_tiles_plain", "clear_weight_tiles",
            "grouped_plan", "GroupedPlan", "wgrad_plan", "WgradPlan",
            "wgrad_units_plain",
@@ -68,9 +71,13 @@ _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 _MMA_ROWS, _MMA_K, _MMA_STAGES = 64, 64, 4
 _MAX_CLUSTER, _STEPS_PER_CTA = 4, 128
 _FMA_ROWS, _FMA_COLS, _FMA_K = 64, 64, 16
-# the row order's tile and segment (grouped_row_order.cu kTileRows,
-# kSegRows, kKeys)
-_ORDER_TILE, _ORDER_SEG, _ORDER_KEYS = 64, 1024, 512
+# the row order's kernel (grouped_row_order.cu kTileRows, kKeys,
+# kMaxMaps, kMaxCluster, kMaxRows) and the cluster size it runs with (16
+# was the fastest of 4, 8 and 16 at every pyramid on the H100:
+# grouped_sweep.py --order)
+_ORDER_TILE, _ORDER_KEYS, _ORDER_MAX_MAPS = 64, 512, 16
+_ORDER_MAX_CLUSTER, _ORDER_MAX_ROWS = 16, 2 ** 31 - 1024
+_ORDER_CLUSTER = 16
 # the weight gradient's fp32 FMA tiles (csrc kWM, kWN, kWR, kWSteps) and
 # its bf16 plan (kUnitRows, kAtom, kMaxAtoms1 / 2, kMaxStages, kStemCin,
 # kStemCtas, kListChunk, kYPad, kSumThreads, kMaxSmem)
@@ -348,49 +355,93 @@ def grouped_row_order_plain(gmap) -> Tuple[torch.Tensor, torch.Tensor]:
     return order, tiles_of_order(gmap, order)
 
 
-def grouped_row_order(gmap) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The order the bf16 kernel reads a map's output rows in: (order
-    (N_out,) int32, the rows sorted by their 9-bit used-group mask,
-    stable; tiles (ceil(N_out / 64),) int32, each 64-row tile's groups).
-    On a CUDA map one call of csrc/grouped_row_order.cu (three launches:
-    a counting sort), counted in LAUNCHES["grouped_row_order"]; a CPU
-    map takes the plain version and counts nothing."""
-    dev = gmap.masks.device
+def grouped_row_orders_plain(maps) -> List[Tuple[torch.Tensor,
+                                                  torch.Tensor]]:
+    """The plain version of `grouped_row_orders`: each map's
+    `grouped_row_order_plain`, map by map."""
+    return [grouped_row_order_plain(m) for m in maps]
+
+
+def grouped_row_orders(maps) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The row orders of a list of grouped maps, one (order, tiles) a map
+    as `grouped_row_order_plain` gives it. On CUDA maps ONE launch of
+    csrc/grouped_row_order.cu for the whole list (a thread-block cluster
+    of _ORDER_CLUSTER CTAs a map, the maps' descriptors in the kernel's
+    parameters), counted once in LAUNCHES["grouped_row_order"]; every
+    order is a view into one int32 buffer and every tiles into another.
+    At most _ORDER_MAX_MAPS maps a call on any device (every arch's
+    pyramid fits): more raise. A map given twice gets its result twice.
+    CPU maps take the plain version and count nothing."""
+    maps = list(maps)
+    if len(maps) > _ORDER_MAX_MAPS:
+        raise ValueError(f"grouped_row_orders takes at most "
+                         f"{_ORDER_MAX_MAPS} maps a call, got {len(maps)}")
+    if not maps:
+        return []
+    dev = maps[0].masks.device
     if dev.type == "cpu":
-        return grouped_row_order_plain(gmap)
-    N_out = gmap.masks.shape[-1]
-    _build.require(gmap.masks, "masks", torch.bool, (_GROUPS, 3, N_out), dev)
-    _build.require(gmap.patho, "patho", torch.bool, (_GROUPS, N_out), dev)
-    if N_out >= 2 ** 31 - _ORDER_SEG:
-        raise ValueError(f"grouped_row_order: {N_out} rows")
+        return grouped_row_orders_plain(maps)
+    ns = []
+    for m in maps:
+        N_out = m.masks.shape[-1]
+        _build.require(m.masks, "masks", torch.bool, (_GROUPS, 3, N_out),
+                       dev)
+        _build.require(m.patho, "patho", torch.bool, (_GROUPS, N_out), dev)
+        if N_out >= _ORDER_MAX_ROWS:
+            raise ValueError(f"grouped_row_order: {N_out} rows")
+        ns.append(N_out)
     lib = _build.load_library()  # raises if it cannot be built
     if dev.type != "cuda":
         raise ValueError(f"grouped_row_order runs on CUDA or CPU tensors, "
                          f"not {dev}")
-    order = torch.empty(N_out, dtype=torch.int32, device=dev)
-    tiles = torch.empty(-(-N_out // _ORDER_TILE), dtype=torch.int32,
-                        device=dev)
-    if N_out == 0:
-        return order, tiles
-    keys = torch.empty(N_out, dtype=torch.int16, device=dev)
-    hist = torch.empty(_ORDER_KEYS * -(-N_out // _ORDER_SEG),
-                       dtype=torch.int32, device=dev)
+    n_tiles = [-(-n // _ORDER_TILE) for n in ns]
+    order = torch.empty(sum(ns), dtype=torch.int32, device=dev)
+    tiles = torch.empty(sum(n_tiles), dtype=torch.int32, device=dev)
+    out, o, t = [], 0, 0
+    for n, nt in zip(ns, n_tiles):
+        out.append((order[o:o + n], tiles[t:t + nt]))
+        o, t = o + n, t + nt
+    live = [(m, n) for m, n in zip(maps, ns) if n > 0]  # empty: no rows
+    if not live:
+        return out
+    k = len(live)
     code = lib.umr_grouped_row_order(
-        gmap.masks.data_ptr(), gmap.patho.data_ptr(), keys.data_ptr(),
-        hist.data_ptr(), order.data_ptr(), tiles.data_ptr(), N_out,
+        (ctypes.c_void_p * k)(*(m.masks.data_ptr() for m, _ in live)),
+        (ctypes.c_void_p * k)(*(m.patho.data_ptr() for m, _ in live)),
+        (ctypes.c_longlong * k)(*(n for _, n in live)), k,
+        order.data_ptr(), tiles.data_ptr(), _ORDER_CLUSTER,
         _build.stream_of(dev))
     _build.check(lib, code, "grouped_row_order")
     LAUNCHES["grouped_row_order"] += 1
-    return order, tiles
+    return out
+
+
+def grouped_row_order(gmap) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The order the bf16 kernel reads a map's output rows in: (order
+    (N_out,) int32, the rows sorted by their 9-bit used-group mask,
+    stable; tiles (ceil(N_out / 64),) int32, each 64-row tile's groups).
+    `grouped_row_orders` of the one map: on a CUDA map one launch,
+    counted in LAUNCHES["grouped_row_order"]; a CPU map takes the plain
+    version and counts nothing."""
+    return grouped_row_orders([gmap])[0]
 
 
 def with_row_order(gmap):
     """The map with its row order and tiles (`grouped_row_order`), made
     once; a map that carries them comes back as it is."""
-    if gmap.order is not None:
-        return gmap
-    order, tiles = grouped_row_order(gmap)
-    return gmap._replace(order=order, tiles=tiles)
+    return with_row_orders([gmap])[0]
+
+
+def with_row_orders(maps) -> list:
+    """Each map with its row order and tiles, those it lacks made by one
+    `grouped_row_orders` call (one launch on the card); a map that
+    carries them comes back as it is."""
+    maps = list(maps)
+    todo = [i for i, m in enumerate(maps) if m.order is None]
+    for i, (order, tiles) in zip(todo, grouped_row_orders(
+            [maps[i] for i in todo])):
+        maps[i] = maps[i]._replace(order=order, tiles=tiles)
+    return maps
 
 
 def weight_tiles_plain(weights: torch.Tensor, dx_taps: int = 0

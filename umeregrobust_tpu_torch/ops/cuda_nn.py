@@ -6,7 +6,9 @@ direct squared differences summed over c = 0, 1, 2; ties go to the first
 index; masked rows are parked at 1e9 and never win. A leading pair axis
 (B problems of one shape) is optional and costs no extra launch. On a CPU
 tensor the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises. `nn1_copy_rows` is the feature transfer's form: the
+same search, and the winners' rows of a table copied by the kernel's
+merge in place of the indices.
 """
 from __future__ import annotations
 
@@ -18,10 +20,14 @@ import torch
 from umeregrobust_tpu_torch.ops import _build
 from umeregrobust_tpu_torch.ops.neighbors import sqdist3
 
-__all__ = ["nn1_argmin", "nn1_argmin_plain", "launch_plan", "forced_cases",
-           "LAUNCHES", "QUERIES_PER_BLOCK", "TILE", "STEP"]
+__all__ = ["nn1_argmin", "nn1_argmin_plain", "nn1_copy_rows",
+           "nn1_copy_rows_plain", "launch_plan", "forced_cases", "LAUNCHES",
+           "LAUNCHES_COPY", "QUERIES_PER_BLOCK", "TILE", "STEP"]
 
-LAUNCHES = 0  # calls of nn1_argmin that launched the kernel (2 launches each)
+# calls that launched the kernels (nn1_argmin and nn1_copy_rows, 2 launches
+# each), and of those the nn1_copy_rows calls (the merge's row copy)
+LAUNCHES = 0
+LAUNCHES_COPY = 0
 
 # the kernel's shape (csrc/nn1_argmin.cu kThreads x kQ, kTile, kStep)
 QUERIES_PER_BLOCK = 128 * 4  # a block's queries: 128 threads, 4 each
@@ -97,6 +103,79 @@ def nn1_argmin(queries: torch.Tensor, points: torch.Tensor,
         _build.stream_of(dev))
     _build.check(lib, code, "nn1_argmin")
     LAUNCHES += 1
+    return out
+
+
+def nn1_copy_rows_plain(queries: torch.Tensor, q_mask: torch.Tensor,
+                        points: torch.Tensor, p_mask: torch.Tensor,
+                        table: torch.Tensor) -> torch.Tensor:
+    """The plain version of `nn1_copy_rows`: `nn1_argmin_plain`, then each
+    query's winning row of (its pair's) table, a zero row where q_mask is
+    false."""
+    idx = nn1_argmin_plain(queries, points, p_mask)
+    rows = torch.take_along_dim(table, idx[..., None], dim=-2)
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    return torch.where(q_mask[..., None], rows, zero)
+
+
+def nn1_copy_rows(queries: torch.Tensor, q_mask: torch.Tensor,
+                  points: torch.Tensor, p_mask: torch.Tensor,
+                  table: torch.Tensor) -> torch.Tensor:
+    """The feature transfer: ([B,] M, C), row m the row of `table` ([B,] N,
+    C) f32 at the nearest valid point of query m (`nn1_argmin`), a zero
+    row where q_mask ([B,] M) bool is false; with a leading pair axis pair
+    b's queries search pair b's points and read pair b's table. On CUDA
+    tensors the nn1_argmin kernels, the rows copied by the merge kernel
+    (two launches for the batch; the table may be a strided view whose
+    rows are contiguous), counted in LAUNCHES and LAUNCHES_COPY. The copy
+    carries no gradient: a table that would take one raises."""
+    global LAUNCHES, LAUNCHES_COPY
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise ValueError("nn1_copy_rows carries no gradient to its table; "
+                         "call it under torch.no_grad() or detach the table")
+    if queries.device.type == "cpu":
+        return nn1_copy_rows_plain(queries, q_mask, points, p_mask, table)
+    dev = queries.device
+    lib = _build.load_library()  # cached; raises if it cannot be built
+    if dev.type != "cuda":
+        raise ValueError(f"nn1_copy_rows runs on CUDA or CPU tensors, not "
+                         f"{dev}")
+    lead = tuple(queries.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("nn1_copy_rows takes at most one leading pair axis, "
+                         f"got queries of shape {tuple(queries.shape)}")
+    B = lead[0] if lead else 1
+    M, N = queries.shape[-2], points.shape[-2]
+    _build.require(queries, "queries", torch.float32, lead + (None, 3), dev)
+    _build.require(q_mask, "q_mask", torch.bool, lead + (M,), dev)
+    _build.require(points, "points", torch.float32, lead + (None, 3), dev)
+    _build.require(p_mask, "p_mask", torch.bool, lead + (N,), dev)
+    C = table.shape[-1] if table.dim() == len(lead) + 2 else 0
+    if (table.dtype != torch.float32 or table.device != dev
+            or tuple(table.shape) != lead + (N, C) or C == 0
+            or table.stride(-1) != 1 or table.stride(-2) < C):
+        raise ValueError(f"nn1_copy_rows takes an f32 table {lead + (N,)} x "
+                         f"C on {dev} with contiguous rows, got "
+                         f"{table.dtype} {tuple(table.shape)} strides "
+                         f"{table.stride()} on {table.device}")
+    if N == 0 or max(M, N) >= 2 ** 31 or not 1 <= B <= 65535:
+        raise ValueError(f"nn1_copy_rows takes 1 <= N < 2^31 reference "
+                         f"points, M < 2^31 queries and 1 <= B <= 65535 "
+                         f"pairs, got M={M}, N={N}, B={B}")
+    out = torch.empty(lead + (M, C), dtype=torch.float32, device=dev)
+    if M == 0:
+        return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, S, seg = launch_plan(M, N, sms, B)
+    scratch = torch.empty(2 * B * S * M, dtype=torch.int32, device=dev)
+    code = lib.umr_nn1_copy_rows(
+        queries.data_ptr(), q_mask.data_ptr(), points.data_ptr(),
+        p_mask.data_ptr(), table.data_ptr(), table.stride(0) if lead else 0,
+        table.stride(-2), C, scratch.data_ptr(), out.data_ptr(), B, M, N, S,
+        seg, _build.stream_of(dev))
+    _build.check(lib, code, "nn1_copy_rows")
+    LAUNCHES += 1
+    LAUNCHES_COPY += 1
     return out
 
 

@@ -7,8 +7,8 @@ forward: cloud c (pair c // 2, source or target) carries batch index c,
 so a single sparse pyramid holds them all, each pair's levels capped at
 its own capacity; k5/k7 layers and `conv_impl="scan"` models run the
 per-tap conv kernels. Then feature transfer to the correlator clouds
-(kernels nn1_argmin and gather_rows; with cfg.feat_copy_radius a
-dense-grid query and gather_rows), hypotheses (kernel
+(the nn1_argmin kernels, whose merge copies the rows; with
+cfg.feat_copy_radius a dense-grid query and gather_rows), hypotheses (kernel
 ume_moments_fused), scoring (kernel corr_scores_fused), the consensus
 gate and ICP, each stage once for all pairs. register_pair_e2e is the
 one-pair view of register_pairs_batched.

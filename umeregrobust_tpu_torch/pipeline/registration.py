@@ -38,7 +38,7 @@ import torch
 from umeregrobust_tpu_torch.core.ume import (
     estimate_rigid_from_ume, ume_pairwise_distance)
 from umeregrobust_tpu_torch.devices import resolve_device, to_device
-from umeregrobust_tpu_torch.ops.cuda_nn import nn1_argmin
+from umeregrobust_tpu_torch.ops.cuda_nn import nn1_copy_rows
 from umeregrobust_tpu_torch.ops.densegrid import (
     build_dense_grid, dense_nn_query)
 from umeregrobust_tpu_torch.ops.neighbors import (
@@ -204,14 +204,14 @@ def _sample_keypoints(pts, mask, n, generators, fixed, struct_boost=0.0,
 
 def copy_features_to_raw(raw_pts, raw_mask, sem_pts, sem_feat, sem_mask):
     """1-NN feature transfer from SEM grid points to correlator points
-    (reference evaluate.py:272-275) through the nn1_argmin kernel, over an
-    optional leading pair axis (one launch of each kernel for the batch)."""
-    idx = nn1_argmin(raw_pts.contiguous(), sem_pts.contiguous(),
-                     sem_mask.contiguous())
-    # a row copy through the gather_rows kernel; masked rows come out
-    # zero (= sem_feat[idx] * raw_mask for finite features)
-    return gather_padded(sem_feat, torch.where(raw_mask, idx,
-                                               torch.full_like(idx, -1)))
+    (reference evaluate.py:272-275) through the nn1_argmin kernels, the
+    rows copied by their merge (ops/cuda_nn.nn1_copy_rows), over an
+    optional leading pair axis (one launch of each kernel for the batch).
+    Masked rows come out zero (= sem_feat[idx] * raw_mask for finite
+    features). Serving only: the features carry no gradient here."""
+    return nn1_copy_rows(raw_pts.contiguous(), raw_mask.contiguous(),
+                         sem_pts.contiguous(), sem_mask.contiguous(),
+                         sem_feat)
 
 
 def copy_features_to_raw_grid(raw_pts, raw_mask, sem_pts, sem_feat,
