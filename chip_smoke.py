@@ -268,6 +268,19 @@ Phases (any failure ends the run with a non-zero exit):
      lookup ms and probe rounds; (f) the native host ops against numpy /
      scipy (quantize and nn_radius on the scan, a 2500 x 2500
      Hungarian);
+  5l. train_synthetic (phase_train_synthetic, one line a part): (a) the
+     synthetic pretraining CLI (cli/train_synthetic.main) in-process from
+     scratch at the tool's full width (B = 4, 8192 voxels a cloud, bf16,
+     128 UME keypoints of 512 neighbours at most), 8 scenes, 10 steps,
+     launch counts set to 0 just before it: every loss finite,
+     non-finite steps, ms a step after the first, launches and kernels a
+     step, peak memory; (b) --resume weights/synthetic_pretrain.pkl for 2
+     steps; (c) the new pickle through load_model, the nominal pair
+     registered (the verdict printed, not judged); (d) at the tool's
+     shapes: every grouped k3 layer's forward, dX and dW against its plain
+     version (one train_synthetic_grouped_layer line each), the row order
+     on the step's pyramid, gather_rows and gather_rows_backward at the
+     training UMEs' gather shape bit for bit;
   6. profile (only with --profile): the same pairs, seeds and config
      again under torch.profiler, with the grouped model (and with the
      plain version's grouped conv, "grouped_parent"), the
@@ -5508,6 +5521,252 @@ def phase_train(dev, t_start):
 
 
 # ---------------------------------------------------------------------------
+# phase 5l: the synthetic pretraining CLI (cli/train_synthetic.py, the port
+# of tools/train_synthetic.py) from scratch at the tool's full width
+SYNTH_ARGV = ["--batch", "4", "--pc-cap", "8192"]
+SYNTH_SCENES = 8  # two batches
+SYNTH_STEPS = 10
+SYNTH_RESUME_STEPS = 2
+# the tool's training UMEs: 128 keypoints, 512 neighbours at most, 64 at
+# least, r 5 m (cli/train_synthetic.train_config)
+SYNTH_UME = dict(num_samples=128, max_nn=512, min_nn=64, r=5.0)
+
+
+def synth_grouped_layers(dev, model, batch, caps):
+    """Every grouped k3 layer of one training forward of the tool's step
+    (`batch` on the card, the tool's capacities): the forward kernel, dX
+    (the forward kernel over the adjoint map; not the stem) and dW (a
+    seeded dY), each at bf16 against its plain version on the card (the
+    forward within GROUPED_LIMITS; dX and dW by grouped_bwd_check), with
+    each one's device time alone (CUDA graph); the pyramid's grouped maps
+    for the row order."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_grouped
+    from umeregrobust_tpu_torch.ops.cuda_grouped import (
+        sparse_conv_grouped_dx as grouped_dx, sparse_conv_grouped_wgrad)
+    from umeregrobust_tpu_torch.ops.sparse import (
+        sparse_conv_grouped_dx_plain, sparse_conv_grouped_plain,
+        sparse_conv_grouped_wgrad_plain)
+    from umeregrobust_tpu_torch.train.trainer import cloud_features
+
+    bf = torch.bfloat16
+    with PyramidMaps() as pyr:
+        layers = capture_grouped_layers(model, lambda: cloud_features(
+            model, batch, caps, bf, train=True))
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    for name, f, w, gmap, pairs, _, (adj, rev) in layers:
+        dy = torch.randn(gmap.center.shape[1], w.shape[2], generator=g,
+                         device=dev)
+        fwd = cuda_grouped.sparse_conv_grouped_kernel(f, w, gmap, None, bf)
+        ref = sparse_conv_grouped_plain(f, w, gmap, None, bf, pairs)
+        err, scale = float((fwd - ref).abs().max()), float(ref.abs().max())
+        del fwd, ref
+        checks = {"fwd": dict(
+            max_abs_err=err, scale=scale,
+            max_err_over_limit=err / max(GROUPED_LIMITS["bfloat16"] * scale,
+                                         1e-30),
+            ok=err <= GROUPED_LIMITS["bfloat16"] * scale)}
+        checks["dw"] = grouped_bwd_check(
+            lambda: sparse_conv_grouped_wgrad(f, dy, gmap, bf),
+            sparse_conv_grouped_wgrad_plain(f, dy, gmap, bf), bf)
+        need_dx = name != "conv1"  # the stem's input is the constant one
+        if need_dx:
+            checks["dx"] = grouped_bwd_check(
+                lambda: grouped_dx(dy, w, adj, rev, bf),
+                sparse_conv_grouped_dx_plain(dy, w, adj, rev, bf, pairs), bf)
+        rows.append(dict(
+            layer=name, cin=w.shape[1], cout=w.shape[2], rows_in=f.shape[0],
+            rows_out=gmap.center.shape[1], dx=need_dx, checks=checks,
+            ok=all(c["ok"] for c in checks.values()),
+            fwd_kernel_ms=graph_ms(
+                lambda: cuda_grouped.sparse_conv_grouped_kernel(
+                    f, w, gmap, None, bf), reps=3, inner=5),
+            dw_kernel_ms=graph_ms(
+                lambda: sparse_conv_grouped_wgrad(f, dy, gmap, bf), reps=3,
+                inner=5),
+            dx_kernel_ms=(graph_ms(lambda: grouped_dx(dy, w, adj, rev, bf),
+                                   reps=3, inner=5) if need_dx else 0.0)))
+    return rows, pyr.lists[0]
+
+
+def synth_gathers(dev, batch, n_pairs):
+    """gather_rows and gather_rows_backward at the tool's training UME
+    gathers (n_pairs pairs x 2 sides x 128 keypoints x 512 rows of an
+    (n_pairs x 8192, 32) fp32 table, ume_gather_indices): each against
+    its plain version on the CPU bit for bit, two launches identical, the
+    device's time alone (CUDA graph) and the bound (forward: each table
+    row some index names read once, every output row written, the
+    indices; backward: gather_backward_shape's bytes)."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_gather
+
+    idx, N = ume_gather_indices(batch, dev, **SYNTH_UME)
+    M, C = idx.shape[0], 32
+    g = torch.Generator(device="cpu").manual_seed(23)
+    table, d = torch.randn(N, C, generator=g), torch.randn(M, C, generator=g)
+    tc, dc = table.to(dev), d.to(dev)
+    ic = idx.cpu()
+    fwd = [cuda_gather.gather_rows(tc, idx) for _ in range(2)]
+    bwd = [cuda_gather.gather_rows_backward(dc, idx, N) for _ in range(2)]
+    want_f = cuda_gather.gather_rows_plain(table, ic)
+    want_b = cuda_gather.gather_rows_backward_plain(d, ic, N)
+    ok = (ic >= 0) & (ic < N)
+    n_valid, rows_read = int(ok.sum()), int(torch.unique(ic[ok]).numel())
+    shape = (f"{n_pairs} pairs x 2 sides x {SYNTH_UME['num_samples']} x "
+             f"{SYNTH_UME['max_nn']} = {M} rows ({n_valid} valid) of a "
+             f"({N}, {C}) fp32 table")
+    rows = {}
+    for name, got, want, fn, n_bytes in (
+            ("gather_rows", fwd, want_f,
+             lambda: cuda_gather.gather_rows(tc, idx),
+             (rows_read + M) * C * 4 + M * idx.element_size()),
+            ("gather_rows_backward", bwd, want_b,
+             lambda: cuda_gather.gather_rows_backward(dc, idx, N),
+             n_valid * C * 4 + M * idx.element_size() + N * C * 4)):
+        bit = bool(torch.equal(got[0].cpu(), want))
+        twice = bool(torch.equal(got[0], got[1]))
+        rows[name] = dict(
+            shape=shape, rows_read=rows_read, bit_equal_cpu_plain=bit,
+            two_launches_identical=twice,
+            max_abs_err=float((got[0].cpu() - want).abs().max()),
+            kernel_ms=graph_ms(fn, reps=5, inner=10),
+            bound_ms=bound_ms(n_bytes, n_valid * C if "back" in name
+                              else 0)[0], ok=bit and twice)
+    return rows
+
+
+def phase_train_synthetic(dev, t_start, pair, reg_cfg, caps_reg):
+    """Phase 5l, the synthetic pretraining CLI in-process:
+    (a) from scratch at the tool's full width (SYNTH_ARGV: B = 4, 8192
+    voxels a cloud, bf16, the tool's UME settings), SYNTH_SCENES scenes,
+    SYNTH_STEPS steps, launch counts set to 0 just before main and read
+    just after: every loss finite, non-finite steps, ms a step after the
+    first, launches and (one profiled step after the run) kernels a step,
+    peak memory; (b) --resume weights/synthetic_pretrain.pkl for
+    SYNTH_RESUME_STEPS steps; (c) (a)'s pickle through
+    models.weights.load_model, the nominal pair registered (verdict
+    printed; not a bar after so few steps); (d) the kernels at the
+    tool's shapes (synth_grouped_layers, the row order on the step's
+    pyramid, synth_gathers). Returns (summary, launch counts by path)."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from umeregrobust_tpu_torch.cli import train_synthetic
+    from umeregrobust_tpu_torch.models.resunet import ARCHS
+    from umeregrobust_tpu_torch.models.weights import load_model
+    from umeregrobust_tpu_torch.pipeline.e2e import register_pair_e2e
+    from umeregrobust_tpu_torch.train.trainer import _capacities
+
+    weights = os.path.join(ROOT, "weights", "synthetic_pretrain.pkl")
+    out, paths = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_synth_") as work:
+        # (a) from scratch
+        path = os.path.join(work, "scratch.pkl")
+        t0 = time.time()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            run = train_synthetic.main(SYNTH_ARGV + [
+                "--n-scenes", str(SYNTH_SCENES), "--steps", str(SYNTH_STEPS),
+                "--out", path])
+        torch.cuda.synchronize()
+        paths["train_synthetic"] = launch_counts()
+        losses = [m["total_loss"] for m in run.history]
+        out["scratch"] = dict(
+            argv=SYNTH_ARGV + ["--n-scenes", str(SYNTH_SCENES), "--steps",
+                               str(SYNTH_STEPS)],
+            seconds=time.time() - t0, batches=len(run.batches),
+            valid_voxels=run.batches[0]["src_mask"].sum(1).tolist(),
+            matches=run.batches[0]["match_mask"].sum(1).tolist(),
+            total_loss=losses,
+            metrics_last=run.history[-1],
+            nonfinite_steps=sum(m["nonfinite_grad"] for m in run.history),
+            first_step_s=run.first_step_s, ms_per_step=run.ms_per_step,
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            launches=paths["train_synthetic"],
+            launches_per_step={k: v / SYNTH_STEPS for k, v in
+                               paths["train_synthetic"].items()},
+            pickle=os.path.isfile(path),
+            profile=profile_step(run.trainer, run.batches[0]))
+        out["scratch"]["ok"] = (bool(np.all(np.isfinite(losses)))
+                                and out["scratch"]["pickle"])
+        emit({"phase": "train_synthetic", "part": "scratch",
+              **out["scratch"], "seconds_total": time.time() - t_start})
+        tr_cfg = run.trainer.cfg
+        model = run.trainer.model
+        batch = run.batches[0]
+        del run
+
+        # (d) the kernels at the tool's shapes
+        t0 = time.time()
+        rows, maps = synth_grouped_layers(
+            dev, model, batch, _capacities(tr_cfg, model.arch))
+        for r in rows:
+            emit({"phase": "train_synthetic_grouped_layer", **r})
+        order = grouped_order_row("train_synthetic_B4", maps)
+        del maps, model
+        gathers = synth_gathers(dev, batch, tr_cfg.batch_size)
+        dx_rows = [r for r in rows if r["dx"]]
+        out["kernels"] = dict(
+            grouped=dict(
+                layers=len(rows), dx_layers=len(dx_rows),
+                fwd_kernel_ms=sum(r["fwd_kernel_ms"] for r in rows),
+                dx_kernel_ms=sum(r["dx_kernel_ms"] for r in rows),
+                dw_kernel_ms=sum(r["dw_kernel_ms"] for r in rows),
+                fwd_max_err_over_limit=max(r["checks"]["fwd"][
+                    "max_err_over_limit"] for r in rows),
+                dx_max_err_over_limit=max(r["checks"]["dx"][
+                    "max_err_over_limit"] for r in dx_rows),
+                dw_max_err_over_limit=max(r["checks"]["dw"][
+                    "max_err_over_limit"] for r in rows),
+                rows=[(r["rows_in"], r["rows_out"]) for r in rows],
+                ok=len(rows) == 18 and len(dx_rows) == 17
+                and all(r["ok"] for r in rows)),
+            row_order=order, **gathers, seconds=time.time() - t0)
+        out["kernels"]["ok"] = all(v["ok"] for v in (
+            out["kernels"]["grouped"], order, *gathers.values()))
+        emit({"phase": "train_synthetic", "part": "kernels",
+              **out["kernels"], "seconds_total": time.time() - t_start})
+
+        # (b) --resume from the in-repo weights
+        t0 = time.time()
+        path_b = os.path.join(work, "resumed.pkl")
+        with contextlib.redirect_stdout(sys.stderr):
+            run = train_synthetic.main(SYNTH_ARGV + [
+                "--n-scenes", "4", "--steps", str(SYNTH_RESUME_STEPS),
+                "--resume", weights, "--out", path_b])
+        losses_b = [m["total_loss"] for m in run.history]
+        del run
+        out["resume"] = dict(
+            seconds=time.time() - t0, total_loss=losses_b,
+            pickle=os.path.isfile(path_b),
+            ok=bool(np.all(np.isfinite(losses_b))) and os.path.isfile(path_b))
+        emit({"phase": "train_synthetic", "part": "resume", **out["resume"],
+              "seconds_total": time.time() - t_start})
+
+        # (c) the new pickle in the registration path
+        t0 = time.time()
+        model = load_model(path, ARCHS["ResUNetSmall2"], device=dev)
+        _, T = register_pair_e2e(
+            model, caps_reg, reg_cfg, *pair_args(pair), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        out["register"] = dict(seconds=time.time() - t0,
+                               **verdict(T, pair["gt"]))
+        out["register"]["ok"] = out["register"]["finite"]
+        del model
+        emit({"phase": "train_synthetic", "part": "register",
+              **out["register"], "seconds_total": time.time() - t_start})
+    out["ok"] = all(out[k]["ok"] for k in ("scratch", "kernels", "resume",
+                                           "register"))
+    return out, paths
+
+# ---------------------------------------------------------------------------
 # phase 5k: the parallel layer (the points-sharded UME through the moments
 # kernel's per-keypoint caps, the data-parallel train step), the hash table
 # and grid NN, and the native host ops
@@ -6448,6 +6707,32 @@ def main() -> int:
     kern["ume_moments_fused"].update(caps=par["c_caps"])
     kern["ume_moments_fused"]["ok"] &= par["c_caps"]["ok"]
 
+    # --- 5l. the synthetic pretraining CLI from scratch at its full width
+    emit({"phase": "train_synthetic_start",
+          "seconds_total": time.time() - t_start})
+    synth, synth_paths = phase_train_synthetic(dev, t_start, pairs[0], cfg,
+                                               REDUCED["caps"])
+    sk = synth["kernels"]
+    sg = sk["grouped"]
+    kern["sparse_conv_grouped"].update(
+        train_synthetic=dict(
+            fwd_kernel_ms=sg["fwd_kernel_ms"], dx_kernel_ms=sg["dx_kernel_ms"],
+            fwd_max_err_over_limit=sg["fwd_max_err_over_limit"],
+            dx_max_err_over_limit=sg["dx_max_err_over_limit"],
+            rows=sg["rows"]),
+        ok=kern["sparse_conv_grouped"]["ok"] and sg["ok"])
+    kern["sparse_conv_grouped_wgrad"].update(
+        train_synthetic=dict(dw_kernel_ms=sg["dw_kernel_ms"],
+                             dw_max_err_over_limit=sg["dw_max_err_over_limit"]),
+        ok=kern["sparse_conv_grouped_wgrad"]["ok"] and sg["ok"])
+    kern["grouped_row_order"].update(
+        train_synthetic={k: sk["row_order"][k] for k in (
+            "rows", "mismatches", "kernel_ms", "bound_ms", "launches", "ok")},
+        ok=kern["grouped_row_order"]["ok"] and sk["row_order"]["ok"])
+    for name in ("gather_rows", "gather_rows_backward"):
+        kern[name].update(train_synthetic=sk[name],
+                          ok=kern[name]["ok"] and sk[name]["ok"])
+
     paths = {"e2e": e2e_launches, "family": fam["launches"],
              "scan": scan_launches, "batched": batch_res["regimes"][1],
              "batched_resunet": res_b["launches"],
@@ -6456,7 +6741,7 @@ def main() -> int:
              **{f"cli_{r['run']}": r["launches"] for r in cli_runs},
              **data_paths, **train_paths,
              **{f"widths_{k}": v["launches"] for k, v in wide.items()},
-             **par_paths}
+             **par_paths, **synth_paths}
     if args.profile:
         phase_profile(run, pairs, cfg, wall, "grouped")
         with PlainGroupedConv():  # the plain version's grouped conv
@@ -6601,6 +6886,11 @@ def main() -> int:
     for part, res in par.items():
         if not res["ok"]:
             failures.append(f"parallel {part}")
+    for part in ("scratch", "kernels", "resume", "register"):
+        if not synth[part]["ok"]:
+            failures.append(f"train_synthetic {part}: a non-finite loss, no "
+                            "pickle, a kernel off its plain version or a "
+                            "non-finite transform")
     # a kernel of a path must have launched in that path's counted run
     on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
                "batched_resunet": ("nn1_argmin", "nn1_copy_rows",
@@ -6621,6 +6911,10 @@ def main() -> int:
                              "sparse_conv_grouped",
                              "sparse_conv_grouped_wgrad",
                              "grouped_row_order"),
+               "train_synthetic": ("gather_rows", "gather_rows_backward",
+                                   "sparse_conv_grouped",
+                                   "sparse_conv_grouped_wgrad",
+                                   "grouped_row_order"),
                "parallel_sp": ("ume_moments_fused",),
                "parallel_dp": ("gather_rows", "gather_rows_backward",
                                "sparse_conv_grouped",

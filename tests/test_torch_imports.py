@@ -63,6 +63,66 @@ def test_only_the_listed_modules_are_still_unported():
     assert sorted(missing) == UNPORTED
 
 
+# public names of the JAX package whose counterpart in the port has
+# another name, and where it went
+RENAMED = {
+    # the forward of the port's nn.Module
+    "models.resunet.resunet_apply": "models.resunet.ResUNet",
+    # one int64 code word (pack_coords) in place of the (hi, lo) pair
+    "ops.sortmaps.sorted_join": "ops.sortmaps.sorted_join_code",
+    "ops.voxel.quantize_jax": "ops.voxel.quantize_torch",
+    # one pair is a batch of one
+    "pipeline.matching.probabilistic_match_filter":
+        "pipeline.matching.probabilistic_match_filter_batched",
+}
+
+
+def _jax_public_names():
+    """{JAX module: its `__all__` and its public top-level functions and
+    classes}, read from the sources (nothing of the JAX package is
+    imported)."""
+    import ast
+
+    jax_pkg = ROOT / "umeregrobust_tpu"
+    out = {}
+    for p in sorted(jax_pkg.rglob("*.py")):
+        if p.name == "__init__.py":  # re-exports of the modules below
+            continue
+        tree = ast.parse(p.read_text())
+        names = {node.name for node in tree.body
+                 if isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                 and not node.name.startswith("_")}
+        for node in tree.body:
+            if isinstance(node, ast.Assign) and any(
+                    getattr(t_, "id", None) == "__all__"
+                    for t_ in node.targets):
+                names |= set(ast.literal_eval(node.value))
+        out[".".join(p.relative_to(jax_pkg).with_suffix("").parts)] = names
+    return out
+
+
+def test_every_public_function_has_a_counterpart_or_a_listed_rename():
+    import importlib
+
+    missing, renamed = [], set()
+    for mod, names in _jax_public_names().items():
+        port = importlib.import_module(
+            f"umeregrobust_tpu_torch.{PORTED_AS.get(mod, mod)}")
+        for name in sorted(names):
+            if hasattr(port, name):
+                continue
+            target = RENAMED.get(f"{mod}.{name}")
+            if target is None:
+                missing.append(f"{mod}.{name}")
+                continue
+            tmod, _, tname = target.rpartition(".")
+            assert hasattr(importlib.import_module(
+                f"umeregrobust_tpu_torch.{tmod}"), tname), target
+            renamed.add(f"{mod}.{name}")
+    assert missing == []
+    assert renamed == set(RENAMED)  # every listed rename is still one
+
+
 @pytest.mark.parametrize("mod", [
     "losses", "losses.losses", "pipeline.train_keypoints",
     "pipeline.eval_metrics", "train", "train.trainer", "train.checkpoint",

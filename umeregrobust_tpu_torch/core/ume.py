@@ -11,7 +11,8 @@ import torch
 
 from umeregrobust_tpu_torch.core.so3 import gram_schmidt, kabsch_rotation
 
-__all__ = ["moment_matrix", "subspace_projection", "projection_packed",
+__all__ = ["moment_matrix", "orthonormalize", "subspace_projection",
+           "projection_packed",
            "ume_distance", "ume_pairwise_distance", "estimate_rigid_from_ume",
            "ume_validity_mask"]
 
@@ -39,9 +40,15 @@ def moment_matrix(nn_pts: torch.Tensor, nn_feat: torch.Tensor,
     return F
 
 
+def orthonormalize(F: torch.Tensor) -> torch.Tensor:
+    """Orthonormal basis of (..., d, 4) UME matrix columns (modified
+    Gram-Schmidt, fp32; rank-deficient columns come out zero)."""
+    return gram_schmidt(F.to(torch.float32))
+
+
 def subspace_projection(F: torch.Tensor) -> torch.Tensor:
     """P = Q Q^T onto the column space of (..., d, 4) F. (..., d, d)."""
-    Q = gram_schmidt(F)
+    Q = orthonormalize(F)
     return Q @ Q.transpose(-1, -2)
 
 

@@ -18,7 +18,10 @@ import torch
 from umeregrobust_tpu_torch.ops.neighbors import take_rows
 
 __all__ = ["DenseGrid", "build_dense_grid", "dense_candidates",
-           "dense_nn_query", "max_window_count"]
+           "dense_nn_query", "max_cell_count", "max_window_count",
+           "DEFAULT_DIMS"]
+
+DEFAULT_DIMS = (384, 384, 96)
 
 _FAR = 1e9  # parked coordinate for masked/padded rows
 
@@ -80,6 +83,12 @@ def build_dense_grid(points: torch.Tensor, mask: torch.Tensor, cell: float,
     return DenseGrid(points_sorted=ps, order=order, runs=runs,
                      origin=origin, overflow=overflow, wstart=wstart,
                      cell=float(cell), dims=tuple(dims))
+
+
+def max_cell_count(grid: DenseGrid) -> torch.Tensor:
+    """Max points in any cell (([B,])); queries are exact while 3 x this
+    <= budget (a sufficient bound; max_window_count is the tight one)."""
+    return torch.amax(grid.runs >> 20, dim=-1)
 
 
 def max_window_count(grid: DenseGrid) -> torch.Tensor:

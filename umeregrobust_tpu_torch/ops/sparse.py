@@ -32,8 +32,8 @@ from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, SENTINEL_HIGH, batched_sorted_lookup,
     pack_code, sorted_join_code)
 
-__all__ = ["Level", "GroupedMap", "InterfaceCandidates", "WINDOW_PAD",
-           "sort_level", "downsample_coords", "kernel_offsets",
+__all__ = ["Level", "make_level", "GroupedMap", "InterfaceCandidates",
+           "WINDOW_PAD", "sort_level", "downsample_coords", "kernel_offsets",
            "build_self_map", "build_conv_map", "build_transpose_map",
            "build_level_maps", "interface_candidates", "invert_map_batch",
            "code_window_table", "window_probe", "group_kernel_map",
@@ -52,6 +52,10 @@ WINDOW_PAD = SENTINEL_HIGH | 0x7F000001
 class Level(NamedTuple):
     coords: torch.Tensor  # (N, 4) int32
     mask: torch.Tensor  # (N,) bool
+
+
+def make_level(coords: torch.Tensor, mask: torch.Tensor) -> Level:
+    return Level(coords=coords, mask=mask)
 
 
 def sort_level(coords: torch.Tensor, mask: torch.Tensor

@@ -12,16 +12,21 @@ read per block (per iteration at inner=1): the convergence flag
 displacement below disp_exit).
 Over a leading pair axis the flag is read for the whole batch (all
 converged?), and converged pairs are frozen (JAX's while_loop under vmap).
+`icp_point_to_point` is ICP of any two clouds: a grid of the target at
+cell max_corr, then the exact path.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from umeregrobust_tpu_torch.core.so3 import kabsch_rotation
 from umeregrobust_tpu_torch.core.transforms import make_transform
-from umeregrobust_tpu_torch.ops.densegrid import DenseGrid, dense_candidates
+from umeregrobust_tpu_torch.ops.densegrid import (
+    DEFAULT_DIMS, DenseGrid, build_dense_grid, dense_candidates)
 
-__all__ = ["umeyama", "icp_loop"]
+__all__ = ["umeyama", "icp_loop", "icp_point_to_point"]
 
 
 def umeyama(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -108,3 +113,28 @@ def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
             break
     iters = inner * blocks
     return T, prev_rmse, prev_fit, (iters if lead else int(iters))
+
+
+def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
+                       init_T: torch.Tensor, max_corr: float = 0.2,
+                       max_iter: int = 200,
+                       src_mask: Optional[torch.Tensor] = None,
+                       tgt_mask: Optional[torch.Tensor] = None,
+                       budget: int = 8,
+                       dims: Optional[Tuple[int, int, int]] = None):
+    """Refine init_T with point-to-point ICP of src (N, 3) onto tgt (M,
+    3), on the inputs' device: a dense grid of tgt at cell max_corr, then
+    icp_loop's exact path (a correspondence search every iteration).
+    Returns (T, rmse, fitness)."""
+    if src_mask is None:
+        src_mask = torch.ones(src.shape[:-1], dtype=torch.bool,
+                              device=src.device)
+    if tgt_mask is None:
+        tgt_mask = torch.ones(tgt.shape[:-1], dtype=torch.bool,
+                              device=tgt.device)
+    grid = build_dense_grid(tgt.to(torch.float32), tgt_mask, cell=max_corr,
+                            dims=tuple(dims or DEFAULT_DIMS))
+    T, rmse, fit, _ = icp_loop(src.to(torch.float32), src_mask, grid, init_T,
+                               float(max_corr), int(max_iter), int(budget),
+                               inner=1)
+    return T, rmse, fit
