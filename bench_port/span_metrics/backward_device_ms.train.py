@@ -1,0 +1,8 @@
+"""Device ms a step of the events launched inside the program's
+"step.backward" span (the backward pass, launched from the autograd
+thread), traced steps."""
+
+
+def read(rec):
+    s = rec.launched_s("step.backward") if hasattr(rec, "launched_s") else 0.0
+    return 1e3 * s / rec.units if s > 0 and rec.units else None

@@ -1,0 +1,7 @@
+"""Host ms a batch inside the program's "icp.raw" span (the raw-cloud
+ICP stage), traced batches."""
+
+
+def read(rec):
+    s = rec.span_s("icp.raw")
+    return 1e3 * s / rec.units if rec.units and s > 0 else None

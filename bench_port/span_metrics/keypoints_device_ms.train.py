@@ -1,0 +1,7 @@
+"""Device ms a step of the events launched inside the program's
+"step.keypoints" span (the per-pair keypoint selection), traced steps."""
+
+
+def read(rec):
+    s = rec.launched_s("step.keypoints") if hasattr(rec, "launched_s") else 0.0
+    return 1e3 * s / rec.units if s > 0 and rec.units else None

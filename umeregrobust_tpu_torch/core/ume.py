@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 
 from umeregrobust_tpu_torch.core.so3 import gram_schmidt, kabsch_rotation
+from umeregrobust_tpu_torch.utils.profiling import host_read
 
 __all__ = ["moment_matrix", "orthonormalize", "subspace_projection",
            "projection_packed",
@@ -128,4 +129,7 @@ def ume_validity_mask(F: torch.Tensor, svd_thr: float = 1e-5) -> torch.Tensor:
     finite = torch.isfinite(F).all(dim=-1).all(dim=-1)
     s = torch.linalg.svdvals(torch.where(finite[..., None, None], F,
                                          torch.zeros_like(F)))
+    # the card's batched SVD synchronizes twice a call (seen through
+    # torch.cuda.set_sync_debug_mode with torch 2.11 / CUDA 12.8, H100)
+    host_read("ume.validity_mask", 2, device=F.device)
     return (torch.sum(s > svd_thr, dim=-1) == 4) & finite

@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from umeregrobust_tpu_torch.utils.profiling import host_read
+
 __all__ = ["resolve_device", "to_device"]
 
 
@@ -21,8 +23,10 @@ def resolve_device(device="cuda") -> torch.device:
 
 def to_device(x, dev, dtype=None):
     """A numpy array or tensor as a tensor on `dev` (of `dtype`); None
-    stays None."""
+    stays None. A host array's copy to the card waits for the card."""
     if x is None:
         return None
     t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
+    if t.device.type != "cuda":
+        host_read("devices.to_device", device=dev)
     return t.to(device=dev, dtype=dtype)

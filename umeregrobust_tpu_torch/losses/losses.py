@@ -25,6 +25,7 @@ from umeregrobust_tpu_torch.core.transforms import relative_rotation_error
 from umeregrobust_tpu_torch.core.ume import (
     estimate_rigid_from_ume, subspace_projection, ume_validity_mask)
 from umeregrobust_tpu_torch.ops.neighbors import gather_padded, take_rows
+from umeregrobust_tpu_torch.utils.profiling import host_read
 
 __all__ = ["pointwise_infonce", "ume_contrastive_loss",
            "cube_registration_loss", "CUBE_CORNERS", "nanmedian_mean"]
@@ -121,6 +122,7 @@ def ume_contrastive_loss(src_ume: torch.Tensor, tgt_ume: torch.Tensor,
     eye = torch.eye(K, dtype=torch.bool, device=sim.device)
     tau_mat = torch.where(eye, torch.tensor(tau, device=sim.device),
                           torch.tensor(tau_neg, device=sim.device))
+    host_read("losses.ume_contrastive", 2, device=sim.device)  # copies
     logits = sim / tau_mat
     col_ok = valid[..., None, :]
     logits = torch.where(col_ok, logits, torch.full_like(logits, -torch.inf))
@@ -157,6 +159,7 @@ def cube_registration_loss(src_ume: torch.Tensor, tgt_ume: torch.Tensor,
     R_gt = gt_tform[..., :3, :3]
     t_gt = gt_tform[..., :3, 3]
     cube = torch.as_tensor(CUBE_CORNERS, device=src_ume.device) * cube_scale
+    host_read("losses.cube_registration", device=src_ume.device)
     est = cube @ R.transpose(-1, -2) + t[..., None, :]  # ([B,] K, 8, 3)
     gt = cube @ R_gt.transpose(-1, -2) + t_gt[..., None, :]  # ([B,] 8, 3)
     # sqrt(.. + eps): a finite gradient where est == gt

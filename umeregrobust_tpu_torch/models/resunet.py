@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from umeregrobust_tpu_torch.devices import resolve_device
+from umeregrobust_tpu_torch.utils.profiling import host_read
 from umeregrobust_tpu_torch.ops.cuda_grouped import with_row_orders
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, pack_code, sorted_join_rank)
@@ -114,6 +115,7 @@ def _geometry_fast(levels: List[Level], arch: ArchSpec, ts: List[int]):
         wtab = code_window_table(key_code)
         offs = torch.tensor([[0, dx * t, dy * t, 0] for dx, dy in _GROUPS8],
                             dtype=torch.int64, device=dev)
+        host_read("resunet.geometry", device=dev)  # a copy to the card
         q_self = pack_code(level.coords.to(torch.int64)[None] + offs[:, None],
                            level.mask[None].expand(8, N), QUERY_SENTINEL)
         parts = [q_self.reshape(-1)]
@@ -136,6 +138,7 @@ def _geometry_fast(levels: List[Level], arch: ArchSpec, ts: List[int]):
                 for jy in range(J):
                     sh = torch.tensor([jx * st, jy * st, 0], dtype=torch.int64,
                                       device=dev)
+                    host_read("resunet.geometry", device=dev)
                     b_sp = a_sp - dmin - sh[None]
                     okx = lane0_ok[:, 0] if jx == 0 else lane1_ok[:, 0]
                     oky = lane0_ok[:, 1] if jy == 0 else lane1_ok[:, 1]
@@ -174,6 +177,7 @@ def _geometry_fast(levels: List[Level], arch: ArchSpec, ts: List[int]):
                                                    device=dev), patho8[4:]])
         gmap = GroupedMap(center=center + 1, masks=masks, patho=patho,
                           worder=torch.tensor([0, 1, 2], device=dev))
+        host_read("resunet.geometry", device=dev)
         block_g[lv] = gmap
         block_maps[lv] = ungroup_kernel_map(gmap)
         if lv == 0:
@@ -202,6 +206,7 @@ def _geometry_fast(levels: List[Level], arch: ArchSpec, ts: List[int]):
             hit = brow >= 0
             enc = torch.full((27 * N,), -1, dtype=torch.int64, device=dev)
             enc[(kidx * N + brow)[hit]] = a_rows[hit]
+            host_read("resunet.geometry", 2)  # two boolean-mask selections
             enc_maps[lv] = enc.reshape(27, N)
             # decoder map is fine-indexed: lanes hit disjoint taps
             dec = torch.full((27, Nf), -1, dtype=torch.int64, device=dev)

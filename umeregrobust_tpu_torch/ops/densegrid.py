@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from umeregrobust_tpu_torch.ops.neighbors import take_rows
+from umeregrobust_tpu_torch.utils.profiling import host_read
 
 __all__ = ["DenseGrid", "build_dense_grid", "dense_candidates",
            "dense_nn_query", "max_cell_count", "max_window_count",
@@ -54,6 +55,7 @@ def build_dense_grid(points: torch.Tensor, mask: torch.Tensor, cell: float,
     origin = torch.min(torch.where(mask[..., None], cc, big), dim=-2).values
     rel = cc - origin[..., None, :]
     dims_t = torch.tensor(dims, dtype=torch.int32, device=dev)
+    host_read("densegrid.build", device=dev)  # a copy to the card
     inside = mask & torch.all((rel >= 0) & (rel < dims_t), dim=-1)
     overflow = torch.sum(mask & ~inside, dim=-1)
     flat = (rel[..., 0].long() * Dy + rel[..., 1]) * Dz + rel[..., 2]
@@ -116,6 +118,7 @@ def _window_starts(grid: DenseGrid, queries: torch.Tensor) -> torch.Tensor:
     pxy = qc[..., :, None, :2] + oxy
     ok_xy = torch.all((pxy >= 0) & (pxy < torch.tensor(
         [Dx, Dy], dtype=torch.int32, device=dev)), dim=-1)
+    host_read("densegrid.window_starts", 2, device=dev)  # two copies
     in_z = (qc[..., 2] >= -1) & (qc[..., 2] <= Dz)
     zc = torch.clamp(qc[..., 2], 0, Dz - 1)[..., None]
     ok = ok_xy & in_z[..., None]

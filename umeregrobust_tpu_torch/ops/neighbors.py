@@ -9,6 +9,7 @@ import torch
 
 from umeregrobust_tpu_torch.ops.cuda_gather import (
     GatherRows, gather_rows_plain)
+from umeregrobust_tpu_torch.utils.profiling import host_read
 
 __all__ = ["pairwise_sqdist", "sqdist3", "ball_query", "knn", "gather_padded", "topk_stable",
            "take_rows"]
@@ -87,6 +88,8 @@ def ball_query(
         score = torch.where(ok, col, torch.full_like(col, N + 1))
         idx = -torch.topk(-score, K, dim=-1, sorted=True).values
         out.append(torch.where(idx > N, torch.full_like(idx, -1), idx))
+    # each chunk copies r2 to the card
+    host_read("neighbors.ball_query", len(out), device=points.device)
     if not out:
         return torch.empty((0, K), dtype=torch.int64, device=points.device)
     idx = torch.cat(out).to(torch.int64)

@@ -31,6 +31,7 @@ from umeregrobust_tpu_torch.ops.neighbors import gather_padded
 from umeregrobust_tpu_torch.ops.sortmaps import (
     KEY_SENTINEL, QUERY_SENTINEL, SENTINEL_HIGH, batched_sorted_lookup,
     pack_code, sorted_join_code)
+from umeregrobust_tpu_torch.utils.profiling import host_read
 
 __all__ = ["Level", "make_level", "GroupedMap", "InterfaceCandidates",
            "WINDOW_PAD", "sort_level", "downsample_coords", "kernel_offsets",
@@ -103,6 +104,7 @@ def downsample_coords(coords: torch.Tensor, mask: torch.Tensor,
     out = torch.zeros((pairs * capacity, 4), dtype=coords.dtype,
                       device=coords.device)
     out[pos[take]] = q[row_s[take]]
+    host_read("sparse.downsample_coords", 2)  # two boolean-mask selections
     out_mask = torch.arange(pairs * capacity, device=coords.device) < n_keep
     return out, out_mask
 
@@ -165,6 +167,7 @@ def build_level_maps(key_level: Level, requests: Sequence[tuple]
         else:
             offs = torch.as_tensor(offsets, device=out_coords.device
                                    ).to(torch.int64)
+            host_read("sparse.build_level_maps", device=out_coords.device)
             q = out_coords.to(torch.int64)[None] + sign * offs[:, None]
             qm = out_mask[None].expand(offs.shape[0], out_coords.shape[0])
         shapes.append(tuple(qm.shape))
@@ -202,6 +205,7 @@ def interface_candidates(fine_level: Level, kernel: int, t: int, stride: int
     jj = torch.as_tensor(np.stack(np.meshgrid(*([np.arange(J)] * 3),
                                               indexing="ij"),
                                   axis=-1).reshape(-1, 3), device=dev)
+    host_read("sparse.interface_candidates", device=dev)
     delta = dmin[None] + jj[:, None] * st
     valid = torch.all(delta <= r * t, dim=-1) & fine_level.mask[None]
     b_sp = a_sp[None] - delta
@@ -296,6 +300,7 @@ def group_kernel_map(nbr: torch.Tensor, z_reversed: bool = False) -> GroupedMap:
     patho = v0 & ~v1 & v2
     worder = torch.tensor([2, 1, 0] if z_reversed else [0, 1, 2],
                           device=nbr.device)
+    host_read("sparse.group_kernel_map", device=nbr.device)
     return GroupedMap(center=(c + 1).to(torch.int64), masks=masks,
                       patho=patho, worder=worder)
 

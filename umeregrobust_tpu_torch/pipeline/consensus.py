@@ -17,6 +17,7 @@ from umeregrobust_tpu_torch.core.so3 import kabsch_rotation
 from umeregrobust_tpu_torch.core.transforms import make_transform
 from umeregrobust_tpu_torch.ops.densegrid import build_dense_grid, dense_candidates
 from umeregrobust_tpu_torch.ops.neighbors import take_rows, topk_stable
+from umeregrobust_tpu_torch.utils.profiling import host_read
 
 __all__ = ["consensus_refit", "polish_candidates", "compact_structure",
            "height_above_floor"]
@@ -61,6 +62,7 @@ def consensus_refit(Ts: torch.Tensor, s_kp: torch.Tensor, t_kp: torch.Tensor,
     cos_lim = torch.cos(torch.deg2rad(torch.tensor(nms_rot_deg,
                                                    dtype=torch.float32,
                                                    device=dev)))
+    host_read("consensus.refit", device=dev)  # a copy to the card
     v = votes
     sel = []
     for _ in range(n_cand):  # NMS over vote modes
@@ -115,6 +117,7 @@ def polish_candidates(cand: torch.Tensor, src_pts: torch.Tensor,
 
     for r in radii:
         r_t = torch.tensor(r, dtype=torch.float32, device=dev)
+        host_read("consensus.polish", device=dev)
         r2 = r_t * r_t
         windows = dense_candidates(
             grid, apply(T).reshape(lead + (V * S, 3)),

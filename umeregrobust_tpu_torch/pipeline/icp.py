@@ -10,14 +10,17 @@ dense_nn_query's. The JAX while_loop becomes a Python loop with one host
 read per block (per iteration at inner=1): the convergence flag
 (Open3D-style relative fitness/rmse criteria, or an RMS block
 displacement below disp_exit).
-Over a leading pair axis the flag is read for the whole batch (all
+Over a leading pair axis the flag is read for the whole batch (how many
 converged?), and converged pairs are frozen (JAX's while_loop under vmap).
+COUNTS keeps, by stage, the blocks run, the pair-blocks run and the
+pair-blocks of pairs not yet converged, from that one read.
 `icp_point_to_point` is ICP of any two clouds: a grid of the target at
 cell max_corr, then the exact path.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,8 +28,16 @@ from umeregrobust_tpu_torch.core.so3 import kabsch_rotation
 from umeregrobust_tpu_torch.core.transforms import make_transform
 from umeregrobust_tpu_torch.ops.densegrid import (
     DEFAULT_DIMS, DenseGrid, build_dense_grid, dense_candidates)
+from umeregrobust_tpu_torch.utils.profiling import host_read
 
-__all__ = ["umeyama", "icp_loop", "icp_point_to_point"]
+__all__ = ["umeyama", "icp_loop", "icp_point_to_point", "COUNTS"]
+
+# refine_with_icp's stages, and "other" for icp_loop's other callers
+STAGES = ("coarse", "multires", "exact", "raw", "other")
+# "<count>.<stage>": blocks run; pairs x blocks run; pairs not yet
+# converged when their block ran (host arithmetic, no read of its own)
+COUNTS: Dict[str, int] = {f"{c}.{s}": 0 for c in (
+    "blocks", "pair_blocks", "live_pair_blocks") for s in STAGES}
 
 
 def umeyama(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -48,7 +59,8 @@ def _apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
              init_T: torch.Tensor, max_corr: float, max_iter: int,
-             budget: int, inner: int = 6, disp_exit: float = 1e-4):
+             budget: int, inner: int = 6, disp_exit: float = 1e-4,
+             stage: str = "other"):
     """Refine init_T; returns (T, rmse, fitness, sub-iterations run).
     max_iter counts sub-iterations; exits land on block boundaries (every
     iteration at inner=1).
@@ -56,10 +68,10 @@ def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
     With a leading pair axis (src (B, S, 3), init_T (B, 4, 4), B grids)
     every block runs for all pairs at once and the loop runs until every
     pair has converged or max_iter is reached, with one host read a block
-    (all pairs converged?). A pair that has converged is frozen: its T,
-    rmse and fitness stop changing, so it ends where it would end alone.
-    Returns per-pair (B,) rmse, fitness and sub-iterations (an int for one
-    pair)."""
+    (how many pairs converged?). A pair that has converged is frozen: its
+    T, rmse and fitness stop changing, so it ends where it would end
+    alone. Returns per-pair (B,) rmse, fitness and sub-iterations (an int
+    for one pair). The blocks are counted in COUNTS under `stage`."""
     dev = src.device
     f32 = torch.float32
     lead = tuple(src.shape[:-2])
@@ -67,11 +79,17 @@ def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
     m = src_mask.to(f32)
     n_src = torch.clamp(torch.sum(m, dim=-1), min=1.0)
     disp_lim = torch.tensor(disp_exit, dtype=f32, device=dev) ** 2
+    host_read("icp.loop", 2, device=dev)  # r2 and disp_lim to the card
     T = init_T.to(f32)
     prev_rmse = torch.full(lead, 1e30, dtype=f32, device=dev)
     prev_fit = torch.zeros(lead, dtype=f32, device=dev)
-    done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    # 1 once a pair converged: an int64 flag, so that counting the
+    # converged pairs takes the one reduction torch.all took
+    done = torch.zeros(lead, dtype=torch.int64, device=dev)
     blocks = torch.zeros(lead, dtype=torch.int64, device=dev)
+    n_pairs, n_done = math.prod(lead), 0
+    keys = [f"{c}.{stage}" for c in ("blocks", "pair_blocks",
+                                     "live_pair_blocks")]
     it = 0
     while it < max_iter:
         cand = dense_candidates(grid, _apply(T, src), budget=budget)
@@ -102,14 +120,19 @@ def icp_loop(src: torch.Tensor, src_mask: torch.Tensor, grid: DenseGrid,
                                     dim=-1) * m, dim=-1) / n_src
         conv = conv | (disp2 <= disp_lim)
         # pairs that converged in an earlier block keep their state
-        live = ~done
+        live = done == 0
         T = torch.where(live[..., None, None], T_c, T)
         prev_rmse = torch.where(live, rmse, prev_rmse)
         prev_fit = torch.where(live, fit, prev_fit)
         blocks = blocks + live
         done = done | conv
         it += inner
-        if bool(torch.all(done)):  # the one host read of the block
+        COUNTS[keys[0]] += 1
+        COUNTS[keys[1]] += n_pairs
+        COUNTS[keys[2]] += n_pairs - n_done
+        n_done = int(done.sum())  # the one host read of the block
+        host_read("icp.block")
+        if n_done == n_pairs:
             break
     iters = inner * blocks
     return T, prev_rmse, prev_fit, (iters if lead else int(iters))

@@ -55,6 +55,7 @@ from umeregrobust_tpu_torch.pipeline.matching import (
 from umeregrobust_tpu_torch.pipeline.sampling import (
     injected_batched, sample_uniforms, weighted_sample_batched)
 from umeregrobust_tpu_torch.pipeline.ume_gen import ume_from_ball_query
+from umeregrobust_tpu_torch.utils.profiling import host_read, span
 
 __all__ = ["RegistrationConfig", "RegistrationResult", "check_supported",
            "copy_features_to_raw", "copy_features_to_raw_grid",
@@ -253,36 +254,43 @@ def refine_with_icp(cfg: RegistrationConfig, T: torch.Tensor,
         dims = tuple(int(math.ceil(b / cell - 1e-6)) for b in box)
         return build_dense_grid(pts, mask, cell=cell, dims=dims)
 
-    stages = []
-    if cfg.icp_coarse_corr is not None:
-        stages.append((grid(corr_tgt_pts, corr_tgt_mask, cfg.icp_coarse_corr),
-                       float(cfg.icp_coarse_corr), int(cfg.icp_coarse_iter),
-                       32, corr_src_pts, corr_src_mask))
-    corr_grid = grid(corr_tgt_pts, corr_tgt_mask, fine)
-    S = corr_src_pts.shape[-2]
-    m = int(cfg.icp_multires)
-    if m and m < S:
-        stages.append((corr_grid, fine, int(cfg.icp_multires_iter),
-                       int(cfg.icp_multires_budget),
-                       corr_src_pts[..., :m, :], corr_src_mask[..., :m]))
-    e = int(cfg.icp_exact_rows)
-    if e and e < S:
-        exact_sp, exact_smk = corr_src_pts[..., :e, :], corr_src_mask[..., :e]
-    else:
-        exact_sp, exact_smk = corr_src_pts, corr_src_mask
-    stages.append((corr_grid, fine, int(cfg.icp_max_iter), int(cfg.icp_budget),
-                   exact_sp, exact_smk))
-    if raw_src_pts is not None and cfg.icp_raw_iter > 0:
-        stages.append((grid(raw_tgt_pts, raw_tgt_mask, fine), fine,
-                       int(cfg.icp_raw_iter), int(cfg.icp_raw_budget),
-                       raw_src_pts, raw_src_mask))
+    stages = []  # (stage, grid, radius, sub-iterations, budget, source)
+    with span("icp.grids"):
+        if cfg.icp_coarse_corr is not None:
+            stages.append(("coarse", grid(corr_tgt_pts, corr_tgt_mask,
+                                          cfg.icp_coarse_corr),
+                           float(cfg.icp_coarse_corr),
+                           int(cfg.icp_coarse_iter), 32, corr_src_pts,
+                           corr_src_mask))
+        corr_grid = grid(corr_tgt_pts, corr_tgt_mask, fine)
+        S = corr_src_pts.shape[-2]
+        m = int(cfg.icp_multires)
+        if m and m < S:
+            stages.append(("multires", corr_grid, fine,
+                           int(cfg.icp_multires_iter),
+                           int(cfg.icp_multires_budget),
+                           corr_src_pts[..., :m, :], corr_src_mask[..., :m]))
+        e = int(cfg.icp_exact_rows)
+        if e and e < S:
+            exact_sp = corr_src_pts[..., :e, :]
+            exact_smk = corr_src_mask[..., :e]
+        else:
+            exact_sp, exact_smk = corr_src_pts, corr_src_mask
+        stages.append(("exact", corr_grid, fine, int(cfg.icp_max_iter),
+                       int(cfg.icp_budget), exact_sp, exact_smk))
+        if raw_src_pts is not None and cfg.icp_raw_iter > 0:
+            stages.append(("raw", grid(raw_tgt_pts, raw_tgt_mask, fine), fine,
+                           int(cfg.icp_raw_iter), int(cfg.icp_raw_budget),
+                           raw_src_pts, raw_src_mask))
     rmse = fit = torch.zeros(T.shape[:-2], dtype=torch.float32,
                              device=T.device)
     iters = []
-    for g, corr, n_iter, budget, sp, smk in stages:
-        T, rmse, fit, it = icp_loop(sp, smk, g, T, corr, n_iter, budget,
-                                    inner=int(cfg.icp_inner),
-                                    disp_exit=float(cfg.icp_disp_exit))
+    for stage, g, corr, n_iter, budget, sp, smk in stages:
+        with span("icp." + stage):
+            T, rmse, fit, it = icp_loop(sp, smk, g, T, corr, n_iter, budget,
+                                        inner=int(cfg.icp_inner),
+                                        disp_exit=float(cfg.icp_disp_exit),
+                                        stage=stage)
         iters.append(it)
     if return_iters:
         return T, rmse, fit, iters
@@ -393,110 +401,118 @@ def _hypotheses_and_select(cfg: RegistrationConfig,
     n_init = (cfg.num_init_keypoints if cfg.filter_by_ume_dist
               else cfg.ume_n_samples)
     kw = dict(struct_boost=cfg.kp_struct_boost, struct_dz=cfg.kp_struct_dz)
-    src_kp, src_kp_ok = _sample_keypoints(
-        src_pts, src_mask, n_init, generators,
-        injected_batched(draws, "src_kp", n_init, dev), **kw)
-    tgt_kp, tgt_kp_ok = _sample_keypoints(
-        tgt_pts, tgt_mask, n_init, generators,
-        injected_batched(draws, "tgt_kp", n_init, dev), **kw)
+    with span("hypotheses.keypoints"):
+        src_kp, src_kp_ok = _sample_keypoints(
+            src_pts, src_mask, n_init, generators,
+            injected_batched(draws, "src_kp", n_init, dev), **kw)
+        tgt_kp, tgt_kp_ok = _sample_keypoints(
+            tgt_pts, tgt_mask, n_init, generators,
+            injected_batched(draws, "tgt_kp", n_init, dev), **kw)
 
-    ume_src = ume_from_ball_query(
-        src_pts, src_feat, src_kp, radius=cfg.ume_r_nn, max_nn=cfg.ume_max_nn,
-        p_mask=src_mask, k_mask=src_kp_ok)
-    ume_tgt = ume_from_ball_query(
-        tgt_pts, tgt_feat, tgt_kp, radius=cfg.ume_r_nn, max_nn=cfg.ume_max_nn,
-        p_mask=tgt_mask, k_mask=tgt_kp_ok)
-    m, d = argmin_match(ume_src, ume_tgt, src_mask=src_kp_ok,
-                        tgt_mask=tgt_kp_ok)
+    with span("hypotheses.ume"):
+        ume_src = ume_from_ball_query(
+            src_pts, src_feat, src_kp, radius=cfg.ume_r_nn,
+            max_nn=cfg.ume_max_nn, p_mask=src_mask, k_mask=src_kp_ok)
+        ume_tgt = ume_from_ball_query(
+            tgt_pts, tgt_feat, tgt_kp, radius=cfg.ume_r_nn,
+            max_nn=cfg.ume_max_nn, p_mask=tgt_mask, k_mask=tgt_kp_ok)
 
-    n = cfg.ume_n_samples
-    if not cfg.filter_by_ume_dist:
-        # every slot; slots of invalid keypoints (m = -1 on small clouds)
-        # take the best valid match instead (repeat-best)
-        valid = src_kp_ok & (m >= 0)
-        best = torch.argmin(torch.where(valid, d, torch.full_like(
-            d, float("inf"))), dim=-1, keepdim=True)
-        keep = torch.where(valid, torch.arange(n, device=dev), best)
-    elif cfg.filter_mode == "topk":
-        keep = topk_stable(-d, n)[1]
-    elif cfg.filter_mode == "mix":
-        h = n // 2
-        keep_top = topk_stable(-d, h)[1]
-        d_rest = d.scatter(-1, keep_top, 1e6)
-        keep_s = probabilistic_match_filter_batched(
-            d_rest, n - h, cfg.tau, generators,
-            injected_batched(draws, "filter", n - h, dev))
-        keep = torch.cat([keep_top, keep_s], dim=-1)
-    else:  # 'prob': reference parity (evaluate.py:233-245)
-        keep = probabilistic_match_filter_batched(
-            d, n, cfg.tau, generators,
-            injected_batched(draws, "filter", n, dev))
-
-    m_keep = torch.clamp(torch.gather(m, -1, keep), min=0)
-    Ts, _ = estimate_rigid_from_ume(take_rows(ume_src, keep),
-                                    take_rows(ume_tgt, m_keep),
-                                    compute_distance=False,
-                                    sweeps=cfg.estimator_sweeps)
+    with span("hypotheses.match"):
+        m, d = argmin_match(ume_src, ume_tgt, src_mask=src_kp_ok,
+                            tgt_mask=tgt_kp_ok)
+        n = cfg.ume_n_samples
+        if not cfg.filter_by_ume_dist:
+            # every slot; slots of invalid keypoints (m = -1 on small
+            # clouds) take the best valid match instead (repeat-best)
+            valid = src_kp_ok & (m >= 0)
+            best = torch.argmin(torch.where(valid, d, torch.full_like(
+                d, float("inf"))), dim=-1, keepdim=True)
+            keep = torch.where(valid, torch.arange(n, device=dev), best)
+        elif cfg.filter_mode == "topk":
+            keep = topk_stable(-d, n)[1]
+        elif cfg.filter_mode == "mix":
+            h = n // 2
+            keep_top = topk_stable(-d, h)[1]
+            d_rest = d.scatter(-1, keep_top, 1e6)
+            keep_s = probabilistic_match_filter_batched(
+                d_rest, n - h, cfg.tau, generators,
+                injected_batched(draws, "filter", n - h, dev))
+            keep = torch.cat([keep_top, keep_s], dim=-1)
+        else:  # 'prob': reference parity (evaluate.py:233-245)
+            keep = probabilistic_match_filter_batched(
+                d, n, cfg.tau, generators,
+                injected_batched(draws, "filter", n, dev))
+        m_keep = torch.clamp(torch.gather(m, -1, keep), min=0)
+        Ts, _ = estimate_rigid_from_ume(take_rows(ume_src, keep),
+                                        take_rows(ume_tgt, m_keep),
+                                        compute_distance=False,
+                                        sweeps=cfg.estimator_sweeps)
 
     use_cons = cfg.consensus_cands > 0
-    if use_cons:
-        fs_w, ft_w = prepare_weighted_features(
-            corr_src_pts, corr_src_feat, corr_src_mask,
-            corr_tgt_pts, corr_tgt_feat, corr_tgt_mask,
+    with span("hypotheses.score"):
+        if use_cons:
+            fs_w, ft_w = prepare_weighted_features(
+                corr_src_pts, corr_src_feat, corr_src_mask,
+                corr_tgt_pts, corr_tgt_feat, corr_tgt_mask,
+                var_knn=cfg.corr_var_knn,
+                var_anchors=(cfg.corr_var_anchors if cfg.corr_mode == "radius"
+                             else None))
+        else:
+            fs_w, ft_w = corr_src_feat, corr_tgt_feat
+        best_T, scores = select_best_transform_batched(
+            corr_src_pts, fs_w, corr_src_mask, corr_tgt_pts, ft_w,
+            corr_tgt_mask, Ts, sigma=cfg.corr_kernel_sigma, knn_k=cfg.corr_knn,
             var_knn=cfg.corr_var_knn,
-            var_anchors=(cfg.corr_var_anchors if cfg.corr_mode == "radius"
-                         else None))
-    else:
-        fs_w, ft_w = corr_src_feat, corr_tgt_feat
-    best_T, scores = select_best_transform_batched(
-        corr_src_pts, fs_w, corr_src_mask, corr_tgt_pts, ft_w, corr_tgt_mask,
-        Ts, sigma=cfg.corr_kernel_sigma, knn_k=cfg.corr_knn,
-        var_knn=cfg.corr_var_knn,
-        coarse_src=cfg.corr_coarse_src, coarse_tgt=cfg.corr_coarse_tgt,
-        rescore_top=cfg.corr_rescore_top, generators=generators,
-        mode=cfg.corr_mode, triage_src=cfg.corr_triage_src,
-        triage_tgt=cfg.corr_triage_tgt, triage_top=cfg.corr_triage_top,
-        prepared=use_cons, var_anchors=cfg.corr_var_anchors, draws=draws)
+            coarse_src=cfg.corr_coarse_src, coarse_tgt=cfg.corr_coarse_tgt,
+            rescore_top=cfg.corr_rescore_top, generators=generators,
+            mode=cfg.corr_mode, triage_src=cfg.corr_triage_src,
+            triage_tgt=cfg.corr_triage_tgt, triage_top=cfg.corr_triage_top,
+            prepared=use_cons, var_anchors=cfg.corr_var_anchors, draws=draws)
     if not use_cons:
         return best_T, Ts, scores
+    with span("hypotheses.consensus"):
+        if cfg.sr_kpts > 0:  # the second round's draws, fixed here
+            sr_fixed = [injected_batched(draws, name, cfg.sr_kpts, dev)
+                        for name in ("sr_src_kp", "sr_tgt_kp")]
+            sr_u = [sample_uniforms(x.shape[1], generators, f, dev)
+                    for x, f in zip((src_pts, tgt_pts), sr_fixed)]
+        pair_ok = (torch.gather(src_kp_ok, -1, keep)
+                   & (torch.gather(d, -1, keep) < 1e5))
+        kp_s = take_rows(src_kp, keep)
+        kp_t = take_rows(tgt_kp, m_keep)
+        arbiter_args = (corr_src_pts, fs_w, corr_src_mask, corr_tgt_pts,
+                        ft_w, corr_tgt_mask)
+        fire = None
+        if cfg.consensus_gate_inliers > 0.0:
+            # fragmented match support is the regime the rescue stack wins
+            fire = _inlier_ratio(best_T, kp_s, kp_t, pair_ok,
+                                 cfg.consensus_gate_radius) \
+                < cfg.consensus_gate_inliers
+        # the one host read of the gate, for the whole batch
+        host_read("registration.gates", int(fire is not None))
+        if fire is None or bool(torch.any(fire)):
+            cand = consensus_refit(
+                Ts, kp_s, kp_t, pair_ok, tau=cfg.consensus_tau,
+                n_cand=cfg.consensus_cands,
+                nms_rot_deg=cfg.consensus_nms_rot_deg,
+                nms_trans=cfg.consensus_nms_trans)
+            won = _structure_arbiter(
+                cfg, torch.cat([cand, best_T[:, None]], dim=1),
+                *arbiter_args)
+            best_T = won if fire is None else torch.where(
+                fire[:, None, None], won, best_T)
 
-    if cfg.sr_kpts > 0:  # the second round's draws, fixed here (see above)
-        sr_fixed = [injected_batched(draws, name, cfg.sr_kpts, dev)
-                    for name in ("sr_src_kp", "sr_tgt_kp")]
-        sr_u = [sample_uniforms(x.shape[1], generators, f, dev)
-                for x, f in zip((src_pts, tgt_pts), sr_fixed)]
-    pair_ok = (torch.gather(src_kp_ok, -1, keep)
-               & (torch.gather(d, -1, keep) < 1e5))
-    kp_s = take_rows(src_kp, keep)
-    kp_t = take_rows(tgt_kp, m_keep)
-    arbiter_args = (corr_src_pts, fs_w, corr_src_mask, corr_tgt_pts, ft_w,
-                    corr_tgt_mask)
-    fire = None
-    if cfg.consensus_gate_inliers > 0.0:
-        # fragmented match support is the regime the rescue stack wins
-        fire = _inlier_ratio(best_T, kp_s, kp_t, pair_ok,
-                             cfg.consensus_gate_radius) \
-            < cfg.consensus_gate_inliers
-    # the one host read of the gate, for the whole batch
-    if fire is None or bool(torch.any(fire)):
-        cand = consensus_refit(
-            Ts, kp_s, kp_t, pair_ok, tau=cfg.consensus_tau,
-            n_cand=cfg.consensus_cands,
-            nms_rot_deg=cfg.consensus_nms_rot_deg,
-            nms_trans=cfg.consensus_nms_trans)
-        won = _structure_arbiter(
-            cfg, torch.cat([cand, best_T[:, None]], dim=1), *arbiter_args)
-        best_T = won if fire is None else torch.where(
-            fire[:, None, None], won, best_T)
-
-    if cfg.sr_kpts > 0:
-        fire2 = _inlier_ratio(best_T, kp_s, kp_t, pair_ok,
-                              cfg.consensus_gate_radius) < cfg.sr_gate_inliers
-        if bool(torch.any(fire2)):  # the second gate's one host read
-            won = _second_round(
-                cfg, best_T, src_pts, src_feat, src_mask, tgt_pts, tgt_feat,
-                tgt_mask, *arbiter_args, generators, sr_fixed, sr_u)
-            best_T = torch.where(fire2[:, None, None], won, best_T)
+        if cfg.sr_kpts > 0:
+            fire2 = _inlier_ratio(best_T, kp_s, kp_t, pair_ok,
+                                  cfg.consensus_gate_radius) \
+                < cfg.sr_gate_inliers
+            host_read("registration.gates")
+            if bool(torch.any(fire2)):  # the second gate's one host read
+                won = _second_round(
+                    cfg, best_T, src_pts, src_feat, src_mask, tgt_pts,
+                    tgt_feat, tgt_mask, *arbiter_args, generators, sr_fixed,
+                    sr_u)
+                best_T = torch.where(fire2[:, None, None], won, best_T)
     return best_T, Ts, scores
 
 
@@ -512,7 +528,8 @@ def register_pair_features(
     """Register a pair given SEM-grid features and correlator clouds whose
     features were already copied (copy_features_to_raw): the one-pair view
     of register_pair_features_batched. The two stages are torch.profiler
-    ranges "hypotheses" and "icp"."""
+    ranges "hypotheses" and "icp", each with its dotted children
+    (utils/profiling.SPANS)."""
     args = [None if x is None else x[None] for x in (
         src_pts, src_feat, src_mask, tgt_pts, tgt_feat, tgt_mask,
         corr_src_pts, corr_src_feat, corr_src_mask, corr_tgt_pts,
@@ -543,13 +560,13 @@ def register_pair_features_batched(
     if len(generators) != B or len(draws) != B:
         raise ValueError(f"{B} pairs need {B} generators and draws, got "
                          f"{len(generators)} and {len(draws)}")
-    with torch.profiler.record_function("hypotheses"):
+    with span("hypotheses"):
         best_T, _, _ = _hypotheses_and_select(
             cfg, src_pts, src_feat, src_mask, tgt_pts, tgt_feat, tgt_mask,
             corr_src_pts, corr_src_feat, corr_src_mask,
             corr_tgt_pts, corr_tgt_feat, corr_tgt_mask,
             generators=generators, draws=draws)
-    with torch.profiler.record_function("icp"):
+    with span("icp"):
         T_ref, rmse, fit = refine_with_icp(
             cfg, best_T, corr_src_pts, corr_src_mask, corr_tgt_pts,
             corr_tgt_mask, raw_src_pts, raw_src_mask, raw_tgt_pts,

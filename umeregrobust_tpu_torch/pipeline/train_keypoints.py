@@ -32,6 +32,7 @@ from umeregrobust_tpu_torch.core.transforms import apply_transform
 from umeregrobust_tpu_torch.core.ume import moment_matrix
 from umeregrobust_tpu_torch.ops.neighbors import (
     ball_query, gather_padded, topk_stable)
+from umeregrobust_tpu_torch.utils.profiling import host_read, span
 
 __all__ = ["TrainKeypoints", "generate_training_umes"]
 
@@ -108,6 +109,8 @@ def _intersection_ratio(a: torch.Tensor, b: torch.Tensor,
               - 2.0 * (x @ y.transpose(-1, -2)))
         near = torch.amin(d2, dim=-1) <= r2.to(a.device)
         out.append(torch.mean(near.to(torch.float32), dim=-1))
+    # each chunk copies r2 to the card
+    host_read("train_keypoints.intersection_ratio", len(out), device=a.device)
     if not out:
         return torch.zeros((0,), dtype=torch.float32, device=a.device)
     return torch.cat(out)
@@ -137,28 +140,28 @@ def generate_training_umes(
     src_pts = src_pts.to(torch.float32)
     tgt_pts = tgt_pts.to(torch.float32)
     gt_tform = gt_tform.to(torch.float32)
-    with torch.no_grad():
+    with torch.no_grad(), span("step.keypoints"):
         picks = [_select(src_pts[b], src_seg[b], src_mask[b], tgt_pts[b],
                          tgt_mask[b], gt_tform[b], num_samples, max_nn,
                          min_nn, nn_r, nn_intersection_r, flat_labels)
                  for b in range(B)]
-    kpts, kp_mask, nbr_idx, tnbr_idx, tgt_kpts, truncated = (
-        torch.stack(x) for x in zip(*picks))
+        kpts, kp_mask, nbr_idx, tnbr_idx, tgt_kpts, truncated = (
+            torch.stack(x) for x in zip(*picks))
 
-    nn_pts = gather_padded(src_pts, nbr_idx)  # (B, K, max_nn, 3), pads 0
-    nn_feat = gather_padded(src_feat, nbr_idx)
-    src_ume = moment_matrix(nn_pts, nn_feat, normalize=normalize)
-    tnn_pts = gather_padded(tgt_pts, tnbr_idx)
-    tnn_feat = gather_padded(tgt_feat, tnbr_idx)
-    tgt_ume = moment_matrix(tnn_pts, tnn_feat, normalize=normalize)
-
-    with torch.no_grad():
-        K = kpts.shape[1]
-        nn_tf = apply_transform(gt_tform[:, None], nn_pts)
-        ratio = _intersection_ratio(
-            nn_tf.reshape((B * K,) + nn_tf.shape[2:]),
-            tnn_pts.reshape((B * K,) + tnn_pts.shape[2:]),
-            nn_intersection_r).reshape(B, K) * kp_mask
+    with span("step.umes"):
+        nn_pts = gather_padded(src_pts, nbr_idx)  # (B, K, max_nn, 3)
+        nn_feat = gather_padded(src_feat, nbr_idx)
+        src_ume = moment_matrix(nn_pts, nn_feat, normalize=normalize)
+        tnn_pts = gather_padded(tgt_pts, tnbr_idx)
+        tnn_feat = gather_padded(tgt_feat, tnbr_idx)
+        tgt_ume = moment_matrix(tnn_pts, tnn_feat, normalize=normalize)
+        with torch.no_grad():
+            K = kpts.shape[1]
+            nn_tf = apply_transform(gt_tform[:, None], nn_pts)
+            ratio = _intersection_ratio(
+                nn_tf.reshape((B * K,) + nn_tf.shape[2:]),
+                tnn_pts.reshape((B * K,) + tnn_pts.shape[2:]),
+                nn_intersection_r).reshape(B, K) * kp_mask
     km = kp_mask.to(torch.float32)
     return TrainKeypoints(
         src_ume=src_ume * km[..., None, None],

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from umeregrobust_tpu_torch.utils.profiling import host_read
+
 __all__ = ["OptaxAdam"]
 
 
@@ -57,6 +59,8 @@ class OptaxAdam(torch.optim.Optimizer):
                 tt = torch.tensor(float(t), **f32)
                 bc1 = 1 - torch.pow(torch.tensor(b1, **f32), tt)
                 bc2 = 1 - torch.pow(torch.tensor(b2, **f32), tt)
+                # three host scalars copied to the card
+                host_read("optim.step", 3, device=p.device)
                 u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
                 if wd:
                     u = u + wd * p

@@ -46,6 +46,8 @@ from umeregrobust_tpu_torch.pipeline.train_keypoints import (
     generate_training_umes)
 from umeregrobust_tpu_torch.train.checkpoint import save_checkpoint
 from umeregrobust_tpu_torch.train.optim import OptaxAdam
+from umeregrobust_tpu_torch.utils.profiling import (  # noqa: F401
+    HOST_READS, host_read, span)
 
 __all__ = ["TrainConfig", "Trainer", "make_train_step", "make_optimizer",
            "batch_to_device", "batch_losses", "pair_losses"]
@@ -108,8 +110,9 @@ _TYPES = {"src_coords": torch.int32, "tgt_coords": torch.int32,
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A collated batch (numpy) as tensors on `device` in the step's types
     (fp32 for points and transforms)."""
-    return {k: to_device(v, device, _TYPES.get(k, torch.float32))
-            for k, v in batch.items()}
+    with span("step.inputs"):
+        return {k: to_device(v, device, _TYPES.get(k, torch.float32))
+                for k, v in batch.items()}
 
 
 def cloud_features(model: ResUNet, batch: Dict[str, torch.Tensor],
@@ -119,20 +122,22 @@ def cloud_features(model: ResUNet, batch: Dict[str, torch.Tensor],
     2 pair + side, batch index 2c, its own block). Returns (src_feat,
     tgt_feat) (B, N, C), and with train=True also the new BN state."""
     B, N = batch["src_coords"].shape[:2]
-    mask = torch.stack([batch["src_mask"], batch["tgt_mask"]], dim=1)
-    coords = torch.stack([batch["src_coords"], batch["tgt_coords"]],
-                         dim=1).clone()
-    cloud = torch.arange(2 * B, dtype=torch.int32,
-                         device=coords.device).reshape(B, 2, 1)
-    coords[..., 0] = torch.where(mask, 2 * cloud, coords[..., 0])
-    mask = mask.reshape(-1)
-    geom = build_unet_geometry(coords.reshape(-1, 4), mask, model.arch, caps,
-                               pairs=2 * B)
-    feats_in = mask[:, None].to(torch.float32).expand(
-        -1, model.conv1.w.shape[1]).contiguous()
-    out = model(geom, feats_in, compute_dtype=compute_dtype, train=train)
-    feats, state = out if train else (out, None)
-    feats = feats.reshape(B, 2, N, -1)
+    with span("step.geometry"):
+        mask = torch.stack([batch["src_mask"], batch["tgt_mask"]], dim=1)
+        coords = torch.stack([batch["src_coords"], batch["tgt_coords"]],
+                             dim=1).clone()
+        cloud = torch.arange(2 * B, dtype=torch.int32,
+                             device=coords.device).reshape(B, 2, 1)
+        coords[..., 0] = torch.where(mask, 2 * cloud, coords[..., 0])
+        mask = mask.reshape(-1)
+        geom = build_unet_geometry(coords.reshape(-1, 4), mask, model.arch,
+                                   caps, pairs=2 * B)
+    with span("step.forward"):
+        feats_in = mask[:, None].to(torch.float32).expand(
+            -1, model.conv1.w.shape[1]).contiguous()
+        out = model(geom, feats_in, compute_dtype=compute_dtype, train=train)
+        feats, state = out if train else (out, None)
+        feats = feats.reshape(B, 2, N, -1)
     return feats[:, 0], feats[:, 1], state
 
 
@@ -151,9 +156,11 @@ def pair_losses(model: ResUNet, batch: Dict[str, torch.Tensor],
     pair's losses and metrics."""
     src_feat, tgt_feat, state = cloud_features(model, batch, caps,
                                                _dtype(cfg), train)
-    pw = pointwise_infonce(src_feat, batch["src_pts"], tgt_feat,
-                           batch["matches"], batch["match_mask"],
-                           tau=cfg.tau, neg_euclid_dist=cfg.neg_euclid_dist)
+    with span("step.losses"):
+        pw = pointwise_infonce(src_feat, batch["src_pts"], tgt_feat,
+                               batch["matches"], batch["match_mask"],
+                               tau=cfg.tau,
+                               neg_euclid_dist=cfg.neg_euclid_dist)
     metrics = {"pointwise_loss": pw}
     total = cfg.pw_loss_weight * pw
     if cfg.use_ume_loss:
@@ -163,32 +170,34 @@ def pair_losses(model: ResUNet, batch: Dict[str, torch.Tensor],
             batch["gt_tform"], num_samples=cfg.ume_n_samples,
             max_nn=cfg.ume_max_nn, min_nn=cfg.ume_min_nn, nn_r=cfg.ume_r_nn,
             flat_labels=tuple(cfg.flat_labels), normalize=True)
-        ume_l, valid = ume_contrastive_loss(
-            kp.src_ume, kp.tgt_ume, kp.kp_mask, tau=cfg.tau_ume,
-            tau_neg=cfg.tau_ume_neg)
-        metrics["ume_loss"] = ume_l
-        metrics["num_keypoints"] = torch.sum(kp.kp_mask.to(torch.float32), -1)
-        metrics["kp_truncated"] = kp.approx_truncated.to(torch.float32)
-        total = total + cfg.ume_loss_weight * ume_l
-        if cfg.use_reg_loss:
-            reg_l, rre, rte = cube_registration_loss(
-                kp.src_ume, kp.tgt_ume, valid, batch["gt_tform"],
-                kp.nn_intersection_ratio, cube_scale=cfg.reg_loss_cube_r,
-                nn_inter_ratio_thr=cfg.reg_loss_intersection_thr)
-            metrics["reg_loss"] = reg_l
-            nan = torch.full_like(rre, torch.nan)
-            metrics["rre_median"] = nanmedian_mean(torch.where(valid, rre,
-                                                               nan))
-            metrics["rte_median"] = nanmedian_mean(torch.where(valid, rte,
-                                                               nan))
-            # CHR: per-keypoint closed-form transforms within (5 deg, 0.6
-            # m) of ground truth (reference train_coloring.py:141)
-            vm = valid.to(torch.float32)
-            hit = ((rre <= cfg.chr_rot_thr_deg)
-                   & (rte <= cfg.chr_trans_thr_m)).to(torch.float32)
-            metrics["chr"] = torch.sum(hit * vm, -1) / torch.clamp(
-                torch.sum(vm, -1), min=1.0)
-            total = total + cfg.reg_loss_weight * reg_l
+        with span("step.losses"):
+            ume_l, valid = ume_contrastive_loss(
+                kp.src_ume, kp.tgt_ume, kp.kp_mask, tau=cfg.tau_ume,
+                tau_neg=cfg.tau_ume_neg)
+            metrics["ume_loss"] = ume_l
+            metrics["num_keypoints"] = torch.sum(
+                kp.kp_mask.to(torch.float32), -1)
+            metrics["kp_truncated"] = kp.approx_truncated.to(torch.float32)
+            total = total + cfg.ume_loss_weight * ume_l
+            if cfg.use_reg_loss:
+                reg_l, rre, rte = cube_registration_loss(
+                    kp.src_ume, kp.tgt_ume, valid, batch["gt_tform"],
+                    kp.nn_intersection_ratio, cube_scale=cfg.reg_loss_cube_r,
+                    nn_inter_ratio_thr=cfg.reg_loss_intersection_thr)
+                metrics["reg_loss"] = reg_l
+                nan = torch.full_like(rre, torch.nan)
+                metrics["rre_median"] = nanmedian_mean(
+                    torch.where(valid, rre, nan))
+                metrics["rte_median"] = nanmedian_mean(
+                    torch.where(valid, rte, nan))
+                # CHR: per-keypoint closed-form transforms within (5 deg,
+                # 0.6 m) of ground truth (reference train_coloring.py:141)
+                vm = valid.to(torch.float32)
+                hit = ((rre <= cfg.chr_rot_thr_deg)
+                       & (rte <= cfg.chr_trans_thr_m)).to(torch.float32)
+                metrics["chr"] = torch.sum(hit * vm, -1) / torch.clamp(
+                    torch.sum(vm, -1), min=1.0)
+                total = total + cfg.reg_loss_weight * reg_l
     metrics["total_loss"] = total
     return total, metrics, state
 
@@ -248,6 +257,7 @@ def make_train_step(cfg: TrainConfig, model: ResUNet,
     def means(metrics):
         if dp is not None:
             metrics = _dp_pairs(metrics, dp)
+        host_read("trainer.metrics", len(metrics))  # one read a metric
         return {k: float(torch.mean(v.detach())) for k, v in metrics.items()}
 
     def train_step(batch):
@@ -255,18 +265,22 @@ def make_train_step(cfg: TrainConfig, model: ResUNet,
         with tf32_off():
             total, metrics, state = pair_losses(model, batch, cfg, caps,
                                                 train=True)
-            torch.mean(total).backward()
+            with span("step.backward"):
+                torch.mean(total).backward()
             grads = [p.grad for p in params if p.grad is not None]
             if dp is not None:
                 with torch.no_grad():
                     _dp_mean_(grads, dp)
                     _dp_mean_(list(state.values()), dp)
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads]).all())
+            with span("step.grad_check"):
+                finite = bool(torch.stack([torch.isfinite(g).all()
+                                           for g in grads]).all())
+                host_read("trainer.grad_check")
             if finite:
                 optimizer.step()
                 model.load_bn_state(state)
-        out = means(metrics)
+        with span("step.metrics"):
+            out = means(metrics)
         out["nonfinite_grad"] = 0.0 if finite else 1.0
         return out
 
