@@ -85,8 +85,16 @@ Phases (any failure ends the run with a non-zero exit):
      N_out < N_in and > N_in, tiles whose rows use different groups, a
      group whose one user the order puts in the last tile, an unused tile
      and group, patho rows, the transposed slot order, int32 and int64
-     centres, bias); then the pair axis at B = 4 (the
-     four regime pairs, phase_pair_axis):
+     centres, bias); then the ball query ball_query (phase_ball_query:
+     against ball_query_plain on the card index for index at
+     ops/cuda_ball.forced_cases, points within a few fp32 steps of the
+     radius and a pair axis of three; then the training keypoint
+     selection's three calls a pair on four HDL-64 pairs at
+     train_kitti_config's 100000-row clouds, ball_query_call lines with
+     the mismatches, device time alone, one call an event pair, the plain
+     version's ms and the bound from the radius tests and bytes the inputs
+     need, and the four intersection calls as one launch); then the pair
+     axis at B = 4 (the four regime pairs, phase_pair_axis):
      nn1_argmin, nn1_copy_rows (against the three-step form too),
      ume_moments_fused and corr_scores_fused (four stage
      shapes) with a leading pair axis, and gather_rows over the flattened
@@ -353,6 +361,10 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
     # grouped conv's design, so it stands beside the same TPU-side source
     "grouped_row_order": ("umeregrobust_tpu_torch/csrc/grouped_row_order.cu",
                           "tools/exp_gather2.py:107"),
+    # a hand kernel for a plain-XLA part (the JAX ball query, a lax.scan of
+    # distance tiles and top-k selections): the training keypoint selection
+    "ball_query": ("umeregrobust_tpu_torch/csrc/ball_query.cu",
+                   "umeregrobust_tpu/ops/neighbors.py:68"),
 }
 FORWARD_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
                    "gather_rows", "sparse_conv_tapsplit", "sparse_conv_rowtile")
@@ -574,9 +586,11 @@ def ptxas_report(source="sparse_conv_taps.cu"):
 def launch_counts():
     """Every kernel wrapper's launch count."""
     from umeregrobust_tpu_torch.ops import (
-        cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn, cuda_ume)
+        cuda_ball, cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn,
+        cuda_ume)
 
     return {"nn1_argmin": cuda_nn.LAUNCHES,
+            "ball_query": cuda_ball.LAUNCHES,
             "nn1_copy_rows": cuda_nn.LAUNCHES_COPY,
             "ume_moments_fused": cuda_ume.LAUNCHES,
             "corr_scores_fused": cuda_corr.LAUNCHES,
@@ -587,9 +601,10 @@ def launch_counts():
 
 def reset_launch_counts():
     from umeregrobust_tpu_torch.ops import (
-        cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn, cuda_ume)
+        cuda_ball, cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn,
+        cuda_ume)
 
-    for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather):
+    for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather, cuda_ball):
         m.LAUNCHES = 0
     cuda_gather.LAUNCHES_BACKWARD = 0
     cuda_nn.LAUNCHES_COPY = 0
@@ -1102,6 +1117,162 @@ def phase_kernels(dev, model, pair, cfg):
         max_abs_err=err_all, ok=ok_all, library_ms=None, bound_by=by,
         stages=per_stage, forced=forced_res, **tot)
     return out
+
+
+BALL_QUERY_CALLS = ("intersection", "source_ball", "target_ball")
+
+
+def near_radius_case(rng, M, N, radius):
+    """Queries, and points at the radius from them within a few fp32 steps
+    either side: decisions that turn on the last bit of the squared
+    distance's rounding."""
+    q = rng.uniform(-40, 40, (M, 3)).astype(np.float32)
+    u = rng.normal(size=(N, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    scale = radius * (1 + rng.integers(-4, 5, (N, 1)) * 2.0 ** -23)
+    p = (q[rng.integers(0, M, N)] + u * scale).astype(np.float32)
+    return q, p
+
+
+def ball_query_work(q_mask, p_mask, idx, K):
+    """(radius tests, bytes) the inputs need: each valid query tests the
+    valid points up to its K-th hit, all of them where it has fewer; the
+    valid queries (coordinates, |q|^2) and points (coordinates, |p|^2,
+    mask) read once, the (M, K) int64 rows written."""
+    cum = np.cumsum(p_mask)
+    last = idx[:, K - 1]
+    tests = np.where(last >= 0, cum[np.maximum(last, 0)], cum[-1])
+    tests = int(tests[q_mask].sum())
+    n_bytes = (int(q_mask.sum()) * 16 + q_mask.size
+               + int(p_mask.sum()) * 17 + idx.size * 8)
+    return tests, n_bytes
+
+
+def phase_ball_query(dev):
+    """The ball_query kernel (ops/cuda_ball.py) against its plain version
+    (neighbors.ball_query_plain) on the card, index for index: the forced
+    cases (cuda_ball.forced_cases) and points within a few fp32 steps of
+    the radius, each case alone and, where shapes agree, as one pair-axis
+    launch; then a batch of four HDL-64 pairs at train_kitti_config's
+    widths (100000-row clouds, 256 keypoints, 750 in 5 m) through the
+    training keypoint selection, every ball_query call it makes held to
+    the plain version, the three calls' device time alone (kernel_ms, a
+    CUDA graph), one call an event pair (ms), the plain version's ms, the
+    bound from the tests and bytes the inputs need (ball_query_work), and
+    the four pairs' intersection calls as one pair-axis launch. No library
+    call computes the same function: library_ms is none."""
+    import torch
+
+    from umeregrobust_tpu_torch.ops import cuda_ball
+    from umeregrobust_tpu_torch.ops.neighbors import (
+        ball_query, ball_query_plain)
+    from umeregrobust_tpu_torch.pipeline import train_keypoints as tk
+    from umeregrobust_tpu_torch.train.trainer import batch_to_device
+
+    def on(x):
+        return None if x is None else torch.as_tensor(x).to(dev)
+
+    def mism(a, b):
+        return int((a != b).sum()) if a.shape == b.shape else a.numel()
+
+    forced = {}
+    cases = dict(cuda_ball.forced_cases())
+    rng = np.random.default_rng(29)
+    q, p = near_radius_case(rng, 200, 20000, 2.5)
+    cases["near_radius"] = (q, p, 2.5, 64, None, rng.random(20000) < 0.9)
+    for name, (q, p, r, K, qm, pm) in cases.items():
+        args = (on(q), on(p), r, K, on(qm), on(pm))
+        before = cuda_ball.LAUNCHES
+        got = ball_query(*args)
+        forced[name] = dict(
+            mismatches=mism(got, ball_query_plain(*args)),
+            hits=int((got >= 0).sum()),
+            launches=cuda_ball.LAUNCHES - before)
+    # a pair axis over three near-radius problems of one shape
+    probs = [near_radius_case(rng, 300, 5000, 1.0) for _ in range(3)]
+    masks = [rng.random(5000) < 0.8 for _ in probs]
+    got = ball_query(on(np.stack([a for a, _ in probs])),
+                     on(np.stack([b for _, b in probs])), 1.0, 40,
+                     p_mask=on(np.stack(masks)))
+    forced["pair_axis_B3"] = dict(mismatches=sum(
+        mism(got[i], ball_query_plain(on(a), on(b), 1.0, 40,
+                                      p_mask=on(m)))
+        for i, ((a, b), m) in enumerate(zip(probs, masks))),
+        hits=int((got >= 0).sum()), launches=1)
+    forced_ok = all(v["mismatches"] == 0 and v["launches"] == 1
+                    for v in forced.values())
+
+    # the training keypoint selection's calls, pair by pair
+    bt = batch_to_device(train_batch(4, 900, max_pc_size=100000), dev)
+    calls = []
+
+    def record(*a, **kw):
+        calls.append((a, kw, ball_query(*a, **kw)))
+        return calls[-1][2]
+
+    tk.ball_query = record
+    try:
+        with torch.no_grad():
+            for b in range(bt["src_pts"].shape[0]):
+                tk._select(bt["src_pts"][b], bt["src_seg"][b],
+                           bt["src_mask"][b], bt["tgt_pts"][b],
+                           bt["tgt_mask"][b], bt["gt_tform"][b], 256, 750,
+                           300, 5.0, 0.6, (9,))
+    finally:
+        tk.ball_query = ball_query
+    assert len(calls) == 3 * bt["src_pts"].shape[0]
+    rows = {}
+    for i, name in enumerate(BALL_QUERY_CALLS):
+        mine = calls[i::3]
+        a, kw, _ = mine[0]
+        K = kw["K"]
+        m = sum(mism(out, ball_query_plain(*a_, **kw_))
+                for a_, kw_, out in mine)
+        plain = ball_query_plain(*a, **kw)
+        tests, n_bytes = ball_query_work(
+            kw["q_mask"].cpu().numpy(), kw["p_mask"].cpu().numpy(),
+            plain.cpu().numpy(), K)
+        bb, by = bound_ms(n_bytes, 9 * tests)
+        rows[name] = dict(
+            shape=f"{a[0].shape[0]} queries ({int(kw['q_mask'].sum())} "
+                  f"valid) x {a[1].shape[0]} points "
+                  f"({int(kw['p_mask'].sum())} valid), K {K}, r "
+                  f"{kw['radius']}", mismatches=m, pairs=len(mine),
+            hits=int((plain >= 0).sum()), tests=tests,
+            kernel_ms=graph_ms(lambda: ball_query(*a, **kw)),
+            ms=time_ms(lambda: ball_query(*a, **kw)),
+            plain_ms=time_ms(lambda: ball_query_plain(*a, **kw), reps=3,
+                             warmup=1),
+            bound_ms=bb, bound_by=by)
+        emit({"phase": "ball_query_call", "call": name, **rows[name]})
+    # the four intersection calls as one pair-axis launch
+    inter = calls[0::3]
+    stack = {k: torch.stack([kw[k] for _, kw, _ in inter])
+             for k in ("q_mask", "p_mask")}
+    qs = torch.stack([a[0] for a, _, _ in inter])
+    ps = torch.stack([a[1] for a, _, _ in inter])
+    kw0 = dict(radius=inter[0][1]["radius"], K=inter[0][1]["K"], **stack)
+    got = ball_query(qs, ps, **kw0)
+    batched = dict(
+        B=len(inter), mismatches=sum(mism(got[i], out) for i, (_, _, out)
+                                     in enumerate(inter)),
+        kernel_ms_batched=graph_ms(lambda: ball_query(qs, ps, **kw0)))
+    emit({"phase": "ball_query_pair_axis", "call": "intersection",
+          **batched})
+    ok = (forced_ok and batched["mismatches"] == 0
+          and all(r["mismatches"] == 0 for r in rows.values()))
+    tot = {k: sum(r[k] for r in rows.values())
+           for k in ("kernel_ms", "ms", "plain_ms", "bound_ms")}
+    return dict(
+        shape="the training keypoint selection's three calls a pair at "
+              "train_kitti_config: " + "; ".join(
+                  f"{k} {r['shape']}" for k, r in rows.items()),
+        max_abs_err=float(sum(r["mismatches"] for r in rows.values())
+                          + sum(v["mismatches"] for v in forced.values())),
+        ok=ok, library_ms=None, calls=rows, forced=forced,
+        bound_by=max(rows.values(), key=lambda r: r["bound_ms"])["bound_by"],
+        B=batched["B"], kernel_ms_b1=rows["intersection"]["kernel_ms"],
+        kernel_ms_batched=batched["kernel_ms_batched"], **tot)
 
 
 def stacked_args(ps):
@@ -4114,14 +4285,16 @@ RESUNET_TRAIN_RATIOS = (1.0, 0.1328125, 0.046875, 0.0234375, 0.0078125,
                         0.0078125)  # default_level_capacities(16384, ResUNet)
 
 
-def train_batch(n_pairs, seed):
+def train_batch(n_pairs, seed, max_pc_size=16384):
     """n_pairs lidar pairs at HDL-64 density (phase 5h's scenes), collated
-    at train_kitti_config's widths: 16384 voxels a cloud, 512 matches."""
+    at train_kitti_config's widths: max_pc_size voxels a cloud (the config
+    has 100000; the training phase cuts it to 16384), 512 matches."""
     from umeregrobust_tpu_torch.data.synthetic import (
         SceneConfig, make_collated_batch)
 
     return make_collated_batch(SceneConfig(seed=seed, **HDL64), n_pairs,
-                               max_pc_size=16384, num_matches=512, seed=seed)
+                               max_pc_size=max_pc_size, num_matches=512,
+                               seed=seed)
 
 
 def ume_gather_indices(batch, dev, num_samples=256, max_nn=750, min_nn=300,
@@ -6420,6 +6593,7 @@ def main() -> int:
           "ptxas_sparse_conv_grouped_wgrad": ptxas_report(
               "sparse_conv_grouped_wgrad.cu"),
           "ptxas_nn1_argmin": ptxas_report("nn1_argmin.cu"),
+          "ptxas_ball_query": ptxas_report("ball_query.cu"),
           "ptxas_gather_rows_backward": {
               k: v for k, v in ptxas_report("gather_rows.cu").items()
               if k.startswith("seg_")}})
@@ -6436,6 +6610,7 @@ def main() -> int:
     # --- 3. kernels
     kern = phase_kernels(dev, model, pairs[0], cfg)
     kern.update(phase_kernels_family(dev, pairs[0], cfg))
+    kern["ball_query"] = phase_ball_query(dev)
     conv_layers = phase_conv_layers(dev, pairs[0], weights)
     forced, forced_ok = conv_forced_cases(dev)
     emit({"phase": "conv_forced", "ok": forced_ok, **forced})
@@ -6903,10 +7078,10 @@ def main() -> int:
                "train_small2": ("gather_rows", "gather_rows_backward",
                                 "sparse_conv_grouped",
                                 "sparse_conv_grouped_wgrad",
-                                "grouped_row_order"),
+                                "grouped_row_order", "ball_query"),
                "train_resunet": ("gather_rows", "gather_rows_backward",
                                  "sparse_conv_rowtile", "sparse_conv_tapsplit",
-                                 "sparse_conv_wgrad"),
+                                 "sparse_conv_wgrad", "ball_query"),
                "train_cli": ("gather_rows", "gather_rows_backward",
                              "sparse_conv_grouped",
                              "sparse_conv_grouped_wgrad",

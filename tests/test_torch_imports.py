@@ -16,7 +16,7 @@ import torch
 import _torch_parity  # noqa: F401  (single-threaded torch)
 from umeregrobust_tpu_torch.ops import (
     _build, cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn, cuda_ume)
-from umeregrobust_tpu_torch.ops.neighbors import gather_padded
+from umeregrobust_tpu_torch.ops.neighbors import ball_query, gather_padded
 from umeregrobust_tpu_torch.ops.sparse import (
     GroupedMap, sparse_conv, sparse_conv_grouped)
 
@@ -329,6 +329,10 @@ def test_load_library_raises_without_nvcc(no_nvcc):
     lambda d: cuda_grouped.sparse_conv_grouped_dx(
         torch.zeros(8, 6, device=d), torch.zeros(27, 4, 6, device=d),
         _grouped_map(d), True, compute_dtype=torch.bfloat16),
+    lambda d: ball_query(torch.zeros(4, 3, device=d),
+                         torch.zeros(8, 3, device=d), 1.0, 2,
+                         torch.ones(4, dtype=torch.bool, device=d),
+                         torch.ones(8, dtype=torch.bool, device=d)),
 ], ids=["nn1_argmin", "nn1_copy_rows", "ume_moments_fused",
         "ume_moments_fused_caps",
         "corr_scores_fused", "gather_rows", "gather_padded",
@@ -336,7 +340,8 @@ def test_load_library_raises_without_nvcc(no_nvcc):
         "conv_entries", "gather_rows_backward", "sparse_conv_wgrad",
         "sparse_conv_grouped_kernel", "sparse_conv_grouped",
         "sparse_conv_grouped_wgrad", "grouped_row_order",
-        "grouped_row_orders", "weight_tiles", "sparse_conv_grouped_dx"])
+        "grouped_row_orders", "weight_tiles", "sparse_conv_grouped_dx",
+        "ball_query"])
 def test_wrappers_raise_instead_of_falling_back(no_nvcc, call):
     # a non-CPU tensor never takes the plain version: without a kernel
     # library the wrapper raises
@@ -389,7 +394,8 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
         "nn1_argmin", "ume_moments_fused", "corr_scores_fused", "gather_rows",
         "sparse_conv_rowtile", "sparse_conv_tapsplit",
         "gather_rows_backward", "sparse_conv_wgrad", "sparse_conv_grouped",
-        "sparse_conv_grouped_wgrad", "grouped_row_order", "nn1_copy_rows"])
+        "sparse_conv_grouped_wgrad", "grouped_row_order", "nn1_copy_rows",
+        "ball_query"])
     entry = {"ume_moments_fused": "umr_ume_moments",
              "corr_scores_fused": "umr_corr_scores"}
     for name, (source, replaces) in kernels.items():
@@ -412,9 +418,10 @@ def _c_params(src, fn):
 @pytest.mark.parametrize("fn,source", [
     ("umr_nn1_argmin", "nn1_argmin.cu"), ("umr_ume_moments", "ume_moments.cu"),
     ("umr_corr_scores", "corr_scores.cu"),
-    ("umr_nn1_copy_rows", "nn1_argmin.cu")])
+    ("umr_nn1_copy_rows", "nn1_argmin.cu"),
+    ("umr_ball_query", "ball_query.cu")])
 def test_pair_axis_entries_have_their_ctypes_signature(fn, source):
-    # the C entries of the three kernels with a pair axis take B, and
+    # the C entries of the kernels with a pair axis take B, and
     # _SIGNATURES lists every argument with its ctypes type (a pointer
     # without one would be cut to 32 bits)
     params = _c_params((PKG / "csrc" / source).read_text(), fn)

@@ -76,6 +76,8 @@ _SIGNATURES = {
     "umr_sparse_conv_grouped_wgrad": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _VP, _VP, _VP, _VP, _LL, _LL, _INT,
                                       _INT, _INT, _INT, _INT, _VP],
+    "umr_ball_query": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                       _INT, _FLT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

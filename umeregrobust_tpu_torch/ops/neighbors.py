@@ -7,12 +7,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from umeregrobust_tpu_torch.ops import cuda_ball
 from umeregrobust_tpu_torch.ops.cuda_gather import (
     GatherRows, gather_rows_plain)
 from umeregrobust_tpu_torch.utils.profiling import host_read
 
-__all__ = ["pairwise_sqdist", "sqdist3", "ball_query", "knn", "gather_padded", "topk_stable",
-           "take_rows"]
+__all__ = ["pairwise_sqdist", "sqdist3", "ball_query", "ball_query_plain",
+           "knn", "gather_padded", "topk_stable", "take_rows"]
 
 _BIG = 1e30
 
@@ -74,7 +75,27 @@ def ball_query(
     index order, whose squared distance (pairwise_sqdist) to the query is
     <= radius^2 (fp32), -1 padded (PyTorch3D's ball_query semantics).
     Invalid points (p_mask False) never match; invalid queries (q_mask
-    False) get a row of -1. Queries go `chunk` at a time; K <= N."""
+    False) get a row of -1. K <= N. On a CPU tensor the plain version
+    (`ball_query_plain`, queries `chunk` at a time); on a CUDA tensor the
+    kernel (`ops.cuda_ball.ball_query`: the same indices, one launch, no
+    host read), or it raises."""
+    if query.device.type == "cpu":
+        return ball_query_plain(query, points, radius, K, q_mask, p_mask,
+                                chunk)
+    return cuda_ball.ball_query(query, points, radius, K, q_mask, p_mask)
+
+
+def ball_query_plain(
+    query: torch.Tensor,
+    points: torch.Tensor,
+    radius: float,
+    K: int,
+    q_mask: Optional[torch.Tensor] = None,
+    p_mask: Optional[torch.Tensor] = None,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """`ball_query`'s plain version on any device: per `chunk` queries a
+    distance tile (pairwise_sqdist) and a top-k of the in-radius indices."""
     N = points.shape[0]
     r2 = torch.tensor(float(radius), dtype=torch.float32) ** 2
     col = torch.arange(N, dtype=torch.int32, device=points.device)
