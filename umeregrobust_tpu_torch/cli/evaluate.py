@@ -30,7 +30,11 @@ Without --synthetic the CLI reads the benchmark's dataset: the YAML's
 empty: preprocess the raw scans), each settable with --set. A
 `model_checkpoint_path` ending in .pth / .pt is a MinkowskiEngine
 checkpoint of the reference (models/convert.py); any other existing path
-is a .pkl checkpoint of this project.
+is a .pkl checkpoint of this project. The network is the ARCHS entry
+whose parameter names and shapes the checkpoint holds exactly
+(ResUNetSmall2 in smoke mode, as the reference's evaluate.py:163 builds);
+its level capacities are ResUNetSmall2's five ratios of max_pc_size, or
+models/resunet.default_level_capacities for any other entry.
 """
 from __future__ import annotations
 
@@ -49,10 +53,11 @@ from umeregrobust_tpu_torch.data.datasets import (
 from umeregrobust_tpu_torch.data.sem import SEMConfig, equalize_sampling
 from umeregrobust_tpu_torch.data.synthetic import SceneConfig, make_pair
 from umeregrobust_tpu_torch.devices import resolve_device
-from umeregrobust_tpu_torch.models.resunet import ARCHS, init_resunet
+from umeregrobust_tpu_torch.models.resunet import (
+    ARCHS, ArchSpec, ResUNet, default_level_capacities, init_resunet)
 from umeregrobust_tpu_torch.models.convert import load_torch_checkpoint
 from umeregrobust_tpu_torch.models.weights import (
-    load_checkpoint, model_from_params)
+    _flatten, load_checkpoint, model_from_params)
 from umeregrobust_tpu_torch.ops.voxel import coords_to_grid_pts_np, quantize_np
 from umeregrobust_tpu_torch.pipeline.e2e import (
     pair_features_e2e, register_pair_e2e)
@@ -186,14 +191,46 @@ def _known_set_keys(yaml_keys) -> set:
     return keys
 
 
+def _arch_of(params, state, out_channels: int) -> ArchSpec:
+    """The one ARCHS entry whose parameter names and shapes the
+    (params, bn_state) pytrees hold exactly (each entry's state dict is
+    laid out on the meta device: no memory). Refused with the candidates
+    named where none or several match."""
+    held = {k: tuple(np.shape(v))
+            for k, v in {**_flatten(params), **_flatten(state)}.items()}
+    found = []
+    for name, arch in ARCHS.items():
+        with torch.device("meta"):
+            want = {k: tuple(t.shape) for k, t in
+                    ResUNet(arch, 1, out_channels).state_dict().items()}
+        if want == held:
+            found.append(name)
+    if len(found) != 1:
+        raise ValueError(
+            f"the checkpoint's {len(held)} parameters match "
+            f"{'no' if not found else 'several'} ARCHS entries "
+            f"({found or 'none'}) at out_ch={out_channels}; candidates: "
+            f"{sorted(ARCHS)}")
+    return ARCHS[found[0]]
+
+
+def _level_caps(sem_cap: int, arch: ArchSpec):
+    """Per-level voxel capacities: ResUNetSmall2's five ratios of the SEM
+    cap (the JAX CLI's), default_level_capacities for any other arch."""
+    if arch == ARCHS["ResUNetSmall2"]:
+        return tuple(int(-(-int(sem_cap * r) // 128) * 128)
+                     for r in (1.0, 0.75, 0.4, 0.2, 0.08))
+    return default_level_capacities(sem_cap, arch)
+
+
 def _load_model(args, device):
-    """(arch, ResUNetSmall2 on `device`): the weights of a MinkowskiEngine
+    """(arch, its ResUNet on `device`): the weights of a MinkowskiEngine
     .pth / .pt checkpoint (models/convert.load_torch_checkpoint, taps in
-    ME's x-fastest order) or of a .pkl checkpoint; a missing path gives
-    seeded random parameters ("smoke mode", init_resunet from a generator
-    seeded 0: not the JAX CLI's PRNGKey(0) parameters, which torch cannot
-    draw)."""
-    arch = ARCHS["ResUNetSmall2"]
+    ME's x-fastest order) or of a .pkl checkpoint, the arch the one whose
+    names and shapes they hold (`_arch_of`); a missing path gives a
+    ResUNetSmall2 of seeded random parameters ("smoke mode", init_resunet
+    from a generator seeded 0: not the JAX CLI's PRNGKey(0) parameters,
+    which torch cannot draw)."""
     path = getattr(args, "model_checkpoint_path", "")
     if path and os.path.exists(path):
         if path.endswith((".pth", ".pt")):
@@ -201,11 +238,13 @@ def _load_model(args, device):
         else:
             blob = load_checkpoint(path)
             params, state = blob["params"], blob["bn_state"]
+        arch = _arch_of(params, state, int(args.out_ch))
         model = model_from_params(params, state, arch, device=device,
                                   out_channels=int(args.out_ch))
         print(f"loaded checkpoint: {path}")
     else:
         print(f"checkpoint {path!r} not found -> random init (smoke mode)")
+        arch = ARCHS["ResUNetSmall2"]
         model = init_resunet(arch, 1, int(args.out_ch), device=device,
                              generator=torch.Generator(
                                  device=device).manual_seed(0))
@@ -226,15 +265,14 @@ def evaluate_pairs(args, pair_iter, n_pairs: int) -> Dict[str, float]:
     main thread's call and the read of its transform) with the transform
     itself, the escalations and, on the card, the peak device memory."""
     dev = resolve_device(getattr(args, "device", "cuda"))
-    _, model = _load_model(args, dev)
+    arch, model = _load_model(args, dev)
     reg_cfg = _registration_cfg(args)
     cell_fine, dims_fine = fine_grid_geometry(reg_cfg)
     occ_stats = {"worst_win": 0, "worst_raw": 0, "box_pts": 0,
                  "box_pairs": 0, "escalations": []}
     sem_cap = int(args.max_pc_size)
     corr_cap = int(args.pc_corr_max_size)
-    caps = tuple(int(-(-int(sem_cap * r) // 128) * 128)
-                 for r in (1.0, 0.75, 0.4, 0.2, 0.08))
+    caps = _level_caps(sem_cap, arch)
     seed = int(args.seed)
 
     def corr_prep(raw_pts, q, rng):

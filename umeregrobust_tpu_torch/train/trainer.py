@@ -91,9 +91,17 @@ class TrainConfig:
 
 
 def _capacities(cfg: TrainConfig, arch: ArchSpec) -> Tuple[int, ...]:
+    """Per-level voxel capacities: each of cfg.level_capacity_ratios (one
+    a level of `arch`, else ValueError) times max_pc_size, rounded up to
+    a multiple of 128."""
+    ratios = cfg.level_capacity_ratios
+    if len(ratios) != len(arch.channels):
+        name = next((k for k, v in ARCHS.items() if v == arch), str(arch))
+        raise ValueError(
+            f"level_capacity_ratios has {len(ratios)} entries; {name} has "
+            f"{len(arch.channels)} levels: give one ratio a level")
     n0 = cfg.max_pc_size
-    return tuple(int(-(-int(n0 * r) // 128) * 128)
-                 for r in cfg.level_capacity_ratios[: len(arch.channels)])
+    return tuple(int(-(-int(n0 * r) // 128) * 128) for r in ratios)
 
 
 def _dtype(cfg: TrainConfig) -> torch.dtype:
