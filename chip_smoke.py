@@ -93,7 +93,12 @@ Phases (any failure ends the run with a non-zero exit):
      train_kitti_config's 100000-row clouds, ball_query_call lines with
      the mismatches, device time alone, one call an event pair, the plain
      version's ms and the bound from the radius tests and bytes the inputs
-     need, and the four intersection calls as one launch); then the pair
+     need, and the four intersection calls as one launch); then the SO(3)
+     solver kabsch_rotation (phase_kabsch: against kabsch_rotation_plain
+     on the card bit for bit at ops/cuda_so3.forced_cases and random H at
+     n = 8, 20000 and 262144, 3 and 6 sweeps each, one launch a call;
+     kabsch_call lines with the mismatches, device time alone, one call an
+     event pair, the plain version's ms and the bound); then the pair
      axis at B = 4 (the four regime pairs, phase_pair_axis):
      nn1_argmin, nn1_copy_rows (against the three-step form too),
      ume_moments_fused and corr_scores_fused (four stage
@@ -365,6 +370,11 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
     # distance tiles and top-k selections): the training keypoint selection
     "ball_query": ("umeregrobust_tpu_torch/csrc/ball_query.cu",
                    "umeregrobust_tpu/ops/neighbors.py:68"),
+    # a hand kernel for a plain-XLA part (the JAX SO(3) solver, Horn's 4x4
+    # and fixed Jacobi sweeps): ICP's umeyama, the consensus refit and
+    # polish and the UME estimator
+    "kabsch_rotation": ("umeregrobust_tpu_torch/csrc/kabsch.cu",
+                        "umeregrobust_tpu/core/so3.py:95"),
 }
 FORWARD_KERNELS = ("nn1_argmin", "ume_moments_fused", "corr_scores_fused",
                    "gather_rows", "sparse_conv_tapsplit", "sparse_conv_rowtile")
@@ -587,10 +597,11 @@ def launch_counts():
     """Every kernel wrapper's launch count."""
     from umeregrobust_tpu_torch.ops import (
         cuda_ball, cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn,
-        cuda_ume)
+        cuda_so3, cuda_ume)
 
     return {"nn1_argmin": cuda_nn.LAUNCHES,
             "ball_query": cuda_ball.LAUNCHES,
+            "kabsch_rotation": cuda_so3.LAUNCHES,
             "nn1_copy_rows": cuda_nn.LAUNCHES_COPY,
             "ume_moments_fused": cuda_ume.LAUNCHES,
             "corr_scores_fused": cuda_corr.LAUNCHES,
@@ -602,9 +613,10 @@ def launch_counts():
 def reset_launch_counts():
     from umeregrobust_tpu_torch.ops import (
         cuda_ball, cuda_conv, cuda_corr, cuda_gather, cuda_grouped, cuda_nn,
-        cuda_ume)
+        cuda_so3, cuda_ume)
 
-    for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather, cuda_ball):
+    for m in (cuda_nn, cuda_ume, cuda_corr, cuda_gather, cuda_ball,
+              cuda_so3):
         m.LAUNCHES = 0
     cuda_gather.LAUNCHES_BACKWARD = 0
     cuda_nn.LAUNCHES_COPY = 0
@@ -1273,6 +1285,87 @@ def phase_ball_query(dev):
         bound_by=max(rows.values(), key=lambda r: r["bound_ms"])["bound_by"],
         B=batched["B"], kernel_ms_b1=rows["intersection"]["kernel_ms"],
         kernel_ms_batched=batched["kernel_ms_batched"], **tot)
+
+
+KABSCH_COUNTS = (8, 20000, 262144)  # matrices a call on the main path
+
+
+def kabsch_work(n, sweeps):
+    """(bytes, fp32 operations) of n solves as csrc/kabsch.cu makes them: H
+    read and R written once, 72 bytes a matrix; 94 operations around the
+    sweeps (|H|^2, the scale, Horn's matrix, the argmax, the norm, the
+    rotation) and 78 a Jacobi rotation, six a sweep, each library call
+    (atan2f, cosf, sinf, sqrtf) counted as one operation: a floor."""
+    return 72 * n, n * (94 + 6 * 78 * sweeps)
+
+
+def phase_kabsch(dev):
+    """The SO(3) solver's kernel (ops/cuda_so3.py, csrc/kabsch.cu) against
+    its plain version (core/so3.kabsch_rotation_plain) on the card, bit for
+    bit (a NaN equal to a NaN): the forced cases (cuda_so3.forced_cases)
+    and random cross-covariances over six decades of scale at the main
+    path's counts (KABSCH_COUNTS: ICP's umeyama at B = 8; the consensus
+    refit and polish and the estimator, up to 8 x 2,500; rtume_estimate),
+    each at 3 and 6 sweeps, one launch a call; at each count the device
+    time alone (kernel_ms, a CUDA graph), one call an event pair (ms), the
+    plain version's ms and the bound from the bytes and operations
+    (kabsch_work). No library call computes the same function
+    (torch.linalg.svd gives the exact optimum, not the sweeps' result):
+    library_ms is none."""
+    import torch
+
+    from umeregrobust_tpu_torch.core.so3 import (
+        kabsch_rotation, kabsch_rotation_plain)
+    from umeregrobust_tpu_torch.ops import cuda_so3
+
+    def mism(a, b):
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (
+            torch.isnan(a) & torch.isnan(b))
+        return int((~same).sum())
+
+    def check(H, sweeps):
+        before = cuda_so3.LAUNCHES
+        got = kabsch_rotation(H, sweeps)
+        return dict(mismatches=mism(got, kabsch_rotation_plain(H, sweeps)),
+                    launches=cuda_so3.LAUNCHES - before)
+
+    forced, rows = {}, {}
+    g = torch.Generator(device=dev).manual_seed(25)
+    with torch.no_grad():
+        for name, H in cuda_so3.forced_cases().items():
+            for sweeps in (3, 6):
+                forced[f"{name}.sweeps{sweeps}"] = check(
+                    torch.as_tensor(H, device=dev), sweeps)
+        for n in KABSCH_COUNTS:
+            H = torch.randn(n, 3, 3, device=dev, generator=g) * torch.exp(
+                2.0 * torch.randn(n, 1, 1, device=dev, generator=g))
+            for sweeps in (3, 6):
+                bb, by = bound_ms(*kabsch_work(n, sweeps))
+                key = f"n{n}.sweeps{sweeps}"
+                rows[key] = dict(
+                    n=n, sweeps=sweeps, **check(H, sweeps),
+                    kernel_ms=graph_ms(lambda: kabsch_rotation(H, sweeps)),
+                    ms=time_ms(lambda: kabsch_rotation(H, sweeps)),
+                    plain_ms=time_ms(
+                        lambda: kabsch_rotation_plain(H, sweeps), reps=5,
+                        warmup=1),
+                    bound_ms=bb, bound_by=by)
+                emit({"phase": "kabsch_call", "call": key, **rows[key]})
+    forced_ok = all(v["mismatches"] == 0 and v["launches"] == 1
+                    for v in forced.values())
+    emit({"phase": "kabsch_forced", "ok": forced_ok, **forced})
+    ok = forced_ok and all(r["mismatches"] == 0 and r["launches"] == 1
+                           for r in rows.values())
+    tot = {k: sum(r[k] for r in rows.values())
+           for k in ("kernel_ms", "ms", "plain_ms", "bound_ms")}
+    return dict(
+        shape="sum over random H at n = " + ", ".join(
+            map(str, KABSCH_COUNTS)) + ", each at 3 and 6 sweeps",
+        max_abs_err=float(sum(r["mismatches"] for r in rows.values())
+                          + sum(v["mismatches"] for v in forced.values())),
+        ok=ok, library_ms=None, calls=rows, forced=forced,
+        bound_by=max(rows.values(), key=lambda r: r["bound_ms"])["bound_by"],
+        **tot)
 
 
 def stacked_args(ps):
@@ -6594,6 +6687,7 @@ def main() -> int:
               "sparse_conv_grouped_wgrad.cu"),
           "ptxas_nn1_argmin": ptxas_report("nn1_argmin.cu"),
           "ptxas_ball_query": ptxas_report("ball_query.cu"),
+          "ptxas_kabsch": ptxas_report("kabsch.cu"),
           "ptxas_gather_rows_backward": {
               k: v for k, v in ptxas_report("gather_rows.cu").items()
               if k.startswith("seg_")}})
@@ -6611,6 +6705,7 @@ def main() -> int:
     kern = phase_kernels(dev, model, pairs[0], cfg)
     kern.update(phase_kernels_family(dev, pairs[0], cfg))
     kern["ball_query"] = phase_ball_query(dev)
+    kern["kabsch_rotation"] = phase_kabsch(dev)
     conv_layers = phase_conv_layers(dev, pairs[0], weights)
     forced, forced_ok = conv_forced_cases(dev)
     emit({"phase": "conv_forced", "ok": forced_ok, **forced})
@@ -7066,14 +7161,16 @@ def main() -> int:
             failures.append(f"train_synthetic {part}: a non-finite loss, no "
                             "pickle, a kernel off its plain version or a "
                             "non-finite transform")
-    # a kernel of a path must have launched in that path's counted run
-    on_path = {"e2e": MAIN_KERNELS, "batched": MAIN_KERNELS,
+    # a kernel of a path must have launched in that path's counted run; the
+    # SO(3) solver on every serving path (ICP, consensus, the estimator)
+    serving = MAIN_KERNELS + ("kabsch_rotation",)
+    on_path = {"e2e": serving, "batched": serving,
                "batched_resunet": ("nn1_argmin", "nn1_copy_rows",
                                    "sparse_conv_rowtile",
                                    "sparse_conv_tapsplit"),
-               "hungarian": MAIN_KERNELS,
-               **{p_: MAIN_KERNELS for p_ in data_paths if p_ != "rtume"},
-               "rtume": ("ume_moments_fused",),
+               "hungarian": serving,
+               **{p_: serving for p_ in data_paths if p_ != "rtume"},
+               "rtume": ("ume_moments_fused", "kabsch_rotation"),
                "family": FORWARD_KERNELS,
                "train_small2": ("gather_rows", "gather_rows_backward",
                                 "sparse_conv_grouped",
@@ -7100,7 +7197,8 @@ def main() -> int:
                   for k in wide},
                "scan": ("nn1_argmin", "nn1_copy_rows", "ume_moments_fused",
                         "corr_scores_fused", "gather_rows",
-                        "sparse_conv_rowtile", "sparse_conv_tapsplit")}
+                        "sparse_conv_rowtile", "sparse_conv_tapsplit",
+                        "kabsch_rotation")}
     for path, names_ in on_path.items():
         for k in names_:
             if paths[path][k] <= 0:

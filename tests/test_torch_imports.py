@@ -395,7 +395,7 @@ def test_every_listed_kernel_has_a_source_and_an_entry_point():
         "sparse_conv_rowtile", "sparse_conv_tapsplit",
         "gather_rows_backward", "sparse_conv_wgrad", "sparse_conv_grouped",
         "sparse_conv_grouped_wgrad", "grouped_row_order", "nn1_copy_rows",
-        "ball_query"])
+        "ball_query", "kabsch_rotation"])
     entry = {"ume_moments_fused": "umr_ume_moments",
              "corr_scores_fused": "umr_corr_scores"}
     for name, (source, replaces) in kernels.items():

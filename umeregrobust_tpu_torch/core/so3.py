@@ -6,6 +6,15 @@
   Ported as it is (not replaced by torch.linalg.svd): at 3 sweeps the
   solver deviates up to 0.13 deg from the exact solution, and the
   pipeline's results depend on that.
+  Dispatch (ops/cuda_so3.route): a CPU tensor runs kabsch_rotation_plain;
+  a CUDA tensor that autograd differentiates (the training loss,
+  losses.cube_registration_loss) runs it too, for its graph, counted in
+  ops/cuda_so3.AUTOGRAD_CALLS; any other CUDA tensor launches the kernel
+  csrc/kabsch.cu once a call (ops/cuda_so3.kabsch_rotation) or raises.
+  Tier-1 holds kabsch_rotation_plain to the JAX package
+  (tests/test_torch_core.py, tests/test_torch_kabsch.py); the card holds
+  the kernel to kabsch_rotation_plain bit for bit
+  (tests/test_torch_kabsch_card.py).
 - gram_schmidt: column-orthonormal basis by modified Gram-Schmidt with one
   reorthogonalization pass; rank-deficient columns come out as zeros.
 """
@@ -13,7 +22,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["kabsch_rotation", "quat_to_rot", "gram_schmidt"]
+from umeregrobust_tpu_torch.ops import cuda_so3
+
+__all__ = ["kabsch_rotation", "kabsch_rotation_plain", "quat_to_rot",
+           "gram_schmidt"]
 
 _PAIRS = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
 
@@ -67,6 +79,19 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
 
 
 def kabsch_rotation(H: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
+    """Optimal proper rotation R = argmin sum_i |R p_i - q_i|^2 given the
+    cross-covariance H = sum_i p_i q_i^T, batched over leading dims: the
+    kernel or the plain version, as the module docstring says."""
+    way = cuda_so3.route(H.device.type, torch.is_grad_enabled(),
+                         H.requires_grad)
+    if way == "kernel":
+        return cuda_so3.kabsch_rotation(H, sweeps)
+    if way == "autograd":
+        cuda_so3.AUTOGRAD_CALLS += 1
+    return kabsch_rotation_plain(H, sweeps)
+
+
+def kabsch_rotation_plain(H: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
     """Optimal proper rotation R = argmin sum_i |R p_i - q_i|^2 given the
     cross-covariance H = sum_i p_i q_i^T, batched over leading dims."""
     H = H.to(torch.float32)

@@ -78,6 +78,7 @@ _SIGNATURES = {
                                       _INT, _INT, _INT, _INT, _VP],
     "umr_ball_query": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                        _INT, _FLT, _VP],
+    "umr_kabsch_rotation": [_VP, _VP, _LL, _INT, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
